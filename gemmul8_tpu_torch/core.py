@@ -1,0 +1,352 @@
+"""Ozaki-scheme-II GEMM emulation, real INT8 fast path, in PyTorch:
+shifts -> residue planes -> one exact int8 product per modulus -> mod + CRT
++ descale -> alpha/beta epilogue.
+
+The counterpart of gemmul8_tpu/core.py. On the card the planes come from the
+encode kernel, the products from torch._int_mm (the vendor int8 product, as
+the JAX package leaves its dot to XLA) and the "ff" epilogue from one fused
+kernel; on the CPU the same code runs each kernel's plain version. Results are
+bit-equal to the JAX package on the CPU.
+
+Each `x + y*z` that XLA:CPU contracts to an FMA under jit is written as
+torch.addcmul, which computes the fused result, so the "f64" epilogue and the
+alpha/beta epilogue match JAX bit for bit. XLA fuses the first product of
+`p + q` when both are products, which _dot_fma and _gemm_real follow.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from . import ff, kernels, quantize, tables
+
+# int32 accumulation of int8 residue products is exact up to this K
+# (|r| <= 128 -> product <= 2^14; 2^14 * 2^17 = 2^31)
+K_CHUNK = 1 << 17
+
+_DTYPE_NAMES = {torch.float32: "float32", torch.float64: "float64"}
+
+
+def residue_matmul(a_planes: torch.Tensor, b_planes: torch.Tensor
+                   ) -> torch.Tensor:
+    """(nu, m, k) int8 @ (nu, k, n) int8 -> (nu, m, n) int32, exact: one
+    torch._int_mm per modulus into a preallocated C_hi."""
+    nu, m, _ = a_planes.shape
+    n = b_planes.shape[2]
+    c_hi = torch.empty((nu, m, n), dtype=torch.int32, device=a_planes.device)
+    for i in range(nu):
+        torch._int_mm(a_planes[i], b_planes[i], out=c_hi[i])
+    return c_hi
+
+
+def _wrap(v: torch.Tensor, p: int) -> torch.Tensor:
+    r = torch.remainder(v, p)
+    return torch.where(2 * r >= p, r - p, r)
+
+
+def mod_reduce(c_hi: torch.Tensor, num_moduli: int, backend: str) -> torch.Tensor:
+    """C_mid[i] = wrap(C_hi[i] mod p_i) -> int8 (reference: conv_hi2mid_real.hpp)."""
+    mods = tables.moduli(backend)[:num_moduli]
+    return torch.stack([_wrap(c_hi[i], p).to(torch.int8)
+                        for i, p in enumerate(mods)])
+
+
+def _chunked_residue_acc(a_planes, b_planes, num_moduli, backend):
+    """K-chunked int32 residue accumulator: the sum of per-chunk [0, p)
+    partial residues (exact; <= n_chunks * p < 2^31)."""
+    mods = tables.moduli(backend)[:num_moduli]
+    k = a_planes.shape[2]
+    acc = None
+    for lo in range(0, k, K_CHUNK):
+        sl = slice(lo, min(lo + K_CHUNK, k))
+        c_hi = residue_matmul(a_planes[:, :, sl], b_planes[:, sl, :])
+        part = torch.stack([torch.remainder(c_hi[i], p)
+                            for i, p in enumerate(mods)])
+        acc = part if acc is None else acc + part
+    return acc
+
+
+def residue_gemm(a_planes: torch.Tensor, b_planes: torch.Tensor,
+                 num_moduli: int, backend: str) -> torch.Tensor:
+    """Full-K exact residue GEMM -> wrapped int8 C_mid (nu, m, n); K beyond
+    K_CHUNK is summed in residue space."""
+    if a_planes.shape[2] <= K_CHUNK:
+        return mod_reduce(residue_matmul(a_planes, b_planes), num_moduli,
+                          backend)
+    acc = _chunked_residue_acc(a_planes, b_planes, num_moduli, backend)
+    return mod_reduce(acc, num_moduli, backend)
+
+
+def _scalar(v: float, like: torch.Tensor) -> torch.Tensor:
+    return torch.tensor(v, dtype=torch.float64, device=like.device)
+
+
+def _dot_fma(coefs, planes):
+    """sum_i coefs[i] * planes[i] in order, contracted as XLA:CPU contracts
+    `c0*p0 + c1*p1 + ...`: fma(c0, p0, c1*p1), then fma(c_i, p_i, acc)."""
+    if len(planes) == 1:
+        return coefs[0] * planes[0]
+    acc = torch.addcmul(coefs[1] * planes[1], coefs[0], planes[0])
+    for i in range(2, len(planes)):
+        acc = torch.addcmul(acc, coefs[i], planes[i])
+    return acc
+
+
+def crt_reconstruct(c_mid: torch.Tensor, num_moduli: int, backend: str,
+                    out_dtype) -> torch.Tensor:
+    """Fixed-order CRT accumulation + wrap in f64 (reference:
+    inverse_scaling_real.hpp:8-89): f64 values of the reconstructed integers
+    t, |t| < P/2, before inverse scaling. Double-double accumulation when P
+    exceeds f64 and the output is 64-bit."""
+    use_dd = out_dtype == torch.float64 and num_moduli > tables.p_is_double(backend)
+    invp = _scalar(tables.invP(num_moduli, backend), c_mid)
+    pa, pb, pc = (_scalar(v, c_mid) for v in tables.P_q26(num_moduli, backend))
+    planes = [c_mid[i].to(torch.float64) for i in range(num_moduli)]
+
+    if not use_dd:
+        qp = [_scalar(v, c_mid) for v in tables.qPi_f64(num_moduli, backend)]
+        acc = _dot_fma(qp, planes)
+        quot = torch.round(invp * acc)
+        # t = P*quot + acc with Pa*quot exact (26-bit chunk x small int)
+        return torch.addcmul(torch.addcmul(torch.addcmul(acc, pa, quot),
+                                           pb, quot), pc, quot)
+
+    qp = tables.qPi_dd(num_moduli, backend)
+    # the hi parts sit on a common grid: their products are error-free
+    hi = _dot_fma([_scalar(v, c_mid) for v in qp[:, 0]], planes)
+    lo = _dot_fma([_scalar(v, c_mid) for v in qp[:, 1]], planes)
+    quot = torch.round(invp * hi)
+    return (torch.addcmul(torch.addcmul(hi, pa, quot), pb, quot)
+            + torch.addcmul(lo, pc, quot))
+
+
+def inverse_scale(t: torch.Tensor, sft_a: torch.Tensor, sft_b: torch.Tensor,
+                  out_dtype) -> torch.Tensor:
+    """C = t * 2^-(sftA[i]+sftB[j]), computed in the output dtype."""
+    sft_sum = sft_a[:, None] + sft_b[None, :]
+    return quantize.pow2_scale(t.to(out_dtype), -sft_sum)
+
+
+# ---------------------------------------------------------------------------
+# the gemm pipeline
+# ---------------------------------------------------------------------------
+
+def _quantize_operands(a, b, num_moduli, fastmode, backend):
+    """Fast mode: independent norm-based shifts (scaling_fast_real.hpp);
+    fastmode="robust" takes the scale-invariant shift."""
+    if not fastmode:
+        raise NotImplementedError(
+            "accurate mode (fastmode=False) is not ported yet (ROADMAP queue 5)")
+    if backend != tables.Backend.INT8:
+        raise NotImplementedError(
+            "backend='FP8' is not ported yet (ROADMAP queue 8)")
+    var = "invariant" if fastmode == "robust" else "reference"
+    sft_a = quantize.shift_fast(a, num_moduli, backend, reduce_axis=1,
+                                variant=var)
+    sft_b = quantize.shift_fast(b, num_moduli, backend, reduce_axis=0,
+                                variant=var)
+    # on the card B's planes come back as a (nu, k, n) view of k-contiguous
+    # storage, the layout the int8 product reads
+    a_planes = kernels.encode_planes(a, sft_a, 0, num_moduli, backend)
+    b_planes = kernels.encode_planes(b, sft_b, 1, num_moduli, backend)
+    return a_planes, sft_a, b_planes, sft_b
+
+
+def _norm_trans(t, name: str) -> bool:
+    """BLAS trans flag -> bool ("C" == "T" for reals). Accepts python and
+    numpy bools/ints plus the strings N/T/C (any case); anything else raises."""
+    if isinstance(t, (bool, np.bool_, int, np.integer)):
+        return bool(t)
+    if t is None:
+        return False
+    s = str(t).upper()
+    if s not in ("N", "T", "C"):
+        raise ValueError(
+            f"{name} must be a bool or one of 'N'/'T'/'C', got {t!r}")
+    return s in ("T", "C")
+
+
+def resolve_epilogue(epilogue: str = "auto", device="cpu") -> str:
+    """Pick the CRT reconstruction arithmetic: "f64" (double/double-double,
+    like the reference) or "ff" (exact int32 limbs; one fused kernel on the
+    card). "auto" is "f64" on the CPU and "ff" on the card, as in the JAX
+    package."""
+    if epilogue != "auto":
+        if epilogue not in ("ff", "f64"):
+            raise ValueError(
+                f"epilogue must be 'auto', 'ff' or 'f64', got {epilogue!r}")
+        return epilogue
+    return "f64" if torch.device(device).type == "cpu" else "ff"
+
+
+def reconstruct_scale(c_mid, sft_a, sft_b, num_moduli, backend, out_dtype,
+                      epilogue: str):
+    if resolve_epilogue(epilogue, c_mid.device) == "ff":
+        return ff.reconstruct_scale_ff(c_mid, sft_a, sft_b, num_moduli,
+                                       backend, out_dtype)
+    t = crt_reconstruct(c_mid, num_moduli, backend, out_dtype)
+    return inverse_scale(t, sft_a, sft_b, out_dtype)
+
+
+def _emulated_product(a_planes, sft_a, b_planes, sft_b, num_moduli, backend,
+                      out_dtype, epilogue):
+    """Residue GEMM + epilogue from encoded planes. With "ff" the int32
+    products (or their K-chunked residue sums) go straight into the fused
+    epilogue kernel, which emits the output dtype."""
+    if resolve_epilogue(epilogue, a_planes.device) == "ff":
+        if a_planes.shape[2] <= K_CHUNK:
+            c_hi = residue_matmul(a_planes, b_planes)
+        else:
+            c_hi = _chunked_residue_acc(a_planes, b_planes, num_moduli,
+                                        backend)
+        return kernels.fused_epilogue(c_hi, sft_a, sft_b, num_moduli,
+                                      backend, out_dtype)
+    c_mid = residue_gemm(a_planes, b_planes, num_moduli, backend)
+    return reconstruct_scale(c_mid, sft_a, sft_b, num_moduli, backend,
+                             out_dtype, epilogue)
+
+
+def _pad128(x: torch.Tensor, axes) -> torch.Tensor:
+    """Zero-pad the given axes up to multiples of 128 (exactness-preserving:
+    zero rows/cols give zero planes, zero products and sft=0)."""
+    pad = [0, 0] * x.dim()
+    for ax in axes:
+        # F.pad lists (before, after) pairs from the last axis backwards
+        pad[2 * (x.dim() - 1 - ax) + 1] = (-x.shape[ax]) % 128
+    return torch.nn.functional.pad(x, pad) if any(pad) else x
+
+
+def emulate_matmul(a: torch.Tensor, b: torch.Tensor, *, num_moduli: int,
+                   fastmode=True, backend: str = tables.Backend.INT8,
+                   epilogue: str = "auto") -> torch.Tensor:
+    """Emulated a @ b (no alpha/beta) on a's device. On the card, operands
+    are zero-padded to multiples of 128 (the int8 product's shape rules) and
+    the output is sliced back -- bit-identical to the unpadded math."""
+    out_dtype = a.dtype
+    m, n = a.shape[0], b.shape[1]
+    if a.shape[1] == 0:
+        # BLAS k=0 semantics: the product is zero
+        return torch.zeros((m, n), dtype=out_dtype, device=a.device)
+    if a.device.type != "cpu":
+        a = _pad128(a, (0, 1))
+        b = _pad128(b, (0, 1))
+    a_planes, sft_a, b_planes, sft_b = _quantize_operands(
+        a.contiguous(), b.contiguous(), num_moduli, fastmode, backend)
+    out = _emulated_product(a_planes, sft_a, b_planes, sft_b, num_moduli,
+                            backend, out_dtype, epilogue)
+    if out.shape != (m, n):
+        out = out[:m, :n]
+    return out
+
+
+def _gemm_real(a, b, c, alpha, beta, *, num_moduli, fastmode, backend,
+               trans_a, trans_b, has_c, epilogue, trivial_alpha, beta_kind):
+    if trans_a:
+        a = a.T
+    if trans_b:
+        b = b.T
+    out_dtype = a.dtype
+    ab = emulate_matmul(a, b, num_moduli=num_moduli, fastmode=fastmode,
+                        backend=backend, epilogue=epilogue)
+    # alpha == 1 / beta in {0, 1} special cases keep the common paths free of
+    # extra multiplies; beta == 0 never reads C
+    scalar = lambda v: torch.tensor(v, dtype=torch.float64,  # noqa: E731
+                                    device=ab.device).to(out_dtype)
+    if not has_c or beta_kind == "zero":
+        return ab if trivial_alpha else scalar(alpha) * ab
+    if beta_kind == "one":
+        return ab + c if trivial_alpha else torch.addcmul(c, scalar(alpha), ab)
+    # Where XLA:CPU contracts alpha*ab + beta*c depends on what produced ab
+    # (pinned by tests/test_torch_gemm_ops.py): with the f64 epilogue's f64
+    # output, ab ends in an exact power-of-two multiply, so ab + beta*c stays
+    # two roundings; a general alpha fuses alpha*ab into the sum for f64
+    # outputs and beta*c for f32 outputs.
+    beta_t = scalar(beta)
+    if trivial_alpha:
+        if (out_dtype == torch.float64
+                and resolve_epilogue(epilogue, ab.device) == "f64"):
+            return ab + beta_t * c
+        return torch.addcmul(ab, beta_t, c)
+    if out_dtype == torch.float64:
+        return torch.addcmul(beta_t * c, scalar(alpha), ab)
+    return torch.addcmul(scalar(alpha) * ab, beta_t, c)
+
+
+def _device(device) -> torch.device:
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device='cuda' but CUDA is not available; pass "
+                           "device='cpu' to compute on the CPU")
+    return device
+
+
+def _as_tensor(x, device: torch.device) -> torch.Tensor:
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
+    return torch.as_tensor(np.asarray(x), device=device)
+
+
+def _real_scalar(v) -> float:
+    return float(np.asarray(v.cpu() if isinstance(v, torch.Tensor) else v))
+
+
+def gemm(a, b, *, num_moduli: int = 8, fastmode=True,
+         backend: str = tables.Backend.INT8, alpha=1.0, beta=0.0, c=None,
+         trans_a=False, trans_b=False, epilogue: str = "auto",
+         m_block: Optional[int] = None, n_block: Optional[int] = None,
+         device="cuda") -> torch.Tensor:
+    """Emulated high-precision GEMM: C = alpha * op(A) @ op(B) + beta * C.
+
+    a, b (and c): torch tensors or numpy arrays, placed on `device` ("cuda"
+    by default; "cpu" runs every kernel's plain version). `num_moduli` dials
+    accuracy vs speed (2..13 for f32, 2..20 for f64). Bit-equal to
+    gemmul8_tpu.gemm on the CPU.
+    """
+    device = _device(device)
+    a = _as_tensor(a, device)
+    b = _as_tensor(b, device)
+    if a.dim() != 2 or b.dim() != 2:
+        raise ValueError(
+            f"gemm expects 2-D operands, got A.ndim={a.dim()}, B.ndim={b.dim()}")
+    if a.dtype != b.dtype:
+        raise TypeError(f"dtype mismatch: {a.dtype} vs {b.dtype}")
+    if backend not in (tables.Backend.INT8, tables.Backend.FP8):
+        raise ValueError(f"backend must be 'INT8' or 'FP8', got {backend!r}")
+    if a.dtype.is_complex:
+        raise NotImplementedError(
+            "complex GEMM is not ported yet (ROADMAP queue 7)")
+    if a.dtype not in _DTYPE_NAMES:
+        raise TypeError(f"gemm supports float32 and float64, got {a.dtype}")
+    lo, hi = tables.VALID_RANGE[_DTYPE_NAMES[a.dtype]]
+    if not lo <= num_moduli <= hi:
+        raise ValueError(
+            f"num_moduli={num_moduli} out of range [{lo},{hi}] for {a.dtype}")
+    if backend == tables.Backend.FP8:
+        raise NotImplementedError(
+            "backend='FP8' is not ported yet (ROADMAP queue 8)")
+    if m_block is not None or n_block is not None:
+        raise NotImplementedError(
+            "m_block/n_block striping is not ported yet (ROADMAP queue 6)")
+    trans_a = _norm_trans(trans_a, "trans_a")
+    trans_b = _norm_trans(trans_b, "trans_b")
+    has_c = c is not None
+    trivial_alpha = isinstance(alpha, (int, float)) and alpha == 1
+    beta_kind = ("zero" if isinstance(beta, (int, float)) and beta == 0
+                 else "one" if isinstance(beta, (int, float)) and beta == 1
+                 else "general")
+    if has_c and beta_kind != "zero":
+        c = _as_tensor(c, device)
+        if c.dtype != a.dtype:
+            raise TypeError(f"dtype mismatch: C is {c.dtype}, A is {a.dtype}")
+    return _gemm_real(a, b, c, _real_scalar(alpha), _real_scalar(beta),
+                      num_moduli=num_moduli, fastmode=fastmode,
+                      backend=backend, trans_a=trans_a, trans_b=trans_b,
+                      has_c=has_c, epilogue=epilogue,
+                      trivial_alpha=trivial_alpha, beta_kind=beta_kind)
+
+
+def matmul(a, b, **kw) -> torch.Tensor:
+    """NumPy-style convenience wrapper around :func:`gemm`."""
+    return gemm(a, b, **kw)

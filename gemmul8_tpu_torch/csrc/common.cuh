@@ -1,0 +1,74 @@
+// Shared definitions of the hand-written kernels: the static plans passed by
+// value as kernel parameters (mirrored by ctypes Structures in kernels.py) and
+// exact integer / power-of-two helpers.
+//
+// Bit-identity with the plain PyTorch versions rests on two build facts:
+// -fmad=false (no multiply-add is contracted into an FMA) and no fast-math
+// (denormals are kept, division and conversions round to nearest even).
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+#define G8_MAX_NU 20   // INT8 moduli
+#define G8_MAX_NL 6    // 20-bit limbs of the quantized integer (encode)
+#define G8_MAX_L 7     // 16-bit limbs of the CRT sum (epilogue)
+
+struct EncodePlan {
+    int nu;                          // number of moduli
+    int nl;                          // 20-bit limbs in use (<= G8_MAX_NL)
+    int max_exp;                     // clamp of a component's bit position
+    int p[G8_MAX_NU];                // moduli
+    int w[G8_MAX_NU][G8_MAX_NL];     // wrap(2^(20*lv) mod p_i)
+};
+
+struct EpiloguePlan {
+    int nu;                          // number of moduli
+    int L;                           // 16-bit limbs in use (<= G8_MAX_L)
+    int base;                        // limb li has unit 2^(base + 16*li)
+    float invp_top;                  // 2^(base + 16*(L-3)) / P, f32
+    int p[G8_MAX_NU];                // moduli
+    int w16[G8_MAX_NU][G8_MAX_L];    // 16-bit slices of qPi >> base
+    int p16[G8_MAX_L];               // 16-bit slices of P >> base
+    float s1[G8_MAX_L], s2[G8_MAX_L];  // static pow2 pair of limb li's unit
+};
+
+// floor(a / b) for b > 0 (C's / truncates toward zero)
+__device__ __forceinline__ int floordiv(int a, int b) {
+    int q = a / b;
+    return (q * b > a) ? q - 1 : q;
+}
+
+// unique representative of a mod p in [-p/2, p/2)
+__device__ __forceinline__ int wrap_mod(int a, int p) {
+    int r = a % p;
+    if (r < 0) r += p;
+    return (2 * r >= p) ? r - p : r;
+}
+
+// exact 2^e by exponent-field assembly (the field wraps outside the range,
+// bit for bit as the PyTorch and JAX versions do)
+__device__ __forceinline__ float pow2f(int e) {
+    return __int_as_float((int)((unsigned)(e + 127) << 23));
+}
+
+__device__ __forceinline__ double pow2d(int e) {
+    return __longlong_as_double(
+        (long long)((unsigned long long)(long long)(e + 1023) << 52));
+}
+
+// x * 2^s as three power-of-two multiplies with the floor split of s
+// (quantize.pow2_scale)
+__device__ __forceinline__ double pow2_scale_d(double x, int s) {
+    int h1 = floordiv(s, 3);
+    int h2 = floordiv(s - h1, 2);
+    int h3 = s - h1 - h2;
+    return ((x * pow2d(h1)) * pow2d(h2)) * pow2d(h3);
+}
+
+__device__ __forceinline__ float pow2_scale_f(float x, int s) {
+    int h1 = floordiv(s, 3);
+    int h2 = floordiv(s - h1, 2);
+    int h3 = s - h1 - h2;
+    return ((x * pow2f(h1)) * pow2f(h2)) * pow2f(h3);
+}

@@ -1,0 +1,256 @@
+"""Hand-written CUDA kernels of the main path, their wrappers and plain versions.
+
+The counterpart of gemmul8_tpu/pallas_kernels.py for the real INT8 path:
+
+  encode_planes   csrc/encode.cu    replaces pallas_kernels.encode_planes_tiles
+  fused_epilogue  csrc/epilogue.cu  replaces pallas_kernels.fused_epilogue
+
+Each wrapper checks its operands, allocates the output with torch.empty,
+launches on the current stream, raises if the launch failed and adds one to
+LAUNCHES[name]. Beside each wrapper is its plain PyTorch version; the wrapper
+takes it only for tensors on the CPU. A CUDA tensor launches the kernel or
+raises.
+
+The kernels are built at first use by one nvcc call (sm_90a, -fmad=false so
+that no multiply-add is contracted) into one shared library under
+gemmul8_tpu_torch/_build/, named by a hash of the sources and flags, and are
+bound with ctypes through a plain C interface.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+
+import torch
+
+from . import ff, quantize, tables
+
+LAUNCHES = {"encode_planes": 0, "fused_epilogue": 0}
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+_CSRC = os.path.join(_HERE, "csrc")
+_BUILD = os.path.join(_HERE, "_build")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+_LIB: ctypes.CDLL | None = None
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# the C entry points' signatures (csrc/encode.cu, csrc/epilogue.cu)
+_ARGTYPES = {
+    # x, sft, out, plan, is_f64, scale_axis, rows, cols, stream
+    "encode_planes": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # c_hi, sft_a, sft_b, out, out_f64, m, n, plan, stream
+    "fused_epilogue": [_P, _P, _P, _P, _I, _I, _I, _P, _P],
+}
+
+_MAX_NU = 20        # csrc/common.cuh: G8_MAX_NU
+_MAX_NL = 6         # G8_MAX_NL: 20-bit encode limbs
+_MAX_L = 7          # G8_MAX_L: 16-bit epilogue limbs
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+# ---------------------------------------------------------------------------
+# build
+# ---------------------------------------------------------------------------
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return path
+
+
+def build() -> str:
+    """Compile csrc/*.cu into one library unless it is built already (the
+    name holds a hash of the sources and flags). Returns its path."""
+    sources = sorted(n for n in os.listdir(_CSRC) if n.endswith((".cu", ".cuh")))
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in sources:
+        with open(os.path.join(_CSRC, name), "rb") as f:
+            h.update(name.encode() + f.read())
+    out = os.path.join(_BUILD, f"libgemmul8_kernels_{h.hexdigest()[:16]}.so")
+    if os.path.exists(out):
+        return out
+    os.makedirs(_BUILD, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+           *(os.path.join(_CSRC, n) for n in sources if n.endswith(".cu"))]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed:\n{proc.stderr}")
+    os.replace(tmp, out)              # atomic: a half-written .so never loads
+    return out
+
+
+def _lib() -> ctypes.CDLL:
+    global _LIB
+    if _LIB is None:
+        lib = ctypes.CDLL(build())
+        for name, argtypes in _ARGTYPES.items():
+            fn = getattr(lib, "g8_" + name)
+            fn.restype = ctypes.c_int
+            fn.argtypes = argtypes
+        _LIB = lib
+    return _LIB
+
+
+def _launch(name: str, *args) -> None:
+    err = getattr(_lib(), "g8_" + name)(*args)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
+    LAUNCHES[name] += 1
+
+
+# ---------------------------------------------------------------------------
+# encode: quantize + residue planes
+# ---------------------------------------------------------------------------
+
+class _EncodePlan(ctypes.Structure):          # csrc/common.cuh: EncodePlan
+    _fields_ = [("nu", ctypes.c_int), ("nl", ctypes.c_int),
+                ("max_exp", ctypes.c_int),
+                ("p", ctypes.c_int * _MAX_NU),
+                ("w", (ctypes.c_int * _MAX_NL) * _MAX_NU)]
+
+
+def _encode_plan(num_moduli: int, backend: str) -> _EncodePlan:
+    plan = _EncodePlan()
+    plan.nu = num_moduli
+    plan.nl = quantize.n_limbs(num_moduli, backend)
+    plan.max_exp = tables.MAX_EXP
+    for i, (p, ws) in enumerate(zip(tables.moduli(backend),
+                                    quantize.limb_weights(num_moduli, backend))):
+        plan.p[i] = p
+        for lv, w in enumerate(ws):
+            plan.w[i][lv] = w
+    return plan
+
+
+def encode_planes_plain(x, sft, scale_axis, num_moduli, backend):
+    """Plain version of the encode kernel: (nu, *x.shape) int8 planes."""
+    return quantize.residues_wrapped(x, sft, scale_axis, num_moduli,
+                                     backend).to(torch.int8)
+
+
+def encode_planes(x: torch.Tensor, sft: torch.Tensor, scale_axis: int,
+                  num_moduli: int, backend: str) -> torch.Tensor:
+    """Residue planes wrap(floor(x * 2^sft) mod p_i) as int8, (nu, *x.shape).
+
+    On the card, scale_axis=1 (the B operand, (k, n)) returns a (nu, k, n)
+    view of (nu, n, k) storage: k-contiguous, as the int8 product reads B.
+    """
+    if x.device.type == "cpu":
+        return encode_planes_plain(x, sft, scale_axis, num_moduli, backend)
+    if x.device.type != "cuda":
+        raise ValueError(f"encode_planes: unsupported device {x.device}")
+    if backend != tables.Backend.INT8:
+        raise ValueError(f"encode_planes: backend must be INT8, got {backend!r}")
+    if x.dim() != 2 or x.dtype not in (torch.float32, torch.float64):
+        raise ValueError("encode_planes: x must be a 2-D f32 or f64 tensor")
+    if not x.is_contiguous():
+        raise ValueError("encode_planes: x must be contiguous")
+    if scale_axis not in (0, 1):
+        raise ValueError("encode_planes: scale_axis must be 0 or 1")
+    if not 1 <= num_moduli <= _MAX_NU:
+        raise ValueError(f"encode_planes: num_moduli={num_moduli} out of range")
+    rows, cols = x.shape
+    if (sft.device != x.device or sft.dtype != torch.int32
+            or sft.shape != (x.shape[scale_axis],) or not sft.is_contiguous()):
+        raise ValueError("encode_planes: sft must be a contiguous int32 "
+                         f"vector of length {x.shape[scale_axis]} on {x.device}")
+    if scale_axis == 0:
+        out = torch.empty((num_moduli, rows, cols), dtype=torch.int8,
+                          device=x.device)
+    else:
+        out = torch.empty((num_moduli, cols, rows), dtype=torch.int8,
+                          device=x.device).transpose(1, 2)
+    if x.numel():
+        plan = _encode_plan(num_moduli, backend)
+        _launch("encode_planes", x.data_ptr(), sft.data_ptr(), out.data_ptr(),
+                ctypes.addressof(plan), int(x.dtype == torch.float64),
+                scale_axis, rows, cols,
+                torch.cuda.current_stream(x.device).cuda_stream)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# fused epilogue: wrap mod p + CRT limbs + descale, one pass over C_hi
+# ---------------------------------------------------------------------------
+
+class _EpiloguePlan(ctypes.Structure):        # csrc/common.cuh: EpiloguePlan
+    _fields_ = [("nu", ctypes.c_int), ("L", ctypes.c_int),
+                ("base", ctypes.c_int), ("invp_top", ctypes.c_float),
+                ("p", ctypes.c_int * _MAX_NU),
+                ("w16", (ctypes.c_int * _MAX_L) * _MAX_NU),
+                ("p16", ctypes.c_int * _MAX_L),
+                ("s1", ctypes.c_float * _MAX_L),
+                ("s2", ctypes.c_float * _MAX_L)]
+
+
+def _epilogue_plan(num_moduli: int, backend: str, out_bits: int):
+    """The static plan of pallas_kernels._epilogue_plan, from ff.limb_plan."""
+    base, L, w16, p16, invp_top = ff.limb_plan(num_moduli, backend, out_bits)
+    plan = _EpiloguePlan()
+    plan.nu, plan.L, plan.base, plan.invp_top = num_moduli, L, base, invp_top
+    for i, p in enumerate(tables.moduli(backend)[:num_moduli]):
+        plan.p[i] = p
+        for li in range(L):
+            plan.w16[i][li] = w16[i][li]
+    for li in range(L):
+        e = base + 16 * li
+        plan.p16[li] = p16[li]
+        plan.s1[li] = 2.0 ** (e // 2)
+        plan.s2[li] = 2.0 ** (e - e // 2)
+    return plan
+
+
+def fused_epilogue_plain(c_hi, sft_a, sft_b, num_moduli, backend, out_dtype):
+    """Plain version of the epilogue kernel: mod_reduce -> reconstruct_scale_ff."""
+    from .core import mod_reduce
+    return ff.reconstruct_scale_ff(mod_reduce(c_hi, num_moduli, backend),
+                                   sft_a, sft_b, num_moduli, backend, out_dtype)
+
+
+def fused_epilogue(c_hi: torch.Tensor, sft_a: torch.Tensor,
+                   sft_b: torch.Tensor, num_moduli: int, backend: str,
+                   out_dtype: torch.dtype) -> torch.Tensor:
+    """(nu, m, n) int32 C_hi (or K-chunked residue sums, any int32) ->
+    (m, n) emulated product in out_dtype (f32 or f64)."""
+    if c_hi.device.type == "cpu":
+        return fused_epilogue_plain(c_hi, sft_a, sft_b, num_moduli, backend,
+                                    out_dtype)
+    if c_hi.device.type != "cuda":
+        raise ValueError(f"fused_epilogue: unsupported device {c_hi.device}")
+    if backend != tables.Backend.INT8:
+        raise ValueError(f"fused_epilogue: backend must be INT8, got {backend!r}")
+    if out_dtype not in (torch.float32, torch.float64):
+        raise ValueError("fused_epilogue: out_dtype must be f32 or f64")
+    if (c_hi.dim() != 3 or c_hi.dtype != torch.int32
+            or c_hi.shape[0] != num_moduli or not c_hi.is_contiguous()):
+        raise ValueError("fused_epilogue: c_hi must be a contiguous "
+                         f"({num_moduli}, m, n) int32 tensor")
+    if not 1 <= num_moduli <= _MAX_NU:
+        raise ValueError(f"fused_epilogue: num_moduli={num_moduli} out of range")
+    _, m, n = c_hi.shape
+    for name, s, size in (("sft_a", sft_a, m), ("sft_b", sft_b, n)):
+        if (s.device != c_hi.device or s.dtype != torch.int32
+                or s.shape != (size,) or not s.is_contiguous()):
+            raise ValueError(f"fused_epilogue: {name} must be a contiguous "
+                             f"int32 vector of length {size} on {c_hi.device}")
+    out = torch.empty((m, n), dtype=out_dtype, device=c_hi.device)
+    if out.numel():
+        out_bits = 53 if out_dtype == torch.float64 else 24
+        plan = _epilogue_plan(num_moduli, backend, out_bits)
+        _launch("fused_epilogue", c_hi.data_ptr(), sft_a.data_ptr(),
+                sft_b.data_ptr(), out.data_ptr(), int(out_bits == 53), m, n,
+                ctypes.addressof(plan),
+                torch.cuda.current_stream(c_hi.device).cuda_stream)
+    return out

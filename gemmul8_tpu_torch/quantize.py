@@ -1,0 +1,240 @@
+"""Power-of-two scaling + exact modular residue encoding (Ozaki scheme II).
+
+The PyTorch counterpart of gemmul8_tpu/quantize.py, fast mode. Every function
+keeps the order of operations of its JAX twin so that, fed the same inputs,
+the results are bit-equal on the CPU:
+
+  * integer `%` and `//` floor (torch.remainder, rounding_mode="floor");
+  * `>>` on int32 is arithmetic (as in jnp);
+  * powers of two are assembled from exponent bits, never from exp2;
+  * f64 is true IEEE f64 on both the CPU and the card, so an f64 input splits
+    into three exact f32 components (the JAX package's CPU path).
+
+The quantized integer is v = floor(sum_j w_j) where w_j are the exact f32
+components of y = x * 2^sft; every residue plane is derived from the same v.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import tables
+
+# round-up-biased half used by the reference for log2 terms (0x1.000006p-1)
+LOG2_HALF_RU = float.fromhex("0x1.000006p-1")
+# deterministic safety margin replacing CUDA directed roundings in shift formulas
+SFT_MARGIN = 2.0 ** -14
+
+
+def _f32(v: float, like: torch.Tensor) -> torch.Tensor:
+    """An f32 scalar constant on like's device (rounded as np.float32 does)."""
+    return torch.tensor(float(np.float32(v)), dtype=torch.float32,
+                        device=like.device)
+
+
+# ---------------------------------------------------------------------------
+# exact float helpers
+# ---------------------------------------------------------------------------
+
+def pow2(e: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Exact 2^e by exponent-field bit assembly; e within dtype's normal range.
+    (Out of range, the exponent field wraps exactly as in the JAX twin.)"""
+    if dtype == torch.float32:
+        return ((e.to(torch.int32) + 127) << 23).view(torch.float32)
+    return ((e.to(torch.int64) + 1023) << 52).view(torch.float64)
+
+
+def pow2_scale(x: torch.Tensor, sft: torch.Tensor) -> torch.Tensor:
+    """x * 2^sft exactly (sft: int32, broadcastable), as three power-of-two
+    multiplies so each factor stays normal for |sft| far beyond the range."""
+    h1 = torch.div(sft, 3, rounding_mode="floor")
+    h2 = torch.div(sft - h1, 2, rounding_mode="floor")
+    h3 = sft - h1 - h2
+    return ((x * pow2(h1, x.dtype)) * pow2(h2, x.dtype)) * pow2(h3, x.dtype)
+
+
+def f32_components(y: torch.Tensor, n_comp: int) -> list[torch.Tensor]:
+    """Peel y into exact f32 components c_0 >> c_1 >> ...; their sum equals y
+    exactly for IEEE f64 when n_comp >= 3 (24*3 > 53)."""
+    if y.dtype == torch.float32:
+        return [y]
+    comps = []
+    r = y
+    for j in range(n_comp):
+        c = r.to(torch.float32)
+        comps.append(c)
+        if j + 1 < n_comp:
+            r = r - c.to(y.dtype)
+    return comps
+
+
+def f32_decompose(c: torch.Tensor):
+    """(sign ±1, mantissa int32 in [0, 2^24), unbiased exp) with value
+    sign * mant * 2^(exp-23). Subnormals: no implicit bit, exp = -126."""
+    bits = c.view(torch.int32)
+    one = torch.ones((), dtype=torch.int32, device=c.device)
+    sign = torch.where(bits < 0, -one, one)
+    expf = (bits >> 23) & 0xFF
+    frac = bits & 0x7FFFFF
+    is_norm = expf > 0
+    mant = torch.where(is_norm, frac | (1 << 23), frac)
+    e = torch.where(is_norm, expf - 127, torch.full_like(expf, -126))
+    return sign, mant, e
+
+
+def ilogb(a: torch.Tensor) -> torch.Tensor:
+    """floor(log2(a)) for a > 0, exact via the f32 bit pattern when a is
+    f32-normal; f64 log2 (with a conservative nudge) outside f32's range."""
+    a32 = a.to(torch.float32)
+    e32 = ((a32.view(torch.int32) >> 23) & 0xFF) - 127
+    if a.dtype == torch.float32:
+        return e32
+    in_range = (a32 >= float(2.0 ** -126)) & torch.isfinite(a32) & (a32 > 0)
+    tiny = torch.tensor(np.finfo(np.float64).tiny, dtype=a.dtype, device=a.device)
+    ef = torch.floor(torch.log2(torch.maximum(a, tiny)) + 2.0 ** -32)
+    return torch.where(in_range, e32, ef.to(torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# shift computation (fast mode)  [reference: scaling_fast_real.hpp:6-22]
+# ---------------------------------------------------------------------------
+
+def shift_fast(x: torch.Tensor, num_moduli: int, backend: str, reduce_axis: int,
+               variant: str = "reference") -> torch.Tensor:
+    """Per-row (reduce_axis=1) or per-column (reduce_axis=0) quantization shift.
+
+    variant="reference": sft = floor(log2P - 1.5 - max(1, ~0.5*log2(sum x^2)))
+    - ilogb(amax). variant="invariant" (fastmode="robust"): the amax term is
+    dropped, sft = floor(log2P' - 1.5 - ~0.5*log2(sum x^2)), which bounds the
+    quantized norm at every input scale. Zero rows get sft=0. See the JAX
+    twin for the derivation.
+
+    The f32 log2 and the f32 row sum may differ from XLA's in the last bit,
+    so a row whose value falls within about an ulp of an integer can floor
+    the other way; everything downstream is exact given the shifts.
+    """
+    if x.dtype == torch.float64:
+        # IEEE f64: |x| may exceed f32's max. Pre-scale only the overflowing
+        # rows by an exact power of two and fold the exponent back in after.
+        amax_nat = torch.amax(torch.abs(x), dim=reduce_axis)
+        E0 = torch.where(amax_nat > 2.0 ** 126,
+                         ilogb(torch.where(amax_nat > 0, amax_nat,
+                                           torch.ones_like(amax_nat))),
+                         torch.zeros_like(amax_nat, dtype=torch.int32))
+        x = pow2_scale(x, -E0.unsqueeze(reduce_axis))
+        c0 = torch.abs(x.to(torch.float32))
+    else:
+        E0 = None
+        c0 = torch.abs(x)
+    amax0 = torch.amax(c0, dim=reduce_axis)
+    safe = torch.where(amax0 > 0, amax0, torch.ones_like(amax0))
+    # inflation keeps E an upper bound when the |c1| tail pushes |x| across a
+    # power of two (a larger E only shrinks sft: the safe side)
+    E_loc = ilogb(safe * _f32(1.0 + 2.0 ** -22, safe))
+    E = E_loc + E0 if E0 is not None else E_loc
+    # overflow-safe norm: scale the row to ~[0,1] first
+    z = pow2_scale(c0, -E_loc.unsqueeze(reduce_axis))
+    s2 = torch.sum(z * z, dim=reduce_axis)
+    log2vsum = ((torch.log2(torch.maximum(s2, _f32(2.0 ** -120, s2)))
+                 + _f32(2.0, s2) * E.to(torch.float32))
+                + _f32(2.0 ** -18, s2))
+    log2vnrm = _f32(LOG2_HALF_RU, s2) * log2vsum
+    log2p = _f32(tables.log2P(num_moduli, backend), s2)
+    if variant == "invariant":
+        exp1 = ((log2p - _f32(1.5, s2)) - log2vnrm) - _f32(SFT_MARGIN, s2)
+        sft = torch.floor(exp1).to(torch.int32)
+    else:
+        exp1 = (((log2p - _f32(1.5, s2))
+                 - torch.maximum(_f32(1.0, s2), log2vnrm))
+                - _f32(SFT_MARGIN, s2))
+        sft = torch.floor(exp1).to(torch.int32) - E
+    return torch.where(amax0 > 0, sft, torch.zeros_like(sft))
+
+
+# ---------------------------------------------------------------------------
+# residue-plane encoding
+# ---------------------------------------------------------------------------
+
+def _n_comp(dtype) -> int:
+    # f64 is IEEE on the CPU and the card: three components hold it exactly
+    return 1 if dtype == torch.float32 else 3
+
+
+def n_limbs(num_moduli: int, backend: str) -> int:
+    """20-bit limb count of the quantized integer (|v| < 2^(log2P + 3))."""
+    dpos_max = int(tables.log2P(num_moduli, backend)) + 3
+    return dpos_max // 20 + 2
+
+
+def limb_weights(num_moduli: int, backend: str) -> list[list[int]]:
+    """Per modulus: wrap(2^(20*lv) mod p) for lv = 0 .. n_limbs-1."""
+    out = []
+    for p in tables.moduli(backend)[:num_moduli]:
+        ws = []
+        for lv in range(n_limbs(num_moduli, backend)):
+            w = pow(2, 20 * lv, p)
+            ws.append(w - p if 2 * w >= p else w)
+        out.append(ws)
+    return out
+
+
+def residues_wrapped(x: torch.Tensor, sft: torch.Tensor, scale_axis: int,
+                     num_moduli: int, backend: str) -> torch.Tensor:
+    """Quantize x with per-row/col shifts and emit all wrapped residues.
+
+    x: (m, k) [scale_axis=0: shift per row] or (k, n) [scale_axis=1: per col];
+    sft: int32 shifts of shape x.shape[scale_axis]. Returns int32 residues
+    (num_moduli, *x.shape): plane i = wrap(v mod p_i) in [-p_i/2, p_i/2).
+    """
+    mods = tables.moduli(backend)[:num_moduli]
+    reduce_axis = 1 - scale_axis
+    y = pow2_scale(x, sft.unsqueeze(reduce_axis))
+    comps = f32_components(y, _n_comp(x.dtype))
+
+    # per-component integer/fraction split (shared across all moduli)
+    parts = []
+    G = torch.zeros(y.shape, dtype=torch.float32, device=x.device)
+    for c in comps:
+        s, m, e = f32_decompose(c)
+        d = e - 23                      # value = s * m * 2^d
+        sig = torch.clamp(-d, 0, 31)
+        m_int = m >> sig                # integer magnitude contribution
+        dpos = torch.clamp(d, 0, tables.MAX_EXP)
+        mfrac = m - (m_int << sig)
+        frac = mfrac.to(torch.float32) * pow2(torch.clamp(d, min=-30),
+                                              torch.float32)
+        frac = torch.where(-d > 30, torch.abs(c), frac)  # component below 2^-6
+        G = G + s.to(torch.float32) * frac
+        parts.append((s, m_int, dpos))
+    g = torch.floor(G).to(torch.int32)  # joint carry of the fractional parts
+
+    # v = g + sum_c s*m_int*2^dpos in balanced 20-bit int32 limbs
+    nl = n_limbs(num_moduli, backend)
+    limbs = [g] + [torch.zeros_like(g) for _ in range(nl - 1)]
+    for s, m_int, dpos in parts:
+        off = dpos % 20
+        li = dpos // 20
+        sh = 20 - off
+        mhi = m_int >> sh
+        mlo = m_int - (mhi << sh)
+        c_lo = s * (mlo << off)                           # < 2^20
+        c_hi = s * mhi                                    # < 2^23
+        for lv in range(nl):
+            limbs[lv] = (limbs[lv] + torch.where(li == lv, c_lo, 0)
+                         + torch.where(li == lv - 1, c_hi, 0))
+    half = 1 << 19
+    for lv in range(nl - 1):
+        c = (limbs[lv] + half) >> 20
+        limbs[lv] = limbs[lv] - (c << 20)
+        limbs[lv + 1] = limbs[lv + 1] + c
+
+    # residues of v: a per-modulus dot with the static wrap(2^(20*lv) mod p)
+    planes = []
+    for p, ws in zip(mods, limb_weights(num_moduli, backend)):
+        acc = limbs[0]
+        for lv in range(1, nl):
+            acc = acc + limbs[lv] * ws[lv]
+        r = torch.remainder(acc, p)                    # in [0, p)
+        r = torch.where(2 * r >= p, r - p, r)          # wrap to [-p/2, p/2)
+        planes.append(r)
+    return torch.stack(planes)
