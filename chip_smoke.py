@@ -1,8 +1,9 @@
 """On-card smoke test of gemmul8_tpu_torch: builds the CUDA kernels, holds each
-against its plain PyTorch version bit for bit, drives the main path (real
-DGEMM/SGEMM, fast mode, INT8) at 8192^3, checks its accuracy against an
-extended-precision oracle and its bits against the package's own CPU path,
-and times the kernels, the int8 products and the whole call.
+against its plain PyTorch version bit for bit, drives the main paths at 8192^3
+-- real DGEMM/SGEMM and complex ZGEMM/CGEMM and herk (fast mode, INT8) --
+checks their launch counts, their accuracy against an extended-precision
+oracle and their bits against the package's own CPU path, and times the
+kernels, the int8 products and the whole calls.
 
     python3 chip_smoke.py            # needs one CUDA card and nvcc
 
@@ -18,6 +19,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -35,7 +37,16 @@ PEAK_BYTES = 3.35e12
 PEAK_OPS32 = 67e12 / 2
 PEAK_OPS64 = 34e12 / 2
 PATHS = ((torch.float64, 16), (torch.float32, 8))     # main path: dtype, nu
-TAG = {torch.float64: "f64", torch.float32: "f32"}
+TAG = {torch.float64: "f64", torch.float32: "f32",
+       torch.complex128: "c128", torch.complex64: "c64"}
+# complex main paths: name, dtype, nu, entry, and the launches of one call
+# (encode kernel, int8 products, complex epilogue, recombine, real epilogue)
+CPATHS = (("zgemm16", torch.complex128, 16, "gemm", (4, 48, 1, 0, 0)),
+          ("cgemm8", torch.complex64, 8, "gemm", (4, 24, 1, 0, 0)),
+          ("zgemm20", torch.complex128, 20, "gemm", (4, 60, 0, 1, 2)),
+          ("herk16", torch.complex128, 16, "herk", (2, 48, 1, 0, 0)))
+COUNT_KEYS = ("encode_planes", "_int_mm", "fused_epilogue_complex",
+              "fused_recombine_3m", "fused_epilogue")
 
 
 def log(*a):
@@ -114,34 +125,72 @@ CASES: dict[str, int] = {}
 MAX_ABS_ERR: dict[str, float] = {}
 
 
-def compare(key, got, ref, what):
-    """Hold a kernel's output against its plain version, bit for bit."""
+def _flat(x):
+    """A kernel output as a 2-D real tensor (a complex one as its real and
+    imaginary parts side by side)."""
+    if x.is_complex():
+        x = torch.view_as_real(x).flatten(-2)
+    return x.reshape(-1, x.shape[-1])
+
+
+def compare(key, got, ref, what, count=True):
+    """Hold a kernel's output (a tensor or a tuple of them) against its plain
+    version, bit for bit."""
     torch.cuda.synchronize()
+    pairs = list(zip(got, ref)) if isinstance(got, tuple) else [(got, ref)]
     err = 0.0
-    # in row blocks, so that the f64 copies of full-size planes stay small
-    for g, r in zip(got.reshape(-1, got.shape[-1]).split(2048),
-                    ref.reshape(-1, ref.shape[-1]).split(2048)):
-        g, r = g.double(), r.double()
-        fin = torch.isfinite(g) & torch.isfinite(r)
-        if bool(fin.any()):
-            err = max(err, float((g - r).abs()[fin].max()))
+    for g0, r0 in pairs:
+        # in row blocks, so that the f64 copies of full-size planes stay small
+        for g, r in zip(_flat(g0).split(2048), _flat(r0).split(2048)):
+            g, r = g.double(), r.double()
+            fin = torch.isfinite(g) & torch.isfinite(r)
+            if bool(fin.any()):
+                err = max(err, float((g - r).abs()[fin].max()))
+        assert_bits_equal(g0, r0, what)
     MAX_ABS_ERR[key] = max(MAX_ABS_ERR.get(key, 0.0), err)
-    CASES[key] = CASES.get(key, 0) + 1
-    assert_bits_equal(got, ref, what)
+    if count:
+        CASES[key] = CASES.get(key, 0) + 1
 
 
 def assert_bits_equal(got, ref, what, extra=""):
     got, ref = got.cpu(), ref.cpu()
     check(got.shape == ref.shape and got.dtype == ref.dtype,
           f"{what}: {got.shape}/{got.dtype} vs {ref.shape}/{ref.dtype}")
+    if got.is_complex():
+        got, ref = torch.view_as_real(got), torch.view_as_real(ref)
     if got.is_floating_point():
-        eq = torch.equal(got.view(torch.uint8), ref.view(torch.uint8))
+        eq = torch.equal(got.contiguous().view(torch.uint8),
+                         ref.contiguous().view(torch.uint8))
     else:
         eq = torch.equal(got, ref)
     if not eq:
         idx, g, r, n = first_diff(got, ref)
         raise AssertionError(f"{what}: {n} elements differ, first at {idx}: "
                              f"{g!r} vs {r!r}{extra}")
+
+
+def run_counted(fn):
+    """fn() with every launch count set to 0 just before and read just
+    after; torch._int_mm calls are counted by a wrapper around it."""
+    from gemmul8_tpu_torch import kernels
+    orig = torch._int_mm
+    n_int_mm = 0
+
+    def counted(*a, **k):
+        nonlocal n_int_mm
+        n_int_mm += 1
+        return orig(*a, **k)
+
+    kernels.reset_launches()
+    torch._int_mm = counted
+    try:
+        out = fn()
+        torch.cuda.synchronize()
+    finally:
+        torch._int_mm = orig
+    counts = dict(kernels.LAUNCHES)
+    counts["_int_mm"] = n_int_mm
+    return out, counts
 
 
 # ---------------------------------------------------------------------------
@@ -184,6 +233,86 @@ def epilogue_cases(rng):
                         kernels.fused_epilogue_plain(chi, sa, sb, nu, "INT8",
                                                      out),
                         f"epilogue nu={nu} chunked={chunked} out={out}")
+
+
+def lane_products(rng, nu, m, n, chunked):
+    """Random (3nu, m, n) int32 lane products: any int32 value, or K-chunked
+    sums of three per-chunk residues in [0, p)."""
+    from gemmul8_tpu_torch import tables
+    if chunked:
+        mods = tables.moduli("INT8")[:nu]
+        chi = np.concatenate([np.stack([rng.integers(0, 3 * p, (m, n))
+                                        for p in mods]) for _ in range(3)])
+    else:
+        chi = rng.integers(-2 ** 31, 2 ** 31, (3 * nu, m, n))
+    return torch.from_numpy(chi.astype(np.int32)).cuda()
+
+
+def edge_lane_products(nu, dt):
+    """The lane products of the edge corpus as a complex product: A has the
+    corpus as its real part and the corpus upside down as its imaginary part,
+    B is A's transpose; their shifts span the corpus' extremes."""
+    from gemmul8_tpu_torch import complex_gemm as cg, core
+    e = torch.from_numpy(edge_corpus(np.float64)).to(dt).cuda()
+    ar, ai = e, e.flip(0).contiguous()
+    br, bi = ar.T.contiguous(), ai.T.contiguous()
+    sa = cg._shift_complex_fast(ar, ai, nu, "INT8", 1)
+    sb = cg._shift_complex_fast(br, bi, nu, "INT8", 0)
+    pa = cg._quantize_complex(ar, ai, sa, 0, nu, "INT8", False)
+    pb = cg._quantize_complex(br, bi, sb, 1, nu, "INT8", True)
+    return core.residue_matmul(pa.reshape(3 * nu, *pa.shape[2:]),
+                               pb.reshape(3 * nu, *pb.shape[2:])), sa, sb
+
+
+def complex_cases(rng):
+    """The complex epilogue (K4), the recombine (K5) and the real epilogue on
+    K5's int8 output against their plain versions at small shapes: random and
+    K-chunked lane products and the edge corpus' own; K5 + 2 x K2 equals K4 at
+    nu <= 16; K2 on int8 residues equals K2 on the same values in int32."""
+    from gemmul8_tpu_torch import kernels
+    m, n = 136, 200
+    for nu in (2, 8, 13, 16, 17, 20):
+        for source in ("random", "chunked", "edge"):
+            if source == "edge":
+                chi, sa, sb = edge_lane_products(nu, torch.float64)
+            else:
+                chi = lane_products(rng, nu, m, n, source == "chunked")
+                sa = torch.from_numpy(
+                    rng.integers(-40, 90, m).astype(np.int32)).cuda()
+                sb = torch.from_numpy(
+                    rng.integers(-40, 90, n).astype(np.int32)).cuda()
+            what = f"nu={nu} {source}"
+            mids = kernels.fused_recombine_3m(chi, nu, "INT8")
+            compare("fused_recombine_3m[c128 nu=20]", mids,
+                    kernels.fused_recombine_3m_plain(chi, nu, "INT8"),
+                    f"recombine {what}")
+            for cdt in (torch.complex64, torch.complex128):
+                real_dt = torch.float32 if cdt == torch.complex64 else \
+                    torch.float64
+                split = tuple(kernels.fused_epilogue(x, sa, sb, nu, "INT8",
+                                                     real_dt) for x in mids)
+                compare("fused_epilogue[c128 nu=20 split]", split,
+                        tuple(kernels.fused_epilogue_plain(
+                            x, sa, sb, nu, "INT8", real_dt) for x in mids),
+                        f"split epilogue {what} out={real_dt}")
+                compare("fused_epilogue[c128 nu=20 split]", split,
+                        tuple(kernels.fused_epilogue(
+                            x.to(torch.int32), sa, sb, nu, "INT8", real_dt)
+                            for x in mids),
+                        f"epilogue int8 vs int32 input {what}", count=False)
+                if nu > 16 or (nu > 13 and cdt == torch.complex64):
+                    continue
+                key = f"fused_epilogue_complex[{TAG[cdt]}]"
+                got = kernels.fused_epilogue_complex(chi, sa, sb, nu, "INT8",
+                                                     cdt)
+                compare(key, got, kernels.fused_epilogue_complex_plain(
+                    chi, sa, sb, nu, "INT8", cdt), f"complex epilogue {what}")
+                compare(key, got, torch.complex(*split),
+                        f"K5 + 2 x K2 vs K4 {what} out={cdt}", count=False)
+                compare(key, kernels.fused_epilogue_complex(
+                            chi, sa, sb, nu, "INT8", real_dt),
+                        (got.real, got.imag),
+                        f"planar vs complex output {what}", count=False)
 
 
 def full_size_cases(a64, b64):
@@ -230,6 +359,162 @@ def small_accuracy_case(rng):
 
 
 # ---------------------------------------------------------------------------
+# phase 4, complex: the kernels at the complex paths' 8192^2 inputs, the
+# paths with their launch counts and their accuracy
+# ---------------------------------------------------------------------------
+
+def complex_stages(nu, entry, a, b):
+    """The complex path's stages up to the lane products, as the entry runs
+    them: (shifts, lanes of A and of B, C_hi3)."""
+    from gemmul8_tpu_torch import complex_gemm as cg, core
+    ar, ai = a.real.contiguous(), a.imag.contiguous()
+    if entry == "herk":          # one shift and one encode serve both sides
+        sa = cg._shift_complex_fast(ar, ai, nu, "INT8", 1, variant="invariant")
+        sb = sa
+        pa = cg._quantize_complex(ar, ai, sa, 0, nu, "INT8", False)
+        pb = cg._herk_rhs_lanes(pa, nu, "INT8")
+    else:
+        br, bi = b.real.contiguous(), b.imag.contiguous()
+        sa = cg._shift_complex_fast(ar, ai, nu, "INT8", 1)
+        sb = cg._shift_complex_fast(br, bi, nu, "INT8", 0)
+        pa = cg._quantize_complex(ar, ai, sa, 0, nu, "INT8", False)
+        pb = cg._quantize_complex(br, bi, sb, 1, nu, "INT8", False)
+    c_hi3 = core.residue_matmul(pa.reshape(3 * nu, *pa.shape[2:]),
+                                pb.reshape(3 * nu, *pb.shape[2:]))
+    return (sa, sb), (pa, pb), c_hi3
+
+
+def compare_rows(key, got, plain, what, rows=1024):
+    """Hold a full-size kernel output against its plain version computed on
+    row blocks (the plain version of a whole 8192^2 epilogue holds several
+    copies of C_hi3). `got` is a tensor or tuple whose dim -2 is the row;
+    plain(r0, r1) gives the same for rows r0:r1."""
+    m = (got[0] if isinstance(got, tuple) else got).shape[-2]
+    for r0 in range(0, m, rows):
+        r1 = min(r0 + rows, m)
+        g = tuple(x[..., r0:r1, :] for x in got) if isinstance(got, tuple) \
+            else got[r0:r1]
+        compare(key, g, plain(r0, r1), f"{what} rows {r0}:{r1}", count=False)
+        torch.cuda.empty_cache()
+    CASES[key] = CASES.get(key, 0) + 1
+
+
+def full_size_complex_cases(A, B):
+    """Each kernel on the inputs each complex path gives it at 8192^2: the
+    encodes of the Re and Im lanes of A (and B), then the complex epilogue
+    (nu <= 16), or the recombine and the real epilogue on its int8 output
+    (nu = 20), on the path's own lane products."""
+    from gemmul8_tpu_torch import kernels
+    for name, dt, nu, entry, _ in CPATHS:
+        a = A.to(dt)
+        b = B.to(dt) if entry == "gemm" else None
+        (sa, sb), (pa, pb), c_hi3 = complex_stages(nu, entry, a, b)
+        real = a.real.contiguous()
+        compare(f"encode_planes[{TAG[real.dtype]}]", pa[0],
+                kernels.encode_planes_plain(real, sa, 0, nu, "INT8"),
+                f"encode full-size {name} Re(A)")
+        if entry == "gemm":
+            imag = b.imag.contiguous()
+            compare(f"encode_planes[{TAG[real.dtype]}]", pb[1],
+                    kernels.encode_planes_plain(imag, sb, 1, nu, "INT8"),
+                    f"encode full-size {name} Im(B)")
+        del pa, pb
+        blk = lambda r0, r1: c_hi3[:, r0:r1].contiguous()  # noqa: E731
+        if nu <= 16:
+            compare_rows(f"fused_epilogue_complex[{TAG[dt]}]",
+                         kernels.fused_epilogue_complex(c_hi3, sa, sb, nu,
+                                                        "INT8", dt),
+                         lambda r0, r1: kernels.fused_epilogue_complex_plain(
+                             blk(r0, r1), sa[r0:r1], sb, nu, "INT8", dt),
+                         f"complex epilogue full-size {name}")
+        else:
+            mids = kernels.fused_recombine_3m(c_hi3, nu, "INT8")
+            compare_rows("fused_recombine_3m[c128 nu=20]", mids,
+                         lambda r0, r1: kernels.fused_recombine_3m_plain(
+                             blk(r0, r1), nu, "INT8"),
+                         f"recombine full-size {name}")
+            del c_hi3
+            real_dt = a.real.dtype
+            for part, mid in zip(("Re", "Im"), mids):
+                compare_rows("fused_epilogue[c128 nu=20 split]",
+                             kernels.fused_epilogue(mid, sa, sb, nu, "INT8",
+                                                    real_dt),
+                             lambda r0, r1: kernels.fused_epilogue_plain(
+                                 mid[:, r0:r1], sa[r0:r1], sb, nu, "INT8",
+                                 real_dt),
+                             f"split epilogue full-size {name} {part}")
+        del blk
+        torch.cuda.empty_cache()
+
+
+def _ld_product_rows(ar, ai, br, bi):
+    """(ar + i ai) @ (br + i bi) in numpy longdouble from the four real
+    products, each in column blocks on 8 threads (numpy's longdouble matmul
+    has no BLAS; it releases the GIL)."""
+    def prod(x, y):
+        blocks = range(0, y.shape[1], 512)
+        with ThreadPoolExecutor(8) as ex:
+            return np.concatenate(list(ex.map(
+                lambda j: x @ y[:, j:j + 512], blocks)), axis=1)
+    ld = lambda v: np.asarray(v, np.longdouble)  # noqa: E731
+    ar, ai, br, bi = map(ld, (ar, ai, br, bi))
+    return (prod(ar, br) - prod(ai, bi)) + 1j * (prod(ar, bi) + prod(ai, br))
+
+
+def complex_relerr(c, ref):
+    """Max and median of |c - ref| / |ref| (the complex modulus)."""
+    err = np.abs(np.asarray(c, np.clongdouble) - ref)
+    den = np.abs(ref)
+    err = err / np.where(den == 0, np.longdouble(1), den)
+    return float(np.max(err)), float(np.median(err))
+
+
+def complex_main_paths(A, B):
+    """The four complex paths through the entry points a user calls, each
+    with its launch counts set to 0 just before and read just after; the
+    output's shape, dtype and finiteness; accuracy on rows 0-7 against a
+    longdouble oracle beside torch.matmul's (cuBLAS ZGEMM/CGEMM)."""
+    import gemmul8_tpu_torch as gt
+    launches, oracles = {}, {}
+    for name, dt, nu, entry, want in CPATHS:
+        a = A.to(dt)
+        b = B.to(dt) if entry == "gemm" else a.mH
+        if entry == "gemm":
+            c, counts = run_counted(lambda: gt.gemm(a, b, num_moduli=nu))
+        else:
+            c, counts = run_counted(lambda: gt.herk(a, num_moduli=nu))
+        got = tuple(counts[k] for k in COUNT_KEYS)
+        check(got == want, f"{name} launches {counts}, want "
+              f"{dict(zip(COUNT_KEYS, want))}")
+        launches[name] = counts
+        check(c.shape == (FULL, FULL) and c.dtype == dt
+              and bool(torch.isfinite(torch.view_as_real(c)).all()),
+              f"{name} output {c.shape} {c.dtype}")
+        okey = (entry, dt)
+        if okey not in oracles:
+            a8 = a[:8].cpu().numpy()
+            b_np = b.resolve_conj().cpu().numpy()
+            oracles[okey] = _ld_product_rows(a8.real, a8.imag, b_np.real,
+                                             b_np.imag)
+        ref = oracles[okey]
+        err, med = complex_relerr(c[:8].cpu().numpy(), ref)
+        native = torch.matmul(a, b)[:8].cpu().numpy()
+        nerr, nmed = complex_relerr(native, ref)
+        log(f"accuracy {name} rows 0-7: emulated max {err:.3e} median "
+            f"{med:.3e}; torch.matmul max {nerr:.3e} median {nmed:.3e}")
+        if name == "cgemm8":
+            check(err < nerr, f"{name} error {err} vs cuBLAS {nerr}")
+        elif name == "herk16":    # tests/test_herk.py's bound
+            check(err <= 16 * nerr, f"{name} error {err} vs cuBLAS {nerr}")
+        else:
+            check(err <= 2 * nerr, f"{name} error {err} vs cuBLAS {nerr}")
+        log(f"main path {name} launches: {counts}")
+        del c, native
+        torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # phase 5: the card against the package's own CPU path
 # ---------------------------------------------------------------------------
 
@@ -271,6 +556,77 @@ def card_vs_cpu(rng):
     return n
 
 
+def cphi(rng, m, n, dt):
+    return (phi_matrix(rng, m, n, 0.5) + 1j * phi_matrix(rng, m, n, 0.5)
+            ).astype(dt)
+
+
+def complex_card_vs_cpu(rng):
+    """The complex entries on the card against the package's CPU path, bit
+    for bit: ragged ZGEMM (both epilogues, nu=16; nu=20) and CGEMM, ops T and
+    C, general complex alpha/beta, the K-chunked path, gemm_planar and herk
+    with trans False and True."""
+    import gemmul8_tpu_torch as gt
+    c128, c64 = np.complex128, np.complex64
+    alpha, beta = -1.25 + 0.5j, 0.75 - 0.25j
+    cases = [   # (entry, m, k, n, dtype, keywords)
+        ("gemm", 1000, 2048, 600, c128, dict(num_moduli=16, epilogue="ff")),
+        ("gemm", 1000, 2048, 600, c128, dict(num_moduli=16, epilogue="f64")),
+        ("gemm", 1000, 2048, 600, c128, dict(num_moduli=20)),
+        ("gemm", 1000, 2048, 600, c64, dict(num_moduli=8)),
+        ("gemm", 300, 520, 200, c128, dict(num_moduli=16, trans_a="T",
+                                           trans_b="C")),
+        ("gemm", 300, 520, 200, c64, dict(num_moduli=8, trans_a="C",
+                                          trans_b="N", epilogue="f64")),
+        ("gemm", 300, 520, 200, c128, dict(num_moduli=16, alpha=alpha,
+                                           beta=beta)),
+        ("gemm", 300, 520, 200, c128, dict(num_moduli=16, alpha=alpha,
+                                           beta=beta, epilogue="f64")),
+        ("gemm", 300, 520, 200, c64, dict(num_moduli=8, alpha=alpha,
+                                          beta=beta)),
+        ("gemm", 128, (1 << 17) + 512, 128, c128, dict(num_moduli=16)),
+        ("planar", 300, 520, 200, c128, dict(num_moduli=16, trans_a="C")),
+        ("herk", 300, 520, 300, c128, dict(num_moduli=16, alpha=-0.5,
+                                           beta=2.0)),
+        ("herk", 520, 300, 520, c128, dict(num_moduli=16, trans=True,
+                                           alpha=1.5, beta=1.0)),
+    ]
+    n = 0
+    for entry, m, k, n_, dt, kw in cases:
+        # "auto" would pick "f64" on the CPU and "ff" on the card
+        kw = dict({"epilogue": "ff"}, **kw)
+        if entry == "herk":
+            a = cphi(rng, m, k, dt)
+            mdim = k if kw.get("trans") else m
+            kw = dict(kw, c=cphi(rng, mdim, mdim, dt))
+            fn = lambda d: gt.herk(a, device=d, **kw)  # noqa: E731
+        else:
+            ta, tb = kw.get("trans_a", "N"), kw.get("trans_b", "N")
+            a = cphi(rng, *((m, k) if ta == "N" else (k, m)), dt)
+            b = cphi(rng, *((k, n_) if tb == "N" else (n_, k)), dt)
+            if "beta" in kw:
+                kw = dict(kw, c=cphi(rng, m, n_, dt))
+            if entry == "gemm":
+                fn = lambda d: gt.gemm(a, b, device=d, **kw)  # noqa: E731
+            else:
+                planes = [np.ascontiguousarray(x)
+                          for x in (a.real, a.imag, b.real, b.imag)]
+                fn = lambda d: torch.complex(  # noqa: E731
+                    *gt.gemm_planar(*planes, device=d, **kw))
+        t0 = time.perf_counter()
+        got = fn("cuda")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        ref = fn("cpu")
+        t2 = time.perf_counter()
+        label = (f"card vs cpu {entry} {np.dtype(dt).name} {m}x{k}x{n_} "
+                 f"{ {x: y for x, y in kw.items() if x != 'c'} }")
+        assert_bits_equal(got, ref, label)
+        log(f"  ok  {label}  card {t1 - t0:.2f}s cpu {t2 - t1:.2f}s")
+        n += 1
+    return n
+
+
 # ---------------------------------------------------------------------------
 # bounds
 # ---------------------------------------------------------------------------
@@ -309,27 +665,67 @@ def encode_bound(m, k, nu, itemsize):
     return bound(m * k * ops32, m * k * ops64, bytes_)
 
 
-def epilogue_bound(m, n, nu, out_bits):
-    """Least time of one epilogue at (m, n). Bytes: nu int32 planes read
-    once, the shifts, the output written once. 32-bit operations per
-    element: nu loads, two shift loads and the store; per modulus the
-    reduction of any int32 (4) and the wrap (2), or a 3-op mask for p = 256,
-    and L multiply-adds into the limbs; two carry passes (4 per limb
-    boundary); the quotient from the top three limbs (3 conversions, 2
-    multiply-adds, the multiply by 1/P, rint, the conversion back: 8); the
-    fold (L multiply-adds); the emit, per limb: f32 out, a conversion, seven
-    multiplies and two_sum's six operations (14), the final add (1); f64 out,
-    the limb's exponent, its floor split by 3 and by 2 and three exponent
-    assemblies (13). f64 operations per element (f64 out): per limb a
-    conversion, three multiplies and an add (5)."""
+def _crt_ops(nu, L, f64):
+    """32-bit operations per element of one CRT pipeline from wrapped
+    residues to the output value: L multiply-adds per modulus into the
+    limbs; two carry passes (4 per limb boundary); the quotient from the top
+    three limbs (3 conversions, 2 multiply-adds, the multiply by 1/P, rint,
+    the conversion back: 8); the fold (L multiply-adds); the emit, per limb:
+    f32 out, a conversion, seven multiplies and two_sum's six operations
+    (14), the final add (1); f64 out, the limb's exponent, its floor split by
+    3 and by 2 and three exponent assemblies (13). (f64 out also takes 5 f64
+    operations per limb: a conversion, three multiplies and an add.)"""
+    return nu * L + 8 * (L - 1) + 8 + L + (13 * L if f64 else 14 * L + 1)
+
+
+def epilogue_bound(m, n, nu, out_bits, in_bytes=4):
+    """Least time of one epilogue at (m, n). Bytes: nu planes read once
+    (int32, or int8 wrapped residues with in_bytes=1), the shifts, the output
+    written once. 32-bit operations per element: nu loads, two shift loads
+    and the store; on int32 input, per modulus the reduction of any int32
+    (4) and the wrap (2), or a 3-op mask for p = 256 (wrapped int8 input
+    needs none: the wrap is the identity there); then one CRT pipeline
+    (_crt_ops)."""
     from gemmul8_tpu_torch import ff
     L = ff.limb_plan(nu, "INT8", out_bits)[1]
     f64 = out_bits == 53
-    ops32 = (nu + 3 + _moduli_ops(nu, 6, 3) + nu * L + 8 * (L - 1) + 8 + L
-             + (13 * L if f64 else 14 * L + 1))
+    ops32 = (nu + 3 + (_moduli_ops(nu, 6, 3) if in_bytes == 4 else 0)
+             + _crt_ops(nu, L, f64))
     ops64 = 5 * L if f64 else 0
-    bytes_ = m * n * (4 * nu + (8 if f64 else 4)) + 4 * (m + n)
+    bytes_ = m * n * (in_bytes * nu + (8 if f64 else 4)) + 4 * (m + n)
     return bound(m * n * ops32, m * n * ops64, bytes_)
+
+
+# per modulus, the 3M recombine from three wrapped lanes: re, a subtraction
+# and two conditional corrections (compare and select, 2 each); im, two
+# subtractions and the same corrections
+RECOMBINE_OPS = 5 + 6
+
+
+def complex_epilogue_bound(m, n, nu, out_bits):
+    """Least time of one complex epilogue (K4) at (m, n). Bytes: 3nu int32
+    planes read once, the shifts, Re and Im written once. 32-bit operations
+    per element: 3nu loads, two shift loads, two stores; per modulus three
+    reductions of any int32 with their wraps (as in epilogue_bound) and the
+    recombine (RECOMBINE_OPS); then two CRT pipelines (_crt_ops). f64
+    operations (f64 out): 5 per limb in each pipeline."""
+    from gemmul8_tpu_torch import ff
+    L = ff.limb_plan(nu, "INT8", out_bits)[1]
+    f64 = out_bits == 53
+    ops32 = (3 * nu + 4 + 3 * _moduli_ops(nu, 6, 3) + RECOMBINE_OPS * nu
+             + 2 * _crt_ops(nu, L, f64))
+    ops64 = 10 * L if f64 else 0
+    bytes_ = m * n * (12 * nu + 2 * (8 if f64 else 4)) + 4 * (m + n)
+    return bound(m * n * ops32, m * n * ops64, bytes_)
+
+
+def recombine_bound(m, n, nu):
+    """Least time of one recombine (K5) at (m, n). Bytes: 3nu int32 planes
+    read once, 2nu int8 planes written once. 32-bit operations per element:
+    3nu loads, 2nu stores, per modulus three reductions with their wraps and
+    the recombine."""
+    ops32 = 5 * nu + 3 * _moduli_ops(nu, 6, 3) + RECOMBINE_OPS * nu
+    return bound(m * n * ops32, 0, m * n * 14 * nu)
 
 
 def bound(ops32, ops64, bytes_):
@@ -337,6 +733,82 @@ def bound(ops32, ops64, bytes_):
     t_ops = max(ops32 / PEAK_OPS32, ops64 / PEAK_OPS64) * 1e3
     t_bytes = bytes_ / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
+
+
+def complex_times(name, dt, nu, entry, A, B, card):
+    """Phase 6 for one complex path: the whole call (10 runs, median and
+    quartiles), torch.matmul on the same complex operands (cuBLAS ZGEMM or
+    CGEMM; for herk, A @ A^H) as the library yardstick, each stage, the
+    plain versions of the path's epilogue kernels and their bounds."""
+    import gemmul8_tpu_torch as gt
+    from gemmul8_tpu_torch import complex_gemm as cg, core, kernels
+    a = A.to(dt)
+    b = B.to(dt) if entry == "gemm" else a.mH
+    call = (lambda: gt.gemm(a, b, num_moduli=nu)) if entry == "gemm" else \
+        (lambda: gt.herk(a, num_moduli=nu))
+    runs = cuda_times(call, reps=10)
+    q1, q2, q3 = statistics.quantiles(runs, n=4)
+    t = dict(gemm_ms=q2, gemm_ms_q1=q1, gemm_ms_q3=q3,
+             library_ms=cuda_ms(lambda: torch.matmul(a, b)))
+    real_dt = a.real.dtype
+    ar, ai = a.real.contiguous(), a.imag.contiguous()
+    var = "invariant" if entry == "herk" else "reference"
+    (sa, sb), (pa, pb), c_hi3 = complex_stages(nu, entry, a, b)
+    if entry == "gemm":
+        br, bi = b.real.contiguous(), b.imag.contiguous()
+        t["shifts_ms"] = cuda_ms(lambda: (
+            cg._shift_complex_fast(ar, ai, nu, "INT8", 1),
+            cg._shift_complex_fast(br, bi, nu, "INT8", 0)))
+        t["lanes_b_ms"] = cuda_ms(lambda: cg._quantize_complex(
+            br, bi, sb, 1, nu, "INT8", False))
+    else:
+        t["shifts_ms"] = cuda_ms(lambda: cg._shift_complex_fast(
+            ar, ai, nu, "INT8", 1, variant=var))
+        t["lanes_b_ms"] = cuda_ms(lambda: cg._herk_rhs_lanes(pa, nu, "INT8"))
+    # one encode kernel launch, and A's three lanes (two launches + the sum)
+    t["encode_ms"] = cuda_ms(lambda: kernels.encode_planes(ar, sa, 0, nu,
+                                                           "INT8"))
+    t["lanes_a_ms"] = cuda_ms(lambda: cg._quantize_complex(
+        ar, ai, sa, 0, nu, "INT8", False))
+    t["products_ms"] = cuda_ms(lambda: core.residue_matmul(
+        pa.reshape(3 * nu, *pa.shape[2:]), pb.reshape(3 * nu, *pb.shape[2:])))
+    del pa, pb
+    out_bits = 53 if real_dt == torch.float64 else 24
+    if nu <= 16:
+        t["k4_ms"] = cuda_ms(lambda: kernels.fused_epilogue_complex(
+            c_hi3, sa, sb, nu, "INT8", dt))
+        t["k4_plain_ms"] = cuda_ms(lambda: kernels.fused_epilogue_complex_plain(
+            c_hi3, sa, sb, nu, "INT8", dt), reps=3)
+        t["k4_bound"] = complex_epilogue_bound(FULL, FULL, nu, out_bits)
+        t["k4_tbps"] = (FULL * FULL * (12 * nu + 2 * a.real.element_size())
+                        / (t["k4_ms"] * 1e-3) / 1e12)
+        check(t["k4_tbps"] * 1e12 <= PEAK_BYTES,
+              f"{name} complex epilogue at {t['k4_tbps']:.2f} TB/s exceeds peak")
+    else:
+        t["k5_ms"] = cuda_ms(lambda: kernels.fused_recombine_3m(c_hi3, nu,
+                                                                "INT8"))
+        t["k5_plain_ms"] = cuda_ms(lambda: kernels.fused_recombine_3m_plain(
+            c_hi3, nu, "INT8"), reps=3)
+        t["k5_bound"] = recombine_bound(FULL, FULL, nu)
+        mid_r, _ = kernels.fused_recombine_3m(c_hi3, nu, "INT8")
+        del c_hi3
+        t["k2_ms"] = cuda_ms(lambda: kernels.fused_epilogue(
+            mid_r, sa, sb, nu, "INT8", real_dt))
+        t["k2_plain_ms"] = cuda_ms(lambda: kernels.fused_epilogue_plain(
+            mid_r, sa, sb, nu, "INT8", real_dt), reps=3)
+        t["k2_bound"] = epilogue_bound(FULL, FULL, nu, out_bits, in_bytes=1)
+    flops = 8.0 * FULL ** 3
+    t["emulated_tflops"] = flops / (t["gemm_ms"] * 1e-3) / 1e12
+    t["library_tflops"] = flops / (t["library_ms"] * 1e-3) / 1e12
+    t["products_tops"] = 3 * nu * 2.0 * FULL ** 3 / (t["products_ms"] * 1e-3) \
+        / 1e12
+    check(t["products_tops"] * 1e12 <= PEAK_INT8_OPS,
+          f"{name} int8 products at {t['products_tops']:.0f} TOPS exceed peak")
+    log(f"times {card} | {name} 8192^3 nu={nu}: " + ", ".join(
+        f"{k_} {v:.4f}" if isinstance(v, float) else f"{k_} {v}"
+        for k_, v in t.items()))
+    torch.cuda.empty_cache()
+    return t
 
 
 # ---------------------------------------------------------------------------
@@ -373,8 +845,12 @@ def main():
 
     # phase 3: kernels against their plain versions, bit for bit
     rng = np.random.default_rng(SEED)
+    # the complex phases draw from a stream of their own, so that the real
+    # paths' inputs stay those of the real-only script
+    crng = np.random.default_rng(SEED + 1)
     encode_cases(rng)
     epilogue_cases(rng)
+    complex_cases(crng)
     log(f"kernels vs plain, small shapes, all bit-equal: {CASES}")
     if args.quick:
         log(json.dumps({"quick": True, "cases": CASES}))
@@ -390,12 +866,10 @@ def main():
     main_launches = {}
     for dt, nu in PATHS:
         a, b = a64.to(dt), b64.to(dt)
-        kernels.reset_launches()
-        c = gt.gemm(a, b, num_moduli=nu)
-        torch.cuda.synchronize()
-        counts = dict(kernels.LAUNCHES)
-        check(counts == {"encode_planes": 2, "fused_epilogue": 1},
-              f"main path {dt} launches {counts}, want 2 encodes, 1 epilogue")
+        c, counts = run_counted(lambda: gt.gemm(a, b, num_moduli=nu))
+        check(tuple(counts[k] for k in COUNT_KEYS) == (2, nu, 0, 0, 1),
+              f"main path {dt} launches {counts}, want 2 encodes, {nu} int8 "
+              "products, 1 epilogue")
         main_launches[dt] = counts
         check(c.shape == (FULL, FULL) and c.dtype == dt
               and bool(torch.isfinite(c).all()), f"main path {dt} output")
@@ -422,9 +896,18 @@ def main():
         del c, native
         log(f"main path {dt} nu={nu} launches: {counts}")
     small_accuracy_case(rng)
+    # the complex paths: A and B with the real operands as their real parts
+    A = torch.complex(a64, torch.from_numpy(
+        phi_matrix(crng, FULL, FULL, 0.5)).cuda())
+    B = torch.complex(b64, torch.from_numpy(
+        phi_matrix(crng, FULL, FULL, 0.5)).cuda())
+    full_size_complex_cases(A, B)
+    log(f"kernels vs plain, all bit-equal, complex full size included: {CASES}")
+    complex_launches = complex_main_paths(A, B)
 
     # phase 5: the card against the CPU path, bit for bit
     n_cpu = card_vs_cpu(rng)
+    n_cpu += complex_card_vs_cpu(crng)
     log(f"card vs cpu: {n_cpu} cases bit-equal")
 
     # phase 6: times
@@ -475,6 +958,12 @@ def main():
             f"{k_} {v:.4f}" if isinstance(v, float) else f"{k_} {v}"
             for k_, v in t.items()))
         del ap, bp, c_hi
+    ctiming = {p[0]: complex_times(*p[:4], A, B, card) for p in CPATHS}
+    for name, *_ in CPATHS:
+        t = ctiming[name]
+        log(f"headline {card}: {name} 8192^3 {t['emulated_tflops']:.3f} TF/s "
+            f"({t['gemm_ms']:.3f} ms), torch.matmul "
+            f"{t['library_tflops']:.3f} TF/s ({t['library_ms']:.3f} ms)")
     t64 = timing[torch.float64]
     log(f"headline {card}: emulated DGEMM 8192^3 nu=16 "
         f"{t64['emulated_tflops']:.3f} TF/s ({t64['gemm_ms']:.3f} ms), "
@@ -510,6 +999,39 @@ def main():
                  path=f"gemm {tag} 8192^3 nu={nu}",
                  shape=f"C_hi {nu}x8192x8192 int32 -> {tag}"),
         ]
+    complex_entry = dict(route="cuda", library_ms=None)
+    for name, dt, nu, *_ in CPATHS[:2]:           # the two K4 paths
+        t, tag = ctiming[name], TAG[dt]
+        key = f"fused_epilogue_complex[{tag}]"
+        kern.append(dict(
+            complex_entry, name=key, source="gemmul8_tpu_torch/csrc/complex.cu",
+            replaces="gemmul8_tpu/pallas_kernels.py:595",
+            launches=complex_launches[name]["fused_epilogue_complex"],
+            max_abs_err=MAX_ABS_ERR[key], cases=CASES[key], ms=t["k4_ms"],
+            plain_ms=t["k4_plain_ms"], bound_ms=t["k4_bound"][0],
+            bound_by=t["k4_bound"][1], path=f"gemm {tag} 8192^3 nu={nu}",
+            shape=f"C_hi3 {3 * nu}x8192x8192 int32 -> {tag}"))
+    t = ctiming["zgemm20"]
+    kern += [
+        dict(complex_entry, name="fused_recombine_3m[c128 nu=20]",
+             source="gemmul8_tpu_torch/csrc/complex.cu",
+             replaces="gemmul8_tpu/pallas_kernels.py:655",
+             launches=complex_launches["zgemm20"]["fused_recombine_3m"],
+             max_abs_err=MAX_ABS_ERR["fused_recombine_3m[c128 nu=20]"],
+             cases=CASES["fused_recombine_3m[c128 nu=20]"], ms=t["k5_ms"],
+             plain_ms=t["k5_plain_ms"], bound_ms=t["k5_bound"][0],
+             bound_by=t["k5_bound"][1], path="gemm c128 8192^3 nu=20",
+             shape="C_hi3 60x8192x8192 int32 -> 2 x 20x8192x8192 int8"),
+        dict(complex_entry, name="fused_epilogue[c128 nu=20 split]",
+             source="gemmul8_tpu_torch/csrc/epilogue.cu",
+             replaces="gemmul8_tpu/pallas_kernels.py:399",
+             launches=complex_launches["zgemm20"]["fused_epilogue"],
+             max_abs_err=MAX_ABS_ERR["fused_epilogue[c128 nu=20 split]"],
+             cases=CASES["fused_epilogue[c128 nu=20 split]"], ms=t["k2_ms"],
+             plain_ms=t["k2_plain_ms"], bound_ms=t["k2_bound"][0],
+             bound_by=t["k2_bound"][1], path="gemm c128 8192^3 nu=20",
+             shape="20x8192x8192 int8 -> f64"),
+    ]
     log(card)
     log(json.dumps({"kernels": kern}))
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,406 @@
+"""Complex GEMM (CGEMM/ZGEMM) and herk via the 3M scheme in residue space,
+fast (and robust) mode, INT8, in PyTorch.
+
+The counterpart of gemmul8_tpu/complex_gemm.py:
+
+  * each operand emits three residue plane sets per modulus -- Re, Im and
+    (Re+Im) mod p -- with one shift per row/column computed from Re and Im
+    together (two encode kernel launches, the third lane an int16 add and a
+    balanced wrap);
+  * 3nu exact int8 products, Crr = Ar.Br, Cii = Ai.Bi, Crii = (Ar+Ai).(Br+Bi),
+    one torch._int_mm each;
+  * with the "ff" epilogue the lane products go into one kernel that wraps,
+    recombines Re = Crr - Cii and Im = Crii - Crr - Cii mod p and runs both
+    CRT + descale pipelines (nu <= 16), or into a recombine kernel and two
+    passes of the real epilogue kernel (nu > 16). On the CPU the wrappers run
+    their plain versions. The "f64" epilogue runs the unfused chain;
+  * conjugation ('C' op) negates the imaginary lane before the encode.
+
+Results are bit-equal to the JAX package on the CPU. XLA:CPU computes a
+complex product x*y under jit as re = fma(xr, yr, -(xi*yi)) and
+im = fma(xi, yr, xr*yi); the alpha/beta epilogue here does the same with
+torch.addcmul (pinned by tests/test_torch_complex_gemm.py).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import core, kernels, quantize, tables
+
+_COMPLEX_NAME = {torch.float32: "complex64", torch.float64: "complex128",
+                 torch.complex64: "complex64", torch.complex128: "complex128"}
+
+
+def _check_mode(fastmode, backend) -> None:
+    if backend not in (tables.Backend.INT8, tables.Backend.FP8):
+        raise ValueError(f"backend must be 'INT8' or 'FP8', got {backend!r}")
+    if backend == tables.Backend.FP8:
+        raise NotImplementedError(
+            "backend='FP8' is not ported yet (ROADMAP queue 8)")
+    if not fastmode:
+        raise NotImplementedError(
+            "accurate mode (fastmode=False) is not ported yet (ROADMAP queue 5)")
+
+
+def _check_nu(dtype, num_moduli) -> None:
+    name = _COMPLEX_NAME[dtype]
+    lo, hi = tables.VALID_RANGE[name]
+    if not lo <= num_moduli <= hi:
+        raise ValueError(
+            f"num_moduli={num_moduli} out of range [{lo},{hi}] for {name}")
+
+
+def _pack(re, im, out_dtype):
+    return torch.complex(re, im) if out_dtype.is_complex else (re, im)
+
+
+def _crop(out, m, n):
+    if isinstance(out, tuple):
+        return tuple(_crop(x, m, n) for x in out)
+    return out if out.shape == (m, n) else out[:m, :n]
+
+
+# ---------------------------------------------------------------------------
+# shifts, lanes, recombine
+# ---------------------------------------------------------------------------
+
+def _shift_complex_fast(re, im, num_moduli, backend, reduce_axis,
+                        variant="reference"):
+    """One shift per row/column from Re and Im concatenated along the reduce
+    axis: amax = max(|re|, |im|), norm^2 = sum(re^2 + im^2)."""
+    stacked = torch.cat([re, im], dim=reduce_axis)
+    return quantize.shift_fast(stacked, num_moduli, backend, reduce_axis,
+                               variant=variant)
+
+
+def _quantize_complex(re, im, sft, scale_axis, num_moduli, backend, conj):
+    """The three lane plane sets (Re, Im, (Re+Im) mod p) of one operand:
+    (3, nu, r, c) int8, each lane in the layout encode_planes returns (B's
+    planes k-contiguous, as the int8 product reads them)."""
+    if backend != tables.Backend.INT8:
+        raise NotImplementedError(
+            "backend='FP8' is not ported yet (ROADMAP queue 8)")
+    if conj:
+        im = -im
+    rows, cols = re.shape
+    lanes = kernels.plane_buffer((3, num_moduli), rows, cols, scale_axis,
+                                 re.device)
+    kernels.encode_planes(re, sft, scale_axis, num_moduli, backend,
+                          out=lanes[0])
+    kernels.encode_planes(im, sft, scale_axis, num_moduli, backend,
+                          out=lanes[1])
+    # the (Re+Im) lane from the two wrapped lanes, in int16 (|sum| <= 256),
+    # one modulus at a time so that the temporaries stay one plane large
+    for i, p in enumerate(tables.moduli(backend)[:num_moduli]):
+        lanes[2, i] = core._wrap(lanes[0, i].to(torch.int16) + lanes[1, i],
+                                 p)
+    return lanes
+
+
+def _recombine_3m(mids, num_moduli, backend):
+    """(3, nu, m, n) wrapped lane-product residues -> (re, im), each
+    (nu, m, n) int8 wrapped residues: Re = Crr - Cii, Im = Crii - Crr - Cii,
+    mod p (reference: conv_hi2mid_complex.hpp:9-40)."""
+    out_r, out_i = [], []
+    for i, p in enumerate(tables.moduli(backend)[:num_moduli]):
+        crr, cii, cri = (mids[lane, i].to(torch.int32) for lane in range(3))
+        out_r.append(core._wrap(crr - cii, p).to(torch.int8))
+        out_i.append(core._wrap(cri - crr - cii, p).to(torch.int8))
+    return torch.stack(out_r), torch.stack(out_i)
+
+
+def _complex_product(pa, pb, sft_a, sft_b, num_moduli, backend, out_dtype,
+                     epilogue):
+    """Lane-product residue GEMMs + 3M recombine + dual CRT from the encoded
+    (3, nu, ...) lane plane sets. Returns a complex tensor for a complex
+    out_dtype, else the (re, im) pair."""
+    nu = num_moduli
+    real_dt = kernels.REAL_DTYPE[out_dtype]
+    if core.resolve_epilogue(epilogue, pa.device) == "ff":
+        if pa.shape[-1] <= core.K_CHUNK:
+            c_hi3 = core.residue_matmul(pa.reshape(3 * nu, *pa.shape[2:]),
+                                        pb.reshape(3 * nu, *pb.shape[2:]))
+        else:
+            c_hi3 = torch.cat([core._chunked_residue_acc(pa[lane], pb[lane],
+                                                         nu, backend)
+                               for lane in range(3)])
+        if nu <= 16:
+            return kernels.fused_epilogue_complex(c_hi3, sft_a, sft_b, nu,
+                                                  backend, out_dtype)
+        # nu > 16: recombine into int8 residues, then the real epilogue twice
+        mid_r, mid_i = kernels.fused_recombine_3m(c_hi3, nu, backend)
+        del c_hi3
+        re, im = (kernels.fused_epilogue(x, sft_a, sft_b, nu, backend, real_dt)
+                  for x in (mid_r, mid_i))
+        return _pack(re, im, out_dtype)
+    mids = torch.stack([core.residue_gemm(pa[lane], pb[lane], nu, backend)
+                        for lane in range(3)])
+    mid_r, mid_i = _recombine_3m(mids, nu, backend)
+    re, im = (core.reconstruct_scale(x, sft_a, sft_b, nu, backend, real_dt,
+                                     epilogue) for x in (mid_r, mid_i))
+    return _pack(re, im, out_dtype)
+
+
+# ---------------------------------------------------------------------------
+# op(A) @ op(B)
+# ---------------------------------------------------------------------------
+
+def _emulate(ar, ai, br, bi, num_moduli, fastmode, backend, conj_a, conj_b,
+             epilogue, out_dtype):
+    _check_mode(fastmode, backend)
+    m, n = ar.shape[0], br.shape[1]
+    if ar.shape[1] == 0:
+        # BLAS k=0 semantics: the product is zero
+        zero = torch.zeros((m, n), dtype=kernels.REAL_DTYPE[out_dtype],
+                           device=ar.device)
+        return _pack(zero, zero.clone(), out_dtype)
+    if ar.device.type != "cpu":
+        ar, ai, br, bi = (core._pad128(x, (0, 1)) for x in (ar, ai, br, bi))
+    ar, ai, br, bi = (x.contiguous() for x in (ar, ai, br, bi))
+    var = "invariant" if fastmode == "robust" else "reference"
+    sft_a = _shift_complex_fast(ar, ai, num_moduli, backend, reduce_axis=1,
+                                variant=var)
+    sft_b = _shift_complex_fast(br, bi, num_moduli, backend, reduce_axis=0,
+                                variant=var)
+    pa = _quantize_complex(ar, ai, sft_a, 0, num_moduli, backend, conj_a)
+    pb = _quantize_complex(br, bi, sft_b, 1, num_moduli, backend, conj_b)
+    out = _complex_product(pa, pb, sft_a, sft_b, num_moduli, backend,
+                           out_dtype, epilogue)
+    return _crop(out, m, n)
+
+
+def emulate_matmul_complex_planar(ar, ai, br, bi, *, num_moduli: int,
+                                  fastmode=True,
+                                  backend: str = tables.Backend.INT8,
+                                  conj_a: bool = False, conj_b: bool = False,
+                                  epilogue: str = "auto"):
+    """Emulated op(A) @ op(B) on planar operands: (Ar, Ai) x (Br, Bi) ->
+    (Cr, Ci) on ar's device. On the card, operands are zero-padded to
+    multiples of 128 and the result is sliced back."""
+    return _emulate(ar, ai, br, bi, num_moduli, fastmode, backend, conj_a,
+                    conj_b, epilogue, ar.dtype)
+
+
+def emulate_matmul_complex(a, b, *, num_moduli: int, fastmode=True,
+                           backend: str = tables.Backend.INT8,
+                           conj_a: bool = False, conj_b: bool = False,
+                           epilogue: str = "auto") -> torch.Tensor:
+    """Emulated op(A) @ op(B) for complex tensors (no alpha/beta)."""
+    return _emulate(a.real, a.imag, b.real, b.imag, num_moduli, fastmode,
+                    backend, conj_a, conj_b, epilogue, a.dtype)
+
+
+def _scalar(v: complex, dtype, like: torch.Tensor) -> torch.Tensor:
+    """v as a 0-d tensor of `dtype`, rounded from complex128 as
+    `jnp.asarray(v).astype(dtype)` rounds."""
+    return torch.tensor(v, dtype=torch.complex128,
+                        device=like.device).to(dtype)
+
+
+def _cmul(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """x * y as XLA:CPU computes a complex product:
+    re = fma(xr, yr, -(xi*yi)), im = fma(xi, yr, xr*yi)."""
+    xr, xi, yr, yi = x.real, x.imag, y.real, y.imag
+    return torch.complex(torch.addcmul(-(xi * yi), xr, yr),
+                         torch.addcmul(xr * yi, xi, yr))
+
+
+def _gemm_cplx(a, b, c, alpha, beta, *, num_moduli, fastmode, backend,
+               op_a, op_b, has_c, epilogue, trivial_alpha, beta_kind):
+    if op_a in ("T", "C"):
+        a = a.T
+    if op_b in ("T", "C"):
+        b = b.T
+    out_dtype = a.dtype
+    out = emulate_matmul_complex(a, b, num_moduli=num_moduli,
+                                 fastmode=fastmode, backend=backend,
+                                 conj_a=(op_a == "C"), conj_b=(op_b == "C"),
+                                 epilogue=epilogue)
+    if not trivial_alpha:
+        out = _cmul(_scalar(alpha, out_dtype, out), out)
+    # beta_kind == "zero" never touches C
+    if has_c and beta_kind != "zero":
+        out = out + (c if beta_kind == "one"
+                     else _cmul(_scalar(beta, out_dtype, out), c))
+    return out
+
+
+def _norm_op(t) -> str:
+    """BLAS op flag -> 'N'/'T'/'C'; accepts python/numpy bools ('C' stays
+    distinct from 'T': conjugate transpose)."""
+    if isinstance(t, (bool, np.bool_)):
+        return "T" if t else "N"
+    if t is None:
+        return "N"
+    t = str(t).upper()
+    if t not in ("N", "T", "C"):
+        raise ValueError(f"bad op {t!r}")
+    return t
+
+
+def _complex_scalar(v) -> complex:
+    return complex(np.asarray(v.cpu() if isinstance(v, torch.Tensor) else v))
+
+
+def _operand(x, device) -> torch.Tensor:
+    # a conjugate or negative view is materialized first, so that .real and
+    # .imag read the values it stands for
+    return core._as_tensor(x, device).resolve_conj().resolve_neg()
+
+
+def gemm_complex(a, b, *, num_moduli: int = 8, fastmode=True,
+                 backend: str = tables.Backend.INT8, alpha=1.0, beta=0.0,
+                 c=None, trans_a="N", trans_b="N", epilogue: str = "auto",
+                 device="cuda") -> torch.Tensor:
+    """Emulated complex GEMM: C = alpha * op(A) @ op(B) + beta * C with op in
+    {N, T, C} (C = conjugate transpose), on complex64 or complex128 operands
+    placed on `device`. Bit-equal to gemmul8_tpu's complex gemm on the CPU."""
+    op_a, op_b = _norm_op(trans_a), _norm_op(trans_b)
+    device = core._device(device)
+    a, b = _operand(a, device), _operand(b, device)
+    if a.dim() != 2 or b.dim() != 2:
+        raise ValueError(
+            f"gemm expects 2-D operands, got A.ndim={a.dim()}, B.ndim={b.dim()}")
+    if a.dtype != b.dtype:
+        raise TypeError(f"dtype mismatch: {a.dtype} vs {b.dtype}")
+    if a.dtype not in (torch.complex64, torch.complex128):
+        raise TypeError(f"gemm_complex expects complex64 or complex128, "
+                        f"got {a.dtype}")
+    _check_nu(a.dtype, num_moduli)
+    has_c = c is not None
+    trivial_alpha = isinstance(alpha, (int, complex, float)) and alpha == 1
+    beta_kind = ("zero" if isinstance(beta, (int, complex, float)) and beta == 0
+                 else "one" if isinstance(beta, (int, complex, float))
+                 and beta == 1 else "general")
+    if has_c and beta_kind != "zero":
+        c = _operand(c, device)
+        if c.dtype != a.dtype:
+            raise TypeError(f"dtype mismatch: C is {c.dtype}, A is {a.dtype}")
+    return _gemm_cplx(a, b, c, _complex_scalar(alpha), _complex_scalar(beta),
+                      num_moduli=num_moduli, fastmode=fastmode,
+                      backend=backend, op_a=op_a, op_b=op_b, has_c=has_c,
+                      epilogue=epilogue, trivial_alpha=trivial_alpha,
+                      beta_kind=beta_kind)
+
+
+def gemm_planar(ar, ai, br, bi, *, num_moduli: int = 8, fastmode=True,
+                backend: str = tables.Backend.INT8, trans_a="N", trans_b="N",
+                epilogue: str = "auto", device="cuda"):
+    """Emulated complex GEMM on planar operands: (Ar, Ai) x (Br, Bi) ->
+    (Cr, Ci), with op in {N, T, C}; bit-equal to gemm() on complex tensors."""
+    op_a, op_b = _norm_op(trans_a), _norm_op(trans_b)
+    device = core._device(device)
+    ar, ai, br, bi = (core._as_tensor(x, device) for x in (ar, ai, br, bi))
+    if ar.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"gemm_planar expects float32 or float64 planes, "
+                        f"got {ar.dtype}")
+    if any(x.dtype != ar.dtype for x in (ai, br, bi)):
+        raise TypeError("gemm_planar: all four planes must share one dtype")
+    _check_nu(ar.dtype, num_moduli)
+    if op_a in ("T", "C"):
+        ar, ai = ar.T, ai.T
+    if op_b in ("T", "C"):
+        br, bi = br.T, bi.T
+    return emulate_matmul_complex_planar(
+        ar, ai, br, bi, num_moduli=num_moduli, fastmode=fastmode,
+        backend=backend, conj_a=(op_a == "C"), conj_b=(op_b == "C"),
+        epilogue=epilogue)
+
+
+# ---------------------------------------------------------------------------
+# herk: C = alpha * A @ A^H + beta * C
+# ---------------------------------------------------------------------------
+
+def _herk_rhs_lanes(pa, num_moduli, backend):
+    """A^H's rhs lane plane sets from A's lhs lanes: (rr, -ri, rr-ri), each
+    rewrapped in int16 (-(-128) overflows int8 for p = 256), then transposed.
+    The transposed planes are k-contiguous, as the int8 product reads B."""
+    neg_i, diff = [], []
+    for i, p in enumerate(tables.moduli(backend)[:num_moduli]):
+        rr = pa[0, i].to(torch.int16)
+        ri = pa[1, i].to(torch.int16)
+        neg_i.append(core._wrap(-ri, p).to(torch.int8))
+        diff.append(core._wrap(rr - ri, p).to(torch.int8))
+    lanes = torch.stack([pa[0], torch.stack(neg_i), torch.stack(diff)])
+    return lanes.transpose(-1, -2)
+
+
+def _herk(ar, ai, *, num_moduli, fastmode, backend, trans, epilogue,
+          out_dtype):
+    _check_mode(fastmode, backend)
+    if trans:
+        # A^H @ A = B @ B^H with B = A^H = conj(A).T
+        ar, ai = ar.T, -ai.T
+    mdim = ar.shape[0]
+    if ar.device.type != "cpu":
+        ar, ai = core._pad128(ar, (0, 1)), core._pad128(ai, (0, 1))
+    ar, ai = ar.contiguous(), ai.contiguous()
+    # one shift serves both sides: rows of A and columns of A^H carry the
+    # same (|Re|, |Im|) populations
+    var = "invariant" if fastmode == "robust" else "reference"
+    sft = _shift_complex_fast(ar, ai, num_moduli, backend, reduce_axis=1,
+                              variant=var)
+    pa = _quantize_complex(ar, ai, sft, 0, num_moduli, backend, conj=False)
+    pb = _herk_rhs_lanes(pa, num_moduli, backend)
+    out = _complex_product(pa, pb, sft, sft, num_moduli, backend, out_dtype,
+                           epilogue)
+    return _crop(out, mdim, mdim)
+
+
+def _check_herk_backend(backend) -> None:
+    if backend != tables.Backend.INT8:
+        raise NotImplementedError(
+            "herk supports the INT8 backend (FP8 split planes cannot derive "
+            "the 3M difference lane); the FP8 backend is ROADMAP queue 8")
+
+
+def herk(a, *, trans: bool = False, num_moduli: int = 8, fastmode="robust",
+         backend: str = tables.Backend.INT8, alpha=1.0, beta=0.0, c=None,
+         epilogue: str = "auto", device="cuda") -> torch.Tensor:
+    """Emulated Hermitian rank-k update: C = alpha * A @ A^H + beta * C
+    (trans=True: alpha * A^H @ A + beta * C), alpha and beta real as in BLAS
+    zherk. A^H's lane planes are transposed views plus two rewraps of A's,
+    so A is encoded once. fastmode defaults to "robust"."""
+    device = core._device(device)
+    a = _operand(a, device)
+    if a.dim() != 2:
+        raise ValueError(f"herk expects a 2-D operand, got ndim={a.dim()}")
+    if not a.dtype.is_complex:
+        raise TypeError("herk is complex-only")
+    _check_herk_backend(backend)
+    _check_nu(a.dtype, num_moduli)
+    out = _herk(a.real, a.imag, num_moduli=num_moduli, fastmode=fastmode,
+                backend=backend, trans=bool(trans), epilogue=epilogue,
+                out_dtype=a.dtype)
+    # alpha and beta: their real parts, rounded to the real dtype, then
+    # promoted to complex and multiplied, as jnp multiplies a real scalar by a
+    # complex array
+    def real(v):
+        return torch.tensor(_complex_scalar(v).real, dtype=torch.float64,
+                            device=out.device).to(kernels.REAL_DTYPE[a.dtype]
+                                                  ).to(a.dtype)
+
+    if not (isinstance(alpha, (int, float)) and alpha == 1):
+        out = _cmul(real(alpha), out)
+    if c is not None and not (isinstance(beta, (int, float)) and beta == 0):
+        c = _operand(c, device)
+        out = out + (c if isinstance(beta, (int, float)) and beta == 1
+                     else _cmul(real(beta), c))
+    return out
+
+
+def herk_planar(ar, ai, *, trans: bool = False, num_moduli: int = 8,
+                fastmode="robust", backend: str = tables.Backend.INT8,
+                epilogue: str = "auto", device="cuda"):
+    """Planar herk: (Ar, Ai) -> (Cr, Ci) = A @ A^H on separate real planes;
+    bit-equal to herk() on complex views of the same data."""
+    device = core._device(device)
+    ar, ai = core._as_tensor(ar, device), core._as_tensor(ai, device)
+    if ar.dtype not in (torch.float32, torch.float64) or ai.dtype != ar.dtype:
+        raise TypeError("herk_planar expects two float32 or float64 planes")
+    _check_nu(ar.dtype, num_moduli)
+    _check_herk_backend(backend)
+    return _herk(ar, ai, num_moduli=num_moduli, fastmode=fastmode,
+                 backend=backend, trans=bool(trans), epilogue=epilogue,
+                 out_dtype=ar.dtype)

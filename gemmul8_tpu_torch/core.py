@@ -1,6 +1,6 @@
-"""Ozaki-scheme-II GEMM emulation, real INT8 fast path, in PyTorch:
-shifts -> residue planes -> one exact int8 product per modulus -> mod + CRT
-+ descale -> alpha/beta epilogue.
+"""Ozaki-scheme-II GEMM emulation, INT8 fast path, in PyTorch: shifts ->
+residue planes -> one exact int8 product per modulus -> mod + CRT + descale ->
+alpha/beta epilogue. Complex operands go to complex_gemm (the 3M scheme).
 
 The counterpart of gemmul8_tpu/core.py. On the card the planes come from the
 encode kernel, the products from torch._int_mm (the vendor int8 product, as
@@ -47,9 +47,10 @@ def _wrap(v: torch.Tensor, p: int) -> torch.Tensor:
 
 
 def mod_reduce(c_hi: torch.Tensor, num_moduli: int, backend: str) -> torch.Tensor:
-    """C_mid[i] = wrap(C_hi[i] mod p_i) -> int8 (reference: conv_hi2mid_real.hpp)."""
+    """C_mid[i] = wrap(C_hi[i] mod p_i) -> int8 (reference: conv_hi2mid_real.hpp).
+    C_hi may be int32 or already-wrapped int8 (on which this is the identity)."""
     mods = tables.moduli(backend)[:num_moduli]
-    return torch.stack([_wrap(c_hi[i], p).to(torch.int8)
+    return torch.stack([_wrap(c_hi[i].to(torch.int32), p).to(torch.int8)
                         for i, p in enumerate(mods)])
 
 
@@ -301,8 +302,9 @@ def gemm(a, b, *, num_moduli: int = 8, fastmode=True,
 
     a, b (and c): torch tensors or numpy arrays, placed on `device` ("cuda"
     by default; "cpu" runs every kernel's plain version). `num_moduli` dials
-    accuracy vs speed (2..13 for f32, 2..20 for f64). Bit-equal to
-    gemmul8_tpu.gemm on the CPU.
+    accuracy vs speed (2..13 for f32/complex64, 2..20 for f64/complex128).
+    Complex operands take ops "N"/"T"/"C" and complex alpha/beta
+    (complex_gemm.gemm_complex). Bit-equal to gemmul8_tpu.gemm on the CPU.
     """
     device = _device(device)
     a = _as_tensor(a, device)
@@ -315,8 +317,12 @@ def gemm(a, b, *, num_moduli: int = 8, fastmode=True,
     if backend not in (tables.Backend.INT8, tables.Backend.FP8):
         raise ValueError(f"backend must be 'INT8' or 'FP8', got {backend!r}")
     if a.dtype.is_complex:
-        raise NotImplementedError(
-            "complex GEMM is not ported yet (ROADMAP queue 7)")
+        # as in the JAX package, m_block/n_block are not passed on
+        from . import complex_gemm
+        return complex_gemm.gemm_complex(
+            a, b, num_moduli=num_moduli, fastmode=fastmode, backend=backend,
+            alpha=alpha, beta=beta, c=c, trans_a=trans_a, trans_b=trans_b,
+            epilogue=epilogue, device=device)
     if a.dtype not in _DTYPE_NAMES:
         raise TypeError(f"gemm supports float32 and float64, got {a.dtype}")
     lo, hi = tables.VALID_RANGE[_DTYPE_NAMES[a.dtype]]

@@ -1,9 +1,13 @@
 """Hand-written CUDA kernels of the main path, their wrappers and plain versions.
 
-The counterpart of gemmul8_tpu/pallas_kernels.py for the real INT8 path:
+The counterpart of gemmul8_tpu/pallas_kernels.py for the INT8 paths:
 
-  encode_planes   csrc/encode.cu    replaces pallas_kernels.encode_planes_tiles
-  fused_epilogue  csrc/epilogue.cu  replaces pallas_kernels.fused_epilogue
+  encode_planes           csrc/encode.cu    replaces encode_planes_tiles
+  fused_epilogue          csrc/epilogue.cu  replaces fused_epilogue
+  fused_epilogue_complex  csrc/complex.cu   replaces fused_epilogue_complex
+  fused_recombine_3m      csrc/complex.cu   replaces fused_recombine_3m
+
+(the epilogues share csrc/crt.cuh's steps).
 
 Each wrapper checks its operands, allocates the output with torch.empty,
 launches on the current stream, raises if the launch failed and adds one to
@@ -29,7 +33,8 @@ import torch
 
 from . import ff, quantize, tables
 
-LAUNCHES = {"encode_planes": 0, "fused_epilogue": 0}
+LAUNCHES = {"encode_planes": 0, "fused_epilogue": 0,
+            "fused_epilogue_complex": 0, "fused_recombine_3m": 0}
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_HERE, "csrc")
@@ -38,12 +43,16 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
 _LIB: ctypes.CDLL | None = None
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# the C entry points' signatures (csrc/encode.cu, csrc/epilogue.cu)
+# the C entry points' signatures (csrc/*.cu)
 _ARGTYPES = {
     # x, sft, out, plan, is_f64, scale_axis, rows, cols, stream
     "encode_planes": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # c_hi, sft_a, sft_b, out, out_f64, m, n, plan, stream
-    "fused_epilogue": [_P, _P, _P, _P, _I, _I, _I, _P, _P],
+    # c_hi, sft_a, sft_b, out, in_i8, out_f64, m, n, plan, stream
+    "fused_epilogue": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
+    # c_hi3, sft_a, sft_b, out_re, out_im, stride, out_f64, m, n, plan, stream
+    "fused_epilogue_complex": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
+    # c_hi3, out_re, out_im, m, n, plan, stream
+    "fused_recombine_3m": [_P, _P, _P, _I, _I, _P, _P],
 }
 
 _MAX_NU = 20        # csrc/common.cuh: G8_MAX_NU
@@ -134,6 +143,17 @@ def _encode_plan(num_moduli: int, backend: str) -> _EncodePlan:
     return plan
 
 
+def plane_buffer(lead: tuple, rows: int, cols: int, scale_axis: int,
+                 device) -> torch.Tensor:
+    """An empty int8 (*lead, rows, cols) plane stack in the layout the int8
+    product reads: row-major for A (scale_axis=0), a view of (*lead, cols,
+    rows) storage for B (scale_axis=1), so that each B plane is k-contiguous."""
+    if scale_axis == 0:
+        return torch.empty((*lead, rows, cols), dtype=torch.int8, device=device)
+    return torch.empty((*lead, cols, rows), dtype=torch.int8,
+                       device=device).transpose(-1, -2)
+
+
 def encode_planes_plain(x, sft, scale_axis, num_moduli, backend):
     """Plain version of the encode kernel: (nu, *x.shape) int8 planes."""
     return quantize.residues_wrapped(x, sft, scale_axis, num_moduli,
@@ -141,14 +161,18 @@ def encode_planes_plain(x, sft, scale_axis, num_moduli, backend):
 
 
 def encode_planes(x: torch.Tensor, sft: torch.Tensor, scale_axis: int,
-                  num_moduli: int, backend: str) -> torch.Tensor:
+                  num_moduli: int, backend: str,
+                  out: torch.Tensor | None = None) -> torch.Tensor:
     """Residue planes wrap(floor(x * 2^sft) mod p_i) as int8, (nu, *x.shape).
 
     On the card, scale_axis=1 (the B operand, (k, n)) returns a (nu, k, n)
     view of (nu, n, k) storage: k-contiguous, as the int8 product reads B.
+    `out`, if given, is written and returned instead: an int8 (nu, *x.shape)
+    tensor in that same layout (complex_gemm stacks its lanes this way).
     """
     if x.device.type == "cpu":
-        return encode_planes_plain(x, sft, scale_axis, num_moduli, backend)
+        planes = encode_planes_plain(x, sft, scale_axis, num_moduli, backend)
+        return planes if out is None else out.copy_(planes)
     if x.device.type != "cuda":
         raise ValueError(f"encode_planes: unsupported device {x.device}")
     if backend != tables.Backend.INT8:
@@ -166,18 +190,20 @@ def encode_planes(x: torch.Tensor, sft: torch.Tensor, scale_axis: int,
             or sft.shape != (x.shape[scale_axis],) or not sft.is_contiguous()):
         raise ValueError("encode_planes: sft must be a contiguous int32 "
                          f"vector of length {x.shape[scale_axis]} on {x.device}")
-    if scale_axis == 0:
-        out = torch.empty((num_moduli, rows, cols), dtype=torch.int8,
-                          device=x.device)
-    else:
-        out = torch.empty((num_moduli, cols, rows), dtype=torch.int8,
-                          device=x.device).transpose(1, 2)
+    if out is None:
+        out = plane_buffer((num_moduli,), rows, cols, scale_axis, x.device)
+    elif (out.dtype != torch.int8 or out.device != x.device
+          or out.shape != (num_moduli, rows, cols)
+          or out.stride() != plane_buffer((num_moduli,), rows, cols,
+                                          scale_axis, "meta").stride()):
+        raise ValueError("encode_planes: out must be an int8 "
+                         f"({num_moduli}, {rows}, {cols}) tensor in the "
+                         "layout encode_planes returns")
     if x.numel():
         plan = _encode_plan(num_moduli, backend)
         _launch("encode_planes", x.data_ptr(), sft.data_ptr(), out.data_ptr(),
                 ctypes.addressof(plan), int(x.dtype == torch.float64),
-                scale_axis, rows, cols,
-                torch.cuda.current_stream(x.device).cuda_stream)
+                scale_axis, rows, cols, _stream(x))
     return out
 
 
@@ -212,6 +238,38 @@ def _epilogue_plan(num_moduli: int, backend: str, out_bits: int):
     return plan
 
 
+def _check_epilogue(name, c_hi, n_planes, dtypes, sft_a, sft_b, backend):
+    """The checks every epilogue wrapper makes on a CUDA input: c_hi a
+    contiguous (n_planes, m, n) stack of one of `dtypes`, int32 shift vectors
+    on its device. Returns (m, n)."""
+    if c_hi.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {c_hi.device}")
+    if backend != tables.Backend.INT8:
+        raise ValueError(f"{name}: backend must be INT8, got {backend!r}")
+    if (c_hi.dim() != 3 or c_hi.dtype not in dtypes
+            or c_hi.shape[0] != n_planes or not c_hi.is_contiguous()):
+        raise ValueError(f"{name}: c_hi must be a contiguous ({n_planes}, m, n) "
+                         f"tensor of {' or '.join(map(str, dtypes))}")
+    _, m, n = c_hi.shape
+    for sname, s, size in (("sft_a", sft_a, m), ("sft_b", sft_b, n)):
+        if s is None:
+            continue
+        if (s.device != c_hi.device or s.dtype != torch.int32
+                or s.shape != (size,) or not s.is_contiguous()):
+            raise ValueError(f"{name}: {sname} must be a contiguous int32 "
+                             f"vector of length {size} on {c_hi.device}")
+    return m, n
+
+
+def _check_nu(name, num_moduli):
+    if not 1 <= num_moduli <= _MAX_NU:
+        raise ValueError(f"{name}: num_moduli={num_moduli} out of range")
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
 def fused_epilogue_plain(c_hi, sft_a, sft_b, num_moduli, backend, out_dtype):
     """Plain version of the epilogue kernel: mod_reduce -> reconstruct_scale_ff."""
     from .core import mod_reduce
@@ -222,35 +280,112 @@ def fused_epilogue_plain(c_hi, sft_a, sft_b, num_moduli, backend, out_dtype):
 def fused_epilogue(c_hi: torch.Tensor, sft_a: torch.Tensor,
                    sft_b: torch.Tensor, num_moduli: int, backend: str,
                    out_dtype: torch.dtype) -> torch.Tensor:
-    """(nu, m, n) int32 C_hi (or K-chunked residue sums, any int32) ->
-    (m, n) emulated product in out_dtype (f32 or f64)."""
+    """(nu, m, n) int32 C_hi (or K-chunked residue sums, any int32), or int8
+    wrapped residues (fused_recombine_3m's output) -> (m, n) emulated product
+    in out_dtype (f32 or f64)."""
     if c_hi.device.type == "cpu":
         return fused_epilogue_plain(c_hi, sft_a, sft_b, num_moduli, backend,
                                     out_dtype)
-    if c_hi.device.type != "cuda":
-        raise ValueError(f"fused_epilogue: unsupported device {c_hi.device}")
-    if backend != tables.Backend.INT8:
-        raise ValueError(f"fused_epilogue: backend must be INT8, got {backend!r}")
+    _check_nu("fused_epilogue", num_moduli)
+    m, n = _check_epilogue("fused_epilogue", c_hi, num_moduli,
+                           (torch.int32, torch.int8), sft_a, sft_b, backend)
     if out_dtype not in (torch.float32, torch.float64):
         raise ValueError("fused_epilogue: out_dtype must be f32 or f64")
-    if (c_hi.dim() != 3 or c_hi.dtype != torch.int32
-            or c_hi.shape[0] != num_moduli or not c_hi.is_contiguous()):
-        raise ValueError("fused_epilogue: c_hi must be a contiguous "
-                         f"({num_moduli}, m, n) int32 tensor")
-    if not 1 <= num_moduli <= _MAX_NU:
-        raise ValueError(f"fused_epilogue: num_moduli={num_moduli} out of range")
-    _, m, n = c_hi.shape
-    for name, s, size in (("sft_a", sft_a, m), ("sft_b", sft_b, n)):
-        if (s.device != c_hi.device or s.dtype != torch.int32
-                or s.shape != (size,) or not s.is_contiguous()):
-            raise ValueError(f"fused_epilogue: {name} must be a contiguous "
-                             f"int32 vector of length {size} on {c_hi.device}")
     out = torch.empty((m, n), dtype=out_dtype, device=c_hi.device)
     if out.numel():
         out_bits = 53 if out_dtype == torch.float64 else 24
         plan = _epilogue_plan(num_moduli, backend, out_bits)
         _launch("fused_epilogue", c_hi.data_ptr(), sft_a.data_ptr(),
-                sft_b.data_ptr(), out.data_ptr(), int(out_bits == 53), m, n,
-                ctypes.addressof(plan),
-                torch.cuda.current_stream(c_hi.device).cuda_stream)
+                sft_b.data_ptr(), out.data_ptr(), int(c_hi.dtype == torch.int8),
+                int(out_bits == 53), m, n, ctypes.addressof(plan),
+                _stream(c_hi))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# complex (3M) epilogues: wrap the three lane products + recombine mod p
+# ---------------------------------------------------------------------------
+
+# the real dtype of each output dtype the epilogues emit
+REAL_DTYPE = {torch.complex64: torch.float32, torch.complex128: torch.float64,
+              torch.float32: torch.float32, torch.float64: torch.float64}
+
+
+def _lane_mids(c_hi3, num_moduli, backend):
+    """(3nu, m, n) lane products -> (3, nu, m, n) wrapped int8 residues."""
+    from .core import mod_reduce
+    nu = num_moduli
+    return torch.stack([mod_reduce(c_hi3[lane * nu:(lane + 1) * nu], nu,
+                                   backend) for lane in range(3)])
+
+
+def fused_recombine_3m_plain(c_hi3, num_moduli, backend):
+    """Plain version of the recombine kernel: mod_reduce per lane ->
+    complex_gemm._recombine_3m."""
+    from .complex_gemm import _recombine_3m
+    return _recombine_3m(_lane_mids(c_hi3, num_moduli, backend), num_moduli,
+                         backend)
+
+
+def fused_recombine_3m(c_hi3: torch.Tensor, num_moduli: int, backend: str):
+    """(3nu, m, n) int32 lane products Crr | Cii | Crii (or their K-chunked
+    residue sums) -> (re, im), each (nu, m, n) int8 wrapped residues of
+    Re = Crr - Cii and Im = Crii - Crr - Cii."""
+    if c_hi3.device.type == "cpu":
+        return fused_recombine_3m_plain(c_hi3, num_moduli, backend)
+    _check_nu("fused_recombine_3m", num_moduli)
+    m, n = _check_epilogue("fused_recombine_3m", c_hi3, 3 * num_moduli,
+                           (torch.int32,), None, None, backend)
+    re = torch.empty((num_moduli, m, n), dtype=torch.int8, device=c_hi3.device)
+    im = torch.empty_like(re)
+    if re.numel():
+        plan = _epilogue_plan(num_moduli, backend, 53)
+        _launch("fused_recombine_3m", c_hi3.data_ptr(), re.data_ptr(),
+                im.data_ptr(), m, n, ctypes.addressof(plan), _stream(c_hi3))
+    return re, im
+
+
+def fused_epilogue_complex_plain(c_hi3, sft_a, sft_b, num_moduli, backend,
+                                 out_dtype):
+    """Plain version of the complex epilogue kernel: mod_reduce per lane ->
+    _recombine_3m -> 2 x reconstruct_scale_ff."""
+    re, im = fused_recombine_3m_plain(c_hi3, num_moduli, backend)
+    real_dt = REAL_DTYPE[out_dtype]
+    re, im = (ff.reconstruct_scale_ff(x, sft_a, sft_b, num_moduli, backend,
+                                      real_dt) for x in (re, im))
+    return torch.complex(re, im) if out_dtype.is_complex else (re, im)
+
+
+def fused_epilogue_complex(c_hi3: torch.Tensor, sft_a: torch.Tensor,
+                           sft_b: torch.Tensor, num_moduli: int, backend: str,
+                           out_dtype: torch.dtype):
+    """(3nu, m, n) int32 lane products Crr | Cii | Crii (or their K-chunked
+    residue sums) -> the (m, n) complex product: one complex64/complex128
+    tensor for a complex out_dtype, written in place of a separate
+    torch.complex pass, or a (re, im) pair for f32/f64."""
+    if c_hi3.device.type == "cpu":
+        return fused_epilogue_complex_plain(c_hi3, sft_a, sft_b, num_moduli,
+                                            backend, out_dtype)
+    _check_nu("fused_epilogue_complex", num_moduli)
+    m, n = _check_epilogue("fused_epilogue_complex", c_hi3, 3 * num_moduli,
+                           (torch.int32,), sft_a, sft_b, backend)
+    if out_dtype not in REAL_DTYPE:
+        raise ValueError("fused_epilogue_complex: out_dtype must be c64, c128, "
+                         "f32 or f64")
+    real_dt = REAL_DTYPE[out_dtype]
+    if out_dtype.is_complex:
+        out = torch.empty((m, n), dtype=out_dtype, device=c_hi3.device)
+        parts = torch.view_as_real(out)
+        re, im, stride = parts[..., 0], parts[..., 1], 2
+    else:
+        re = torch.empty((m, n), dtype=real_dt, device=c_hi3.device)
+        im = torch.empty_like(re)
+        out, stride = (re, im), 1
+    if re.numel():
+        out_bits = 53 if real_dt == torch.float64 else 24
+        plan = _epilogue_plan(num_moduli, backend, out_bits)
+        _launch("fused_epilogue_complex", c_hi3.data_ptr(), sft_a.data_ptr(),
+                sft_b.data_ptr(), re.data_ptr(), im.data_ptr(), stride,
+                int(out_bits == 53), m, n, ctypes.addressof(plan),
+                _stream(c_hi3))
     return out

@@ -87,8 +87,11 @@ def test_argument_errors():
 def test_unported_parts_raise_not_implemented():
     a = np.ones((4, 8))
     b = np.ones((8, 3))
-    with pytest.raises(NotImplementedError, match="queue 7"):
-        gt.gemm(a.astype(np.complex128), b.astype(np.complex128), device="cpu")
+    ca, cb = a.astype(np.complex128), b.astype(np.complex128)
+    with pytest.raises(NotImplementedError, match="queue 5"):
+        gt.gemm(ca, cb, fastmode=False, device="cpu")
+    with pytest.raises(NotImplementedError, match="queue 8"):
+        gt.gemm(ca, cb, backend="FP8", device="cpu")
     with pytest.raises(NotImplementedError, match="queue 8"):
         gt.gemm(a, b, backend="FP8", device="cpu")
     with pytest.raises(NotImplementedError, match="queue 5"):
