@@ -1,9 +1,10 @@
 """On-card smoke test of gemmul8_tpu_torch: builds the CUDA kernels, holds each
 against its plain PyTorch version bit for bit, drives the main paths at 8192^3
--- real DGEMM/SGEMM and complex ZGEMM/CGEMM and herk (fast mode, INT8) --
-checks their launch counts, their accuracy against an extended-precision
-oracle and their bits against the package's own CPU path, and times the
-kernels, the int8 products and the whole calls.
+-- real DGEMM/SGEMM and complex ZGEMM/CGEMM and herk (fast mode, INT8), and
+real DGEMM/SGEMM on the FP8 backend -- checks their launch counts, their
+accuracy against an extended-precision oracle and their bits against the
+package's own CPU path, checks that the FP8 tensor-core products are exact,
+and times the kernels, the int8 and FP8 products and the whole calls.
 
     python3 chip_smoke.py            # needs one CUDA card and nvcc
 
@@ -37,6 +38,9 @@ PEAK_BYTES = 3.35e12
 PEAK_OPS32 = 67e12 / 2
 PEAK_OPS64 = 34e12 / 2
 PATHS = ((torch.float64, 16), (torch.float32, 8))     # main path: dtype, nu
+# the FP8 backend's main paths: log2P 64.33 at nu=14 (>= INT8 nu=16's 62.19)
+# and 33.02 at nu=7 (>= INT8 nu=8's 31.29)
+FP8_PATHS = ((torch.float64, 14), (torch.float32, 7))
 TAG = {torch.float64: "f64", torch.float32: "f32",
        torch.complex128: "c128", torch.complex64: "c64"}
 # complex main paths: name, dtype, nu, entry, and the launches of one call
@@ -47,10 +51,19 @@ CPATHS = (("zgemm16", torch.complex128, 16, "gemm", (4, 48, 1, 0, 0)),
           ("herk16", torch.complex128, 16, "herk", (2, 48, 1, 0, 0)))
 COUNT_KEYS = ("encode_planes", "_int_mm", "fused_epilogue_complex",
               "fused_recombine_3m", "fused_epilogue")
+# an FP8 path's launches: FP8 encodes, FP8 products, FP8 epilogue, and none
+# of the INT8 path's (encode, int8 products, real epilogue)
+FP8_COUNT_KEYS = ("encode_planes_fp8", "_scaled_mm", "fused_epilogue_fp8",
+                  "encode_planes", "_int_mm", "fused_epilogue")
+T0 = time.perf_counter()
 
 
 def log(*a):
     print(*a, flush=True)
+
+
+def log_phase(name):
+    log(f"-- {name} done at {time.perf_counter() - T0:.1f}s")
 
 
 def check(cond, msg):
@@ -164,6 +177,8 @@ def assert_bits_equal(got, ref, what, extra=""):
     else:
         eq = torch.equal(got, ref)
     if not eq:
+        if got.dtype == torch.float8_e4m3fn:          # compare the bytes
+            got, ref = got.view(torch.uint8), ref.view(torch.uint8)
         idx, g, r, n = first_diff(got, ref)
         raise AssertionError(f"{what}: {n} elements differ, first at {idx}: "
                              f"{g!r} vs {r!r}{extra}")
@@ -171,25 +186,30 @@ def assert_bits_equal(got, ref, what, extra=""):
 
 def run_counted(fn):
     """fn() with every launch count set to 0 just before and read just
-    after; torch._int_mm calls are counted by a wrapper around it."""
+    after; torch._int_mm and torch._scaled_mm calls (the library products)
+    are counted by wrappers around them."""
     from gemmul8_tpu_torch import kernels
-    orig = torch._int_mm
-    n_int_mm = 0
+    names = ("_int_mm", "_scaled_mm")
+    orig = {name: getattr(torch, name) for name in names}
+    calls = dict.fromkeys(names, 0)
 
-    def counted(*a, **k):
-        nonlocal n_int_mm
-        n_int_mm += 1
-        return orig(*a, **k)
+    def counted(name):
+        def call(*a, **k):
+            calls[name] += 1
+            return orig[name](*a, **k)
+        return call
 
     kernels.reset_launches()
-    torch._int_mm = counted
+    for name in names:
+        setattr(torch, name, counted(name))
     try:
         out = fn()
         torch.cuda.synchronize()
     finally:
-        torch._int_mm = orig
+        for name in names:
+            setattr(torch, name, orig[name])
     counts = dict(kernels.LAUNCHES)
-    counts["_int_mm"] = n_int_mm
+    counts.update(calls)
     return out, counts
 
 
@@ -315,6 +335,64 @@ def complex_cases(rng):
                         f"planar vs complex output {what}", count=False)
 
 
+def fp8_encode_cases(rng):
+    """The FP8 encoder (K6) against its plain version: f32 and f64, both
+    sides, nu from the square moduli only (2) to mixed (6, 7, 13, 20), on
+    random operands and the edge corpus."""
+    from gemmul8_tpu_torch import kernels, quantize
+    for dt, nus in ((np.float64, (2, 6, 7, 13, 20)), (np.float32, (2, 7, 13))):
+        for nu in nus:
+            for x_np in (phi_matrix(rng, 200, 392, 0.5, dt),
+                         phi_matrix(rng, 77, 130, 4.0, dt), edge_corpus(dt)):
+                x = torch.from_numpy(x_np).cuda()
+                for axis in (0, 1):
+                    sft = quantize.shift_fast(x, nu, "FP8", 1 - axis)
+                    compare(f"encode_planes_fp8[{TAG[x.dtype]}]",
+                            kernels.encode_planes_fp8(x, sft, axis, nu),
+                            kernels.encode_planes_fp8_plain(x, sft, axis, nu),
+                            f"fp8 encode {x.dtype} {tuple(x.shape)} nu={nu} "
+                            f"axis={axis}")
+
+
+def fp8_chunk_sums(rng, nu, m, n):
+    """(nu, m, n) int32 K-chunked FP8 residue sums: three per-chunk wrapped
+    residues each."""
+    from gemmul8_tpu_torch import tables
+    return torch.from_numpy(np.stack([
+        rng.integers(-(p // 2), p - p // 2, (3, m, n)).sum(0)
+        for p in tables.moduli("FP8")[:nu]]).astype(np.int32)).cuda()
+
+
+def fp8_epilogue_cases(rng):
+    """The FP8 epilogue (K3) against its plain version, f32 and f64 out, on
+    the lane products of random FP8 operands and on any integers of
+    |C| <= 2^24 (the K-chunk bound); the real epilogue (K2) on the FP8 plan
+    against its plain version on K-chunked FP8 residue sums."""
+    from gemmul8_tpu_torch import fp8, kernels, quantize
+    m, n = 144, 208     # multiples of 16, as the FP8 products need
+    for nu in (2, 7, 14, 20):
+        a = torch.from_numpy(phi_matrix(rng, m, 320, 0.5)).cuda()
+        b = torch.from_numpy(phi_matrix(rng, 320, n, 0.5)).cuda()
+        sa = quantize.shift_fast(a, nu, "FP8", 1)
+        sb = quantize.shift_fast(b, nu, "FP8", 0)
+        lanes = fp8.residue_matmul_fp8(
+            kernels.encode_planes_fp8(a, sa, 0, nu),
+            kernels.encode_planes_fp8(b, sb, 1, nu))
+        extreme = torch.from_numpy(rng.integers(
+            -(1 << 24), (1 << 24) + 1, (3 * nu, m, n)).astype(np.float32)).cuda()
+        acc = fp8_chunk_sums(rng, nu, m, n)
+        for out in (torch.float32, torch.float64):
+            for source, c3 in (("products", lanes), ("extreme", extreme)):
+                compare(f"fused_epilogue_fp8[{TAG[out]}]",
+                        kernels.fused_epilogue_fp8(c3, sa, sb, nu, out),
+                        kernels.fused_epilogue_fp8_plain(c3, sa, sb, nu, out),
+                        f"fp8 epilogue nu={nu} {source} out={out}")
+            compare("fused_epilogue[fp8 chunked]",
+                    kernels.fused_epilogue(acc, sa, sb, nu, "FP8", out),
+                    kernels.fused_epilogue_plain(acc, sa, sb, nu, "FP8", out),
+                    f"epilogue on FP8 chunk sums nu={nu} out={out}")
+
+
 def full_size_cases(a64, b64):
     """Each kernel on the inputs each main path gives it at 8192^2: the
     encodes of A (row shifts) and B (column shifts) and the epilogue on
@@ -341,6 +419,172 @@ def full_size_cases(a64, b64):
                     f"epilogue full-size {dt} nu={nu} out={out}")
         del c_hi
         torch.cuda.empty_cache()
+
+
+def full_size_fp8_cases(a64, b64):
+    """Each FP8 kernel on the inputs each FP8 main path gives it at 8192^2:
+    K6 on A (row shifts) and B (column shifts), K3 on their lane products
+    (f32 and f64 out), and K2 on the FP8 plan on those products' wrapped
+    residues (a one-chunk residue sum); the epilogues held in row blocks."""
+    from gemmul8_tpu_torch import fp8, kernels, quantize
+    for dt, nu in FP8_PATHS:
+        a, b = a64.to(dt), b64.to(dt)
+        sa = quantize.shift_fast(a, nu, "FP8", 1)
+        sb = quantize.shift_fast(b, nu, "FP8", 0)
+        stacks = []
+        for x, s, axis in ((a, sa, 0), (b, sb, 1)):
+            got = kernels.encode_planes_fp8(x, s, axis, nu)
+            compare(f"encode_planes_fp8[{TAG[dt]}]", got,
+                    kernels.encode_planes_fp8_plain(x, s, axis, nu),
+                    f"fp8 encode full-size {dt} nu={nu} axis={axis}")
+            stacks.append(got)
+            torch.cuda.empty_cache()
+        c3 = fp8.residue_matmul_fp8(*stacks)
+        del stacks
+        blk = lambda r0, r1: c3[:, r0:r1].contiguous()  # noqa: E731
+        for out in (torch.float32, torch.float64):
+            compare_rows(f"fused_epilogue_fp8[{TAG[out]}]",
+                         kernels.fused_epilogue_fp8(c3, sa, sb, nu, out),
+                         lambda r0, r1: kernels.fused_epilogue_fp8_plain(
+                             blk(r0, r1), sa[r0:r1], sb, nu, out),
+                         f"fp8 epilogue full-size {dt} nu={nu} out={out}")
+        acc = torch.cat([fp8._reassemble(blk(r0, r0 + 1024).to(torch.int32),
+                                         nu) for r0 in range(0, FULL, 1024)],
+                        dim=1)
+        del c3, blk
+        torch.cuda.empty_cache()
+        compare_rows("fused_epilogue[fp8 chunked]",
+                     kernels.fused_epilogue(acc, sa, sb, nu, "FP8", dt),
+                     lambda r0, r1: kernels.fused_epilogue_plain(
+                         acc[:, r0:r1], sa[r0:r1], sb, nu, "FP8", dt),
+                     f"epilogue on FP8 residues full-size {dt} nu={nu}")
+        del acc
+        torch.cuda.empty_cache()
+
+
+def fp8_product_cases(k=1 << 16, m=128, n=128):
+    """The inputs of the FP8 exactness check: (name, A, B) with A (m, k) and
+    B (k, n) int8 on the card, every value an e4m3-exact integer in
+    [-16, 16], B stored column-major as both products read it:
+      all16         every product 256, every sum exactly 2^24 at k = 2^16;
+      swing         runs of +-256 products of lengths 2^15 .. 2^4 that swing
+                    the partial sums out to +-2^23 and back;
+      big_then_ones 2^15 products of 256 (2^23), then 2^15 of +1 or +-1, so
+                    that a lost alignment bit shows;
+      ones_then_big the same in the other order;
+      random        uniform in [-16, 16]."""
+    rng = np.random.default_rng(SEED + 2)
+    h = k // 2
+    kk = np.arange(k)
+    pm1 = lambda shape: rng.choice(np.array([-1, 1]), shape)  # noqa: E731
+    cases = []
+    a = np.full((m, k), 16)
+    b = np.full((k, n), 16)
+    cases.append(("all16", a, b))
+    runs = 1 << (15 - np.arange(n) % 12)
+    b = 16 * np.where((kk[:, None] // runs[None, :]) % 2 == 0, 1, -1)
+    a = 16 * np.where(np.arange(m) % 2 == 0, 1, -1)[:, None] * np.ones(k, int)
+    cases.append(("swing", a, b))
+    big_a, big_b = np.full((m, h), 16), np.full((h, n), 16)
+    ones_a = np.where(np.arange(m)[:, None] < m // 2, 1, pm1((m, h)))
+    ones_b = np.where(np.arange(n)[None, :] < n // 2, 1, pm1((h, n)))
+    cases.append(("big_then_ones", np.concatenate([big_a, ones_a], 1),
+                  np.concatenate([big_b, ones_b], 0)))
+    cases.append(("ones_then_big", np.concatenate([ones_a, big_a], 1),
+                  np.concatenate([ones_b, big_b], 0)))
+    cases.append(("random", rng.integers(-16, 17, (m, k)),
+                  rng.integers(-16, 17, (k, n))))
+    return [(name, torch.from_numpy(a.astype(np.int8)).cuda(),
+             torch.from_numpy(np.ascontiguousarray(b.T).astype(np.int8))
+             .cuda().T) for name, a, b in cases]
+
+
+def scaled_mm_chunked(a8, b8, chunk):
+    """A @ B from FP8 products over K slices of `chunk`, each slice's f32
+    output converted to int32 and summed there."""
+    one = torch.ones((), dtype=torch.float32, device=a8.device)
+    acc = None
+    for lo in range(0, a8.shape[1], chunk):
+        part = torch._scaled_mm(a8[:, lo:lo + chunk], b8[lo:lo + chunk], one,
+                                one, out_dtype=torch.float32,
+                                use_fast_accum=False).to(torch.int32)
+        acc = part if acc is None else acc + part
+    return acc
+
+
+def fp8_exactness_cases():
+    """The FP8 tensor-core products against torch._int_mm on the same
+    values, bit for bit, on each case of fp8_product_cases: through the
+    port's own product call (fp8.residue_matmul_fp8, K up to K_CHUNK_FP8 =
+    2^16 in one product), and at every smaller power-of-two K chunk down to
+    2^5 (each chunk's f32 output summed in int32). Returns, per case, the
+    chunks that were exact; fails unless all were."""
+    from gemmul8_tpu_torch import fp8
+    exact = {}
+    for name, a, b in fp8_product_cases(k=fp8.K_CHUNK_FP8):
+        ref = torch._int_mm(a, b)
+        a8 = a.to(torch.float32).to(torch.float8_e4m3fn)
+        b8 = b.T.to(torch.float32).to(torch.float8_e4m3fn).T
+        check(torch.equal(a8.to(torch.float32), a.to(torch.float32))
+              and b8.stride() == (1, b8.shape[0]), f"{name}: e4m3 planes")
+        got = fp8.residue_matmul_fp8(a8[None], b8[None])[0]
+        assert_bits_equal(got.to(torch.int32), ref,
+                          f"fp8 products {name} k={a.shape[1]}")
+        exact[name] = [a.shape[1]]
+        for e in range(15, 4, -1):
+            got = scaled_mm_chunked(a8, b8, 1 << e)
+            assert_bits_equal(got, ref, f"fp8 products {name} chunk 2^{e}")
+            exact[name].append(1 << e)
+        log(f"fp8 products exact: {name} (max |sum| "
+            f"{int(ref.abs().max())}) at chunks {exact[name]}")
+    return exact
+
+
+# rows 0-7 of A @ B per dtype of the real paths: (longdouble oracle, |A||B|,
+# torch.matmul's max and median relative error)
+ORACLES: dict = {}
+
+
+def real_main_path(a, b, nu, backend):
+    """One real gemm through the entry point a user calls, with its launch
+    counts set to 0 just before and read just after; the output's shape,
+    dtype and finiteness; accuracy on rows 0-7 against a longdouble oracle
+    beside torch.matmul's (cuBLAS DGEMM/SGEMM). Returns the counts."""
+    import gemmul8_tpu_torch as gt
+    dt = a.dtype
+    c, counts = run_counted(lambda: gt.gemm(a, b, num_moduli=nu,
+                                            backend=backend))
+    keys, want = ((COUNT_KEYS, (2, nu, 0, 0, 1)) if backend == "INT8" else
+                  (FP8_COUNT_KEYS, (2, 3 * nu, 1, 0, 0, 0)))
+    check(tuple(counts[k] for k in keys) == want,
+          f"{backend} main path {dt} nu={nu} launches {counts}, want "
+          f"{dict(zip(keys, want))}")
+    check(c.shape == (FULL, FULL) and c.dtype == dt
+          and bool(torch.isfinite(c).all()), f"main path {dt} output")
+    if dt not in ORACLES:
+        a8 = a[:8].cpu().numpy()
+        b_np = b.cpu().numpy()
+        ref = a8.astype(np.longdouble) @ b_np.astype(np.longdouble)
+        # error against the componentwise scale |A||B| (cancellation makes
+        # the max relative error of any GEMM grow with k: cuBLAS's own is
+        # ~5e-11 here)
+        scale = np.abs(a8).astype(np.float64) @ np.abs(b_np).astype(np.float64)
+        native = torch.matmul(a, b)[:8].cpu().numpy()
+        ORACLES[dt] = (ref, scale, max_median_relerr(native, ref))
+    ref, scale, (nerr, nmed) = ORACLES[dt]
+    got = c[:8].cpu().numpy()
+    err, med = max_median_relerr(got, ref)
+    cw = float(np.max(np.abs(np.asarray(got, np.longdouble) - ref) / scale))
+    log(f"accuracy {backend} {dt} nu={nu} rows 0-7: emulated max {err:.3e} "
+        f"median {med:.3e} max/|A||B| {cw:.3e}; torch.matmul max {nerr:.3e} "
+        f"median {nmed:.3e}")
+    if dt == torch.float64:
+        check(err <= 2 * nerr and cw < 1e-13,
+              f"f64 error {err} (|A||B|-relative {cw}) vs cuBLAS {nerr}")
+    else:
+        check(err < nerr, f"f32 error {err} vs cuBLAS f32 {nerr}")
+    log(f"main path {backend} {dt} nu={nu} launches: {counts}")
+    return counts
 
 
 def small_accuracy_case(rng):
@@ -556,6 +800,53 @@ def card_vs_cpu(rng):
     return n
 
 
+def fp8_card_vs_cpu(rng):
+    """The FP8 backend on the card against the package's CPU path, bit for
+    bit: f64 nu=14 and f32 nu=7 at 1000x2048x600 with each epilogue named,
+    robust shifts, ops T with general alpha/beta, and the K-chunked
+    128x(2^16+512)x128."""
+    import gemmul8_tpu_torch as gt
+    f64, f32 = np.float64, np.float32
+    ab = dict(alpha=-1.25, beta=0.75)
+    cases = [   # (m, k, n, dtype, keywords)
+        (1000, 2048, 600, f64, dict(num_moduli=14, epilogue="ff")),
+        (1000, 2048, 600, f64, dict(num_moduli=14, epilogue="f64")),
+        (1000, 2048, 600, f32, dict(num_moduli=7, epilogue="ff")),
+        (1000, 2048, 600, f32, dict(num_moduli=7, epilogue="f64")),
+        (300, 520, 200, f64, dict(num_moduli=14, epilogue="ff",
+                                  fastmode="robust")),
+        (300, 520, 200, f32, dict(num_moduli=7, epilogue="f64",
+                                  fastmode="robust")),
+        (300, 520, 200, f64, dict(num_moduli=14, epilogue="ff", trans_a="T",
+                                  **ab)),
+        (300, 520, 200, f32, dict(num_moduli=7, epilogue="f64", trans_b="T",
+                                  **ab)),
+        (128, (1 << 16) + 512, 128, f64, dict(num_moduli=14, epilogue="ff")),
+        (128, (1 << 16) + 512, 128, f64, dict(num_moduli=14, epilogue="f64")),
+    ]
+    n = 0
+    for m, k, n_, dt, kw in cases:
+        kw = dict(kw, backend="FP8")
+        a = phi_matrix(rng, *((k, m) if kw.get("trans_a") else (m, k)), 0.5,
+                       dt)
+        b = phi_matrix(rng, *((n_, k) if kw.get("trans_b") else (k, n_)),
+                       0.5, dt)
+        if "beta" in kw:
+            kw["c"] = phi_matrix(rng, m, n_, 0.5, dt)
+        t0 = time.perf_counter()
+        got = gt.gemm(a, b, device="cuda", **kw)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        ref = gt.gemm(a, b, device="cpu", **kw)
+        t2 = time.perf_counter()
+        label = (f"card vs cpu FP8 {dt.__name__} {m}x{k}x{n_} "
+                 f"{ {x: y for x, y in kw.items() if x != 'c'} }")
+        assert_bits_equal(got, ref, label)
+        log(f"  ok  {label}  card {t1 - t0:.2f}s cpu {t2 - t1:.2f}s")
+        n += 1
+    return n
+
+
 def cphi(rng, m, n, dt):
     return (phi_matrix(rng, m, n, 0.5) + 1j * phi_matrix(rng, m, n, 0.5)
             ).astype(dt)
@@ -637,10 +928,12 @@ def complex_card_vs_cpu(rng):
 # correction (4), and work that depends only on a row's or a column's shift is
 # done once per row or column (negligible at 8192^2, left out).
 
-def _moduli_ops(nu, per_modulus, per_pow2):
+def _moduli_ops(nu, per_modulus, per_pow2, backend="INT8"):
+    """The sum over the first nu moduli of per_modulus, or per_pow2 for a
+    power-of-two modulus (256; 1024 among the FP8 moduli)."""
     from gemmul8_tpu_torch import tables
-    return sum(per_pow2 if p == 256 else per_modulus
-               for p in tables.moduli("INT8")[:nu])
+    return sum(per_pow2 if p & (p - 1) == 0 else per_modulus
+               for p in tables.moduli(backend)[:nu])
 
 
 def encode_bound(m, k, nu, itemsize):
@@ -728,11 +1021,120 @@ def recombine_bound(m, n, nu):
     return bound(m * n * ops32, 0, m * n * 14 * nu)
 
 
+# per FP8 modulus and element, the encoder's split of the residue and its
+# emission: for a square modulus a conversion, two multiplies, rint and a
+# subtraction; for a Karatsuba one |r|, an add, a shift, a sign select (2),
+# a shift and a subtraction, an add and three conversions to f32 (about 8
+# either way); then three conversions to e4m3 and three stores
+FP8_SPLIT_OPS = 8 + 3 + 3
+
+
+def fp8_encode_bound(m, k, nu, itemsize):
+    """Least time of one FP8 encode of an (m, k) operand, in encode_bound's
+    convention. Bytes: x read once, the shifts, 3nu e4m3 planes written
+    once. 32-bit operations per element: encode_bound's preamble (loads,
+    scale, components, limbs, carry); per FP8 modulus the limb dot
+    (nl - 1 multiply-adds), the reduction (4) and the wrap (2), or a 3-op
+    mask for p = 1024, then FP8_SPLIT_OPS. f64 operations: as encode_bound."""
+    from gemmul8_tpu_torch import quantize
+    nl = quantize.n_limbs(nu, "FP8")
+    f64 = itemsize == 8
+    ops32 = (2 + (0 if f64 else 3) + (3 if f64 else 1) * 20 + 2
+             + 4 * (nl - 1) + _moduli_ops(nu, nl - 1 + 6, 3, "FP8")
+             + FP8_SPLIT_OPS * nu)
+    ops64 = 10 if f64 else 0
+    bytes_ = m * k * (itemsize + 3 * nu) + 4 * m
+    return bound(m * k * ops32, m * k * ops64, bytes_)
+
+
+def _fp8_reassemble_ops(nu):
+    """32-bit operations per element of the FP8 epilogue's reassembly: per
+    modulus three conversions of an f32 product to int32, then for a square
+    modulus an add, two reductions of any int32 with their wraps, a
+    multiply-add and a final reduction and wrap; for a Karatsuba one three
+    reductions with wraps, the recombine (two shifts, two subtractions, two
+    adds) and the final reduction and wrap. A reduction with its wrap is 6,
+    or a 3-op mask for p = 1024."""
+    from gemmul8_tpu_torch import tables
+    ops = 0
+    for i, p in enumerate(tables.moduli("FP8")[:nu]):
+        red = 3 if p & (p - 1) == 0 else 6
+        ops += 3 + (1 + 3 * red + 2 if i < tables.NOT_KARATSUBA
+                    else 4 * red + 6)
+    return ops
+
+
+def fp8_epilogue_bound(m, n, nu, out_bits):
+    """Least time of one FP8 epilogue (K3) at (m, n), in epilogue_bound's
+    convention. Bytes: 3nu f32 planes read once, the shifts, the output
+    written once. 32-bit operations per element: 3nu loads, two shift loads
+    and the store; the reassembly (_fp8_reassemble_ops); one CRT pipeline
+    on the FP8 plan (_crt_ops). f64 operations (f64 out): 5 per limb."""
+    from gemmul8_tpu_torch import ff
+    L = ff.limb_plan(nu, "FP8", out_bits)[1]
+    f64 = out_bits == 53
+    ops32 = 3 * nu + 3 + _fp8_reassemble_ops(nu) + _crt_ops(nu, L, f64)
+    ops64 = 5 * L if f64 else 0
+    bytes_ = m * n * (12 * nu + (8 if f64 else 4)) + 4 * (m + n)
+    return bound(m * n * ops32, m * n * ops64, bytes_)
+
+
 def bound(ops32, ops64, bytes_):
     """The larger of the operations' and the bytes' least times (ms)."""
     t_ops = max(ops32 / PEAK_OPS32, ops64 / PEAK_OPS64) * 1e3
     t_bytes = bytes_ / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
+
+
+def fp8_times(dt, nu, a, b, card):
+    """Phase 6 for one FP8 path: each stage (shifts, K6 on A and on B, the
+    3nu FP8 products, K3), the plain versions of K6 and K3, the whole call
+    (10 runs, median and quartiles), torch.matmul as the library yardstick,
+    and the bounds."""
+    import gemmul8_tpu_torch as gt
+    from gemmul8_tpu_torch import fp8, kernels, quantize
+    sa = quantize.shift_fast(a, nu, "FP8", 1)
+    sb = quantize.shift_fast(b, nu, "FP8", 0)
+    a3 = kernels.encode_planes_fp8(a, sa, 0, nu)
+    b3 = kernels.encode_planes_fp8(b, sb, 1, nu)
+    c3 = fp8.residue_matmul_fp8(a3, b3)
+    out_bits = 53 if dt == torch.float64 else 24
+    t = dict(
+        shifts_ms=cuda_ms(lambda: (quantize.shift_fast(a, nu, "FP8", 1),
+                                   quantize.shift_fast(b, nu, "FP8", 0))),
+        k6_a_ms=cuda_ms(lambda: kernels.encode_planes_fp8(a, sa, 0, nu)),
+        k6_b_ms=cuda_ms(lambda: kernels.encode_planes_fp8(b, sb, 1, nu)),
+        products_ms=cuda_ms(lambda: fp8.residue_matmul_fp8(a3, b3)),
+        k3_ms=cuda_ms(lambda: kernels.fused_epilogue_fp8(c3, sa, sb, nu, dt)),
+        k6_plain_ms=cuda_ms(lambda: kernels.encode_planes_fp8_plain(
+            a, sa, 0, nu), reps=3),
+        k3_plain_ms=cuda_ms(lambda: kernels.fused_epilogue_fp8_plain(
+            c3, sa, sb, nu, dt), reps=3),
+    )
+    del a3, b3, c3
+    torch.cuda.empty_cache()
+    runs = cuda_times(lambda: gt.gemm(a, b, num_moduli=nu, backend="FP8"),
+                      reps=10)
+    q1, q2, q3 = statistics.quantiles(runs, n=4)
+    t["gemm_ms"], t["gemm_ms_q1"], t["gemm_ms_q3"] = q2, q1, q3
+    t["library_ms"] = cuda_ms(lambda: torch.matmul(a, b))
+    flops = 2.0 * FULL ** 3
+    t["emulated_tflops"] = flops / (t["gemm_ms"] * 1e-3) / 1e12
+    t["library_tflops"] = flops / (t["library_ms"] * 1e-3) / 1e12
+    t["products_tops"] = 3 * nu * flops / (t["products_ms"] * 1e-3) / 1e12
+    t["products_bound_ms"] = 3 * nu * flops / PEAK_INT8_OPS * 1e3
+    k3_bytes = FULL * FULL * (12 * nu + a.element_size())
+    t["k3_tbps"] = k3_bytes / (t["k3_ms"] * 1e-3) / 1e12
+    check(t["products_tops"] * 1e12 <= PEAK_INT8_OPS,
+          f"fp8 products at {t['products_tops']:.0f} TOPS exceed peak")
+    check(t["k3_tbps"] * 1e12 <= PEAK_BYTES,
+          f"fp8 epilogue at {t['k3_tbps']:.2f} TB/s exceeds peak")
+    t["k6_bound"] = fp8_encode_bound(FULL, FULL, nu, a.element_size())
+    t["k3_bound"] = fp8_epilogue_bound(FULL, FULL, nu, out_bits)
+    log(f"times {card} | FP8 {dt} 8192^3 nu={nu}: " + ", ".join(
+        f"{k_} {v:.4f}" if isinstance(v, float) else f"{k_} {v}"
+        for k_, v in t.items()))
+    return t
 
 
 def complex_times(name, dt, nu, entry, A, B, card):
@@ -842,16 +1244,23 @@ def main():
     t0 = time.perf_counter()
     lib = kernels.build()
     log(f"build: {time.perf_counter() - t0:.1f}s {lib}")
+    log_phase("phase 2 (build)")
 
     # phase 3: kernels against their plain versions, bit for bit
     rng = np.random.default_rng(SEED)
     # the complex phases draw from a stream of their own, so that the real
     # paths' inputs stay those of the real-only script
     crng = np.random.default_rng(SEED + 1)
+    # and the FP8 phases from a third
+    frng = np.random.default_rng(SEED + 3)
     encode_cases(rng)
     epilogue_cases(rng)
     complex_cases(crng)
+    fp8_encode_cases(frng)
+    fp8_epilogue_cases(frng)
+    fp8_exact = fp8_exactness_cases()
     log(f"kernels vs plain, small shapes, all bit-equal: {CASES}")
+    log_phase("phase 3 (kernels vs plain, FP8 product exactness)")
     if args.quick:
         log(json.dumps({"quick": True, "cases": CASES}))
         return
@@ -863,38 +1272,14 @@ def main():
     b64 = torch.from_numpy(phi_matrix(rng, FULL, FULL, 0.5)).cuda()
     full_size_cases(a64, b64)
     log(f"kernels vs plain, all bit-equal, full size included: {CASES}")
-    main_launches = {}
-    for dt, nu in PATHS:
-        a, b = a64.to(dt), b64.to(dt)
-        c, counts = run_counted(lambda: gt.gemm(a, b, num_moduli=nu))
-        check(tuple(counts[k] for k in COUNT_KEYS) == (2, nu, 0, 0, 1),
-              f"main path {dt} launches {counts}, want 2 encodes, {nu} int8 "
-              "products, 1 epilogue")
-        main_launches[dt] = counts
-        check(c.shape == (FULL, FULL) and c.dtype == dt
-              and bool(torch.isfinite(c).all()), f"main path {dt} output")
-        a8 = a[:8].cpu().numpy()
-        b_np = b.cpu().numpy()
-        ref = a8.astype(np.longdouble) @ b_np.astype(np.longdouble)
-        err, med = max_median_relerr(c[:8].cpu().numpy(), ref)
-        native = torch.matmul(a, b)[:8].cpu().numpy()
-        nerr, nmed = max_median_relerr(native, ref)
-        # error against the componentwise scale |A||B| (cancellation makes
-        # the max relative error of any GEMM grow with k: cuBLAS's own is
-        # ~5e-11 here)
-        scale = np.abs(a8).astype(np.float64) @ np.abs(b_np).astype(np.float64)
-        cw = float(np.max(np.abs(np.asarray(c[:8].cpu().numpy(), np.longdouble)
-                                 - ref) / scale))
-        log(f"accuracy {dt} nu={nu} rows 0-7: emulated max {err:.3e} median "
-            f"{med:.3e} max/|A||B| {cw:.3e}; torch.matmul max {nerr:.3e} "
-            f"median {nmed:.3e}")
-        if dt == torch.float64:
-            check(err <= 2 * nerr and cw < 1e-13,
-                  f"f64 error {err} (|A||B|-relative {cw}) vs cuBLAS {nerr}")
-        else:
-            check(err < nerr, f"f32 error {err} vs cuBLAS f32 {nerr}")
-        del c, native
-        log(f"main path {dt} nu={nu} launches: {counts}")
+    main_launches = {dt: real_main_path(a64.to(dt), b64.to(dt), nu, "INT8")
+                     for dt, nu in PATHS}
+    log_phase("phase 4 (INT8 real paths)")
+    full_size_fp8_cases(a64, b64)
+    log(f"kernels vs plain, all bit-equal, FP8 full size included: {CASES}")
+    fp8_launches = {dt: real_main_path(a64.to(dt), b64.to(dt), nu, "FP8")
+                    for dt, nu in FP8_PATHS}
+    log_phase("phase 4 (FP8 real paths)")
     small_accuracy_case(rng)
     # the complex paths: A and B with the real operands as their real parts
     A = torch.complex(a64, torch.from_numpy(
@@ -904,11 +1289,14 @@ def main():
     full_size_complex_cases(A, B)
     log(f"kernels vs plain, all bit-equal, complex full size included: {CASES}")
     complex_launches = complex_main_paths(A, B)
+    log_phase("phase 4 (complex paths)")
 
     # phase 5: the card against the CPU path, bit for bit
     n_cpu = card_vs_cpu(rng)
     n_cpu += complex_card_vs_cpu(crng)
+    n_cpu += fp8_card_vs_cpu(frng)
     log(f"card vs cpu: {n_cpu} cases bit-equal")
+    log_phase("phase 5 (card vs cpu)")
 
     # phase 6: times
     timing = {}
@@ -958,6 +1346,8 @@ def main():
             f"{k_} {v:.4f}" if isinstance(v, float) else f"{k_} {v}"
             for k_, v in t.items()))
         del ap, bp, c_hi
+    ftiming = {dt: fp8_times(dt, nu, a64.to(dt), b64.to(dt), card)
+               for dt, nu in FP8_PATHS}
     ctiming = {p[0]: complex_times(*p[:4], A, B, card) for p in CPATHS}
     for name, *_ in CPATHS:
         t = ctiming[name]
@@ -970,6 +1360,15 @@ def main():
         f"torch.matmul f64 {t64['library_tflops']:.3f} TF/s "
         f"({t64['library_ms']:.3f} ms); emulated SGEMM 8192^3 nu=8 "
         f"{timing[torch.float32]['emulated_tflops']:.3f} TF/s")
+    for dt, nu in FP8_PATHS:
+        t = ftiming[dt]
+        log(f"headline {card}: FP8 {TAG[dt]} 8192^3 nu={nu} "
+            f"{t['emulated_tflops']:.3f} TF/s ({t['gemm_ms']:.3f} ms), "
+            f"{3 * nu} FP8 products {t['products_ms']:.3f} ms "
+            f"({t['products_tops']:.1f} TOPS), torch.matmul "
+            f"{t['library_tflops']:.3f} TF/s")
+    log(json.dumps({"fp8_products_exact_chunks": fp8_exact}))
+    log_phase("phase 6 (times)")
 
     # one entry per kernel and main path: launches are that path's own gemm
     # call's, times and bounds are at that path's shapes
@@ -998,6 +1397,30 @@ def main():
                  bound_by=t["epilogue_bound"][1], library_ms=None,
                  path=f"gemm {tag} 8192^3 nu={nu}",
                  shape=f"C_hi {nu}x8192x8192 int32 -> {tag}"),
+        ]
+    for dt, nu in FP8_PATHS:
+        t, tag = ftiming[dt], TAG[dt]
+        fp8_entry = dict(route="cuda", library_ms=None,
+                         path=f"gemm {tag} 8192^3 nu={nu} backend=FP8")
+        kern += [
+            dict(fp8_entry, name=f"encode_planes_fp8[{tag}]",
+                 source="gemmul8_tpu_torch/csrc/encode_fp8.cu",
+                 replaces="gemmul8_tpu/pallas_kernels.py:749",
+                 launches=fp8_launches[dt]["encode_planes_fp8"],
+                 max_abs_err=MAX_ABS_ERR[f"encode_planes_fp8[{tag}]"],
+                 cases=CASES[f"encode_planes_fp8[{tag}]"], ms=t["k6_a_ms"],
+                 plain_ms=t["k6_plain_ms"], bound_ms=t["k6_bound"][0],
+                 bound_by=t["k6_bound"][1],
+                 shape=f"A 8192x8192 {tag} -> {3 * nu}x8192x8192 e4m3"),
+            dict(fp8_entry, name=f"fused_epilogue_fp8[{tag}]",
+                 source="gemmul8_tpu_torch/csrc/epilogue_fp8.cu",
+                 replaces="gemmul8_tpu/pallas_kernels.py:494",
+                 launches=fp8_launches[dt]["fused_epilogue_fp8"],
+                 max_abs_err=MAX_ABS_ERR[f"fused_epilogue_fp8[{tag}]"],
+                 cases=CASES[f"fused_epilogue_fp8[{tag}]"], ms=t["k3_ms"],
+                 plain_ms=t["k3_plain_ms"], bound_ms=t["k3_bound"][0],
+                 bound_by=t["k3_bound"][1],
+                 shape=f"C3 {3 * nu}x8192x8192 f32 -> {tag}"),
         ]
     complex_entry = dict(route="cuda", library_ms=None)
     for name, dt, nu, *_ in CPATHS[:2]:           # the two K4 paths

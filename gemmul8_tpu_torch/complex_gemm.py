@@ -37,7 +37,8 @@ def _check_mode(fastmode, backend) -> None:
         raise ValueError(f"backend must be 'INT8' or 'FP8', got {backend!r}")
     if backend == tables.Backend.FP8:
         raise NotImplementedError(
-            "backend='FP8' is not ported yet (ROADMAP queue 8)")
+            "backend='FP8' on complex operands is not ported yet (ROADMAP "
+            "queue 8: it needs a lane-emitting FP8 encoder)")
     if not fastmode:
         raise NotImplementedError(
             "accurate mode (fastmode=False) is not ported yet (ROADMAP queue 5)")
@@ -80,7 +81,8 @@ def _quantize_complex(re, im, sft, scale_axis, num_moduli, backend, conj):
     planes k-contiguous, as the int8 product reads them)."""
     if backend != tables.Backend.INT8:
         raise NotImplementedError(
-            "backend='FP8' is not ported yet (ROADMAP queue 8)")
+            "backend='FP8' on complex operands is not ported yet (ROADMAP "
+            "queue 8: it needs a lane-emitting FP8 encoder)")
     if conj:
         im = -im
     rows, cols = re.shape

@@ -1,12 +1,15 @@
-"""Ozaki-scheme-II GEMM emulation, INT8 fast path, in PyTorch: shifts ->
-residue planes -> one exact int8 product per modulus -> mod + CRT + descale ->
-alpha/beta epilogue. Complex operands go to complex_gemm (the 3M scheme).
+"""Ozaki-scheme-II GEMM emulation, fast mode, in PyTorch: shifts -> residue
+planes -> exact low-precision products -> mod + CRT + descale -> alpha/beta
+epilogue. Complex operands go to complex_gemm (the 3M scheme).
 
-The counterpart of gemmul8_tpu/core.py. On the card the planes come from the
-encode kernel, the products from torch._int_mm (the vendor int8 product, as
-the JAX package leaves its dot to XLA) and the "ff" epilogue from one fused
-kernel; on the CPU the same code runs each kernel's plain version. Results are
-bit-equal to the JAX package on the CPU.
+The counterpart of gemmul8_tpu/core.py. INT8 backend: one int8 plane and one
+exact int8 product per modulus. FP8 backend (fp8.py): three e4m3 planes per
+modulus and side and three FP8 products, reassembled mod p. On the card the
+planes come from the encode kernels, the products from torch._int_mm or
+torch._scaled_mm (the vendor products, as the JAX package leaves its dots to
+XLA) and the "ff" epilogue from one fused kernel; on the CPU the same code
+runs each kernel's plain version. Results are bit-equal to the JAX package on
+the CPU.
 
 Each `x + y*z` that XLA:CPU contracts to an FMA under jit is written as
 torch.addcmul, which computes the fused result, so the "f64" epilogue and the
@@ -20,7 +23,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from . import ff, kernels, quantize, tables
+from . import ff, fp8, kernels, quantize, tables
 
 # int32 accumulation of int8 residue products is exact up to this K
 # (|r| <= 128 -> product <= 2^14; 2^14 * 2^17 = 2^31)
@@ -47,10 +50,13 @@ def _wrap(v: torch.Tensor, p: int) -> torch.Tensor:
 
 
 def mod_reduce(c_hi: torch.Tensor, num_moduli: int, backend: str) -> torch.Tensor:
-    """C_mid[i] = wrap(C_hi[i] mod p_i) -> int8 (reference: conv_hi2mid_real.hpp).
-    C_hi may be int32 or already-wrapped int8 (on which this is the identity)."""
+    """C_mid[i] = wrap(C_hi[i] mod p_i) (reference: conv_hi2mid_real.hpp):
+    int8 for the INT8 moduli, int16 for the FP8 ones (up to 1089; an int8
+    cast would wrap them silently). C_hi may be int32 or already-wrapped
+    residues (on which this is the identity)."""
     mods = tables.moduli(backend)[:num_moduli]
-    return torch.stack([_wrap(c_hi[i].to(torch.int32), p).to(torch.int8)
+    out = torch.int8 if backend == tables.Backend.INT8 else torch.int16
+    return torch.stack([_wrap(c_hi[i].to(torch.int32), p).to(out)
                         for i, p in enumerate(mods)])
 
 
@@ -140,18 +146,20 @@ def _quantize_operands(a, b, num_moduli, fastmode, backend):
     if not fastmode:
         raise NotImplementedError(
             "accurate mode (fastmode=False) is not ported yet (ROADMAP queue 5)")
-    if backend != tables.Backend.INT8:
-        raise NotImplementedError(
-            "backend='FP8' is not ported yet (ROADMAP queue 8)")
     var = "invariant" if fastmode == "robust" else "reference"
     sft_a = quantize.shift_fast(a, num_moduli, backend, reduce_axis=1,
                                 variant=var)
     sft_b = quantize.shift_fast(b, num_moduli, backend, reduce_axis=0,
                                 variant=var)
-    # on the card B's planes come back as a (nu, k, n) view of k-contiguous
-    # storage, the layout the int8 product reads
-    a_planes = kernels.encode_planes(a, sft_a, 0, num_moduli, backend)
-    b_planes = kernels.encode_planes(b, sft_b, 1, num_moduli, backend)
+    # on the card B's planes come back as a (planes, k, n) view of
+    # k-contiguous storage, the layout the tensor-core products read
+    if backend == tables.Backend.FP8:
+        # the (3nu, ...) e4m3 stacks in each side's slot order
+        a_planes = kernels.encode_planes_fp8(a, sft_a, 0, num_moduli)
+        b_planes = kernels.encode_planes_fp8(b, sft_b, 1, num_moduli)
+    else:
+        a_planes = kernels.encode_planes(a, sft_a, 0, num_moduli, backend)
+        b_planes = kernels.encode_planes(b, sft_b, 1, num_moduli, backend)
     return a_planes, sft_a, b_planes, sft_b
 
 
@@ -195,8 +203,23 @@ def _emulated_product(a_planes, sft_a, b_planes, sft_b, num_moduli, backend,
                       out_dtype, epilogue):
     """Residue GEMM + epilogue from encoded planes. With "ff" the int32
     products (or their K-chunked residue sums) go straight into the fused
-    epilogue kernel, which emits the output dtype."""
-    if resolve_epilogue(epilogue, a_planes.device) == "ff":
+    epilogue kernel, which emits the output dtype; on the FP8 backend the f32
+    lane products go into the FP8 epilogue kernel, and K-chunked residue
+    sums into the real one."""
+    ff_epilogue = resolve_epilogue(epilogue, a_planes.device) == "ff"
+    if backend == tables.Backend.FP8:
+        if not ff_epilogue:
+            c_mid = fp8.residue_gemm_fp8(a_planes, b_planes, num_moduli)
+            return reconstruct_scale(c_mid, sft_a, sft_b, num_moduli, backend,
+                                     out_dtype, epilogue)
+        if a_planes.shape[2] <= fp8.K_CHUNK_FP8:
+            c3 = fp8.residue_matmul_fp8(a_planes, b_planes)
+            return kernels.fused_epilogue_fp8(c3, sft_a, sft_b, num_moduli,
+                                              out_dtype)
+        acc = fp8._chunked_residue_acc(a_planes, b_planes, num_moduli)
+        return kernels.fused_epilogue(acc, sft_a, sft_b, num_moduli, backend,
+                                      out_dtype)
+    if ff_epilogue:
         if a_planes.shape[2] <= K_CHUNK:
             c_hi = residue_matmul(a_planes, b_planes)
         else:
@@ -223,7 +246,7 @@ def emulate_matmul(a: torch.Tensor, b: torch.Tensor, *, num_moduli: int,
                    fastmode=True, backend: str = tables.Backend.INT8,
                    epilogue: str = "auto") -> torch.Tensor:
     """Emulated a @ b (no alpha/beta) on a's device. On the card, operands
-    are zero-padded to multiples of 128 (the int8 product's shape rules) and
+    are zero-padded to multiples of 128 (the products' shape rules) and
     the output is sliced back -- bit-identical to the unpadded math."""
     out_dtype = a.dtype
     m, n = a.shape[0], b.shape[1]
@@ -303,6 +326,8 @@ def gemm(a, b, *, num_moduli: int = 8, fastmode=True,
     a, b (and c): torch tensors or numpy arrays, placed on `device` ("cuda"
     by default; "cpu" runs every kernel's plain version). `num_moduli` dials
     accuracy vs speed (2..13 for f32/complex64, 2..20 for f64/complex128).
+    backend="INT8" (int8 tensor cores) or "FP8" (e4m3 split planes on the FP8
+    tensor cores, three products per modulus; real operands only).
     Complex operands take ops "N"/"T"/"C" and complex alpha/beta
     (complex_gemm.gemm_complex). Bit-equal to gemmul8_tpu.gemm on the CPU.
     """
@@ -329,9 +354,6 @@ def gemm(a, b, *, num_moduli: int = 8, fastmode=True,
     if not lo <= num_moduli <= hi:
         raise ValueError(
             f"num_moduli={num_moduli} out of range [{lo},{hi}] for {a.dtype}")
-    if backend == tables.Backend.FP8:
-        raise NotImplementedError(
-            "backend='FP8' is not ported yet (ROADMAP queue 8)")
     if m_block is not None or n_block is not None:
         raise NotImplementedError(
             "m_block/n_block striping is not ported yet (ROADMAP queue 6)")

@@ -10,7 +10,7 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#define G8_MAX_NU 20   // INT8 moduli
+#define G8_MAX_NU 20   // moduli (INT8 or FP8)
 #define G8_MAX_NL 6    // 20-bit limbs of the quantized integer (encode)
 #define G8_MAX_L 7     // 16-bit limbs of the CRT sum (epilogue)
 
@@ -22,6 +22,16 @@ struct EncodePlan {
     int w[G8_MAX_NU][G8_MAX_NL];     // wrap(2^(20*lv) mod p_i)
 };
 
+// the FP8 encoder's plan: the limb plan of the FP8 moduli, and per modulus
+// its split (q = sqrt(p) and the f32 1/q for a square modulus, q = 0 for a
+// Karatsuba one) and the slots of its three planes in this side's stack
+struct EncodePlanFp8 {
+    EncodePlan enc;
+    int sq[G8_MAX_NU];
+    float inv_sq[G8_MAX_NU];
+    int slot[3 * G8_MAX_NU];         // 0: x, 1: y, 2: z
+};
+
 struct EpiloguePlan {
     int nu;                          // number of moduli
     int L;                           // 16-bit limbs in use (<= G8_MAX_L)
@@ -31,6 +41,14 @@ struct EpiloguePlan {
     int w16[G8_MAX_NU][G8_MAX_L];    // 16-bit slices of qPi >> base
     int p16[G8_MAX_L];               // 16-bit slices of P >> base
     float s1[G8_MAX_L], s2[G8_MAX_L];  // static pow2 pair of limb li's unit
+};
+
+// the FP8 epilogue's plan: the CRT plan of the FP8 moduli and, per modulus,
+// q = sqrt(p) for a square modulus (its three products recombine as
+// q*(C0 + C1) + C2) or 0 for a Karatsuba one (256*C0 + 16*(C2-C0-C1) + C1)
+struct EpiloguePlanFp8 {
+    EpiloguePlan crt;
+    int sq[G8_MAX_NU];
 };
 
 // floor(a / b) for b > 0 (C's / truncates toward zero)

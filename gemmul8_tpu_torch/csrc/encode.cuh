@@ -1,0 +1,138 @@
+// The encoders' per-element steps, shared by the INT8 encoder (encode.cu)
+// and the FP8 one (encode_fp8.cu), so that they run the same code: scale by
+// the row's or column's power of two, split into exact f32 components, place
+// the integer part in balanced 20-bit limbs with the fractions' joint carry,
+// and reduce the limbs modulo one modulus.
+//
+// Each step follows quantize.residues_wrapped op for op: the input is scaled
+// in its own dtype before the split, the scale uses the floor split of
+// pow2_scale, and a component's bit position is clamped at max_exp.
+#pragma once
+
+#include "common.cuh"
+
+template <typename T>
+struct Components;
+
+template <>
+struct Components<float> {
+    static constexpr int N = 1;
+    __device__ static void split(float x, int s, float* c) {
+        c[0] = pow2_scale_f(x, s);
+    }
+};
+
+template <>
+struct Components<double> {
+    static constexpr int N = 3;
+    __device__ static void split(double x, int s, float* c) {
+        double r = pow2_scale_d(x, s);
+#pragma unroll
+        for (int j = 0; j < 3; ++j) {
+            c[j] = (float)r;                       // round to nearest even
+            if (j + 1 < 3) r = r - (double)c[j];
+        }
+    }
+};
+
+// lim[0 .. plan.nl) = floor(x * 2^s) in balanced 20-bit limbs: every limb but
+// the top in [-2^19, 2^19)
+template <typename T>
+__device__ __forceinline__ void quantize_limbs(T x, int s,
+                                               const EncodePlan& plan,
+                                               int* lim) {
+    float comp[Components<T>::N];
+    Components<T>::split(x, s, comp);
+#pragma unroll
+    for (int lv = 0; lv < G8_MAX_NL; ++lv) lim[lv] = 0;
+    float G = 0.0f;                  // joint carry of the fractional parts
+#pragma unroll
+    for (int j = 0; j < Components<T>::N; ++j) {
+        const int bits = __float_as_int(comp[j]);
+        const int sign = bits < 0 ? -1 : 1;
+        const int expf = (bits >> 23) & 0xFF;
+        const int frac = bits & 0x7FFFFF;
+        const bool is_norm = expf > 0;
+        const int mant = is_norm ? (frac | (1 << 23)) : frac;
+        const int e = is_norm ? expf - 127 : -126;
+        const int d = e - 23;                           // value = s*mant*2^d
+        const int sig = min(max(-d, 0), 31);
+        const int m_int = mant >> sig;
+        const int dpos = min(max(d, 0), plan.max_exp);
+        const int mfrac = mant - (m_int << sig);
+        float fr = (float)mfrac * pow2f(max(d, -30));
+        if (-d > 30) fr = fabsf(comp[j]);               // below 2^-6
+        G = G + (float)sign * fr;
+        // m_int * 2^dpos across limbs li and li+1 of the 20-bit grid
+        const int off = dpos % 20;
+        const int li = dpos / 20;
+        const int sh = 20 - off;
+        const int mhi = m_int >> sh;
+        const int mlo = m_int - (mhi << sh);
+        const int c_lo = sign * (mlo << off);           // < 2^20
+        const int c_hi = sign * mhi;                    // < 2^23
+#pragma unroll
+        for (int lv = 0; lv < G8_MAX_NL; ++lv) {
+            if (lv < plan.nl) {
+                if (li == lv) lim[lv] += c_lo;
+                if (li == lv - 1) lim[lv] += c_hi;
+            }
+        }
+    }
+    lim[0] += (int)floorf(G);
+    // balanced carry: every limb but the top into [-2^19, 2^19)
+#pragma unroll
+    for (int lv = 0; lv < G8_MAX_NL - 1; ++lv) {
+        if (lv < plan.nl - 1) {
+            const int cr = (lim[lv] + (1 << 19)) >> 20;
+            lim[lv] -= cr * (1 << 20);
+            lim[lv + 1] += cr;
+        }
+    }
+}
+
+// wrap(v mod p_i) in [-p/2, p/2) of the limbs' value. A power-of-two modulus
+// (256; 1024 among the FP8 moduli) divides every 2^(20*lv) weight but the
+// first, so its residue is limb 0's low bits, balanced by a mask. Otherwise
+// the dot with the static weights wrap(2^(20*lv) mod p): |acc| < 6 * 2^19 *
+// 545 < 2^31 for every modulus of either backend.
+__device__ __forceinline__ int limb_residue(const int* lim,
+                                            const EncodePlan& plan, int i) {
+    const int p = plan.p[i];
+    if ((p & (p - 1)) == 0)
+        return (int)(((unsigned)lim[0] + (unsigned)(p / 2))
+                     & (unsigned)(p - 1)) - p / 2;
+    int acc = lim[0];
+#pragma unroll
+    for (int lv = 1; lv < G8_MAX_NL; ++lv)
+        if (lv < plan.nl) acc += lim[lv] * plan.w[i][lv];
+    return wrap_mod(acc, p);
+}
+
+// Thread (fast, slow) of a 32x8 block grid -> the element (r, c) of a
+// (rows, cols) operand and its offset in a plane: AXIS 0 (A, one shift per
+// row) runs the warp along cols and stores planes row-major (rows, cols);
+// AXIS 1 (B, one shift per column) runs it along rows and stores planes
+// (cols, rows), k-contiguous as the tensor-core products read B.
+template <int AXIS>
+struct EncodeIndex {
+    int r, c;
+    size_t pos;
+    __device__ EncodeIndex(int rows, int cols) {
+        const int fast = blockIdx.x * 32 + threadIdx.x;
+        const int slow = blockIdx.y * 8 + threadIdx.y;
+        r = AXIS == 0 ? slow : fast;
+        c = AXIS == 0 ? fast : slow;
+        pos = AXIS == 0 ? (size_t)r * cols + c : (size_t)c * rows + r;
+    }
+};
+
+// the launch grid of EncodeIndex; false if it exceeds the y-dimension limit
+inline bool encode_grid(int axis, int rows, int cols, dim3& grid,
+                        dim3& block) {
+    const int fast = axis == 0 ? cols : rows;
+    const int slow = axis == 0 ? rows : cols;
+    block = dim3(32, 8);
+    grid = dim3((fast + 31) / 32, (slow + 7) / 8);
+    return (slow + 7) / 8 <= 65535;
+}

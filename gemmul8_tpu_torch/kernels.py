@@ -1,13 +1,15 @@
-"""Hand-written CUDA kernels of the main path, their wrappers and plain versions.
+"""Hand-written CUDA kernels of the main paths, their wrappers and plain versions.
 
-The counterpart of gemmul8_tpu/pallas_kernels.py for the INT8 paths:
+The counterpart of gemmul8_tpu/pallas_kernels.py:
 
-  encode_planes           csrc/encode.cu    replaces encode_planes_tiles
-  fused_epilogue          csrc/epilogue.cu  replaces fused_epilogue
-  fused_epilogue_complex  csrc/complex.cu   replaces fused_epilogue_complex
-  fused_recombine_3m      csrc/complex.cu   replaces fused_recombine_3m
+  encode_planes           csrc/encode.cu        replaces encode_planes_tiles
+  encode_planes_fp8       csrc/encode_fp8.cu    replaces encode_planes_fp8_tiles
+  fused_epilogue          csrc/epilogue.cu      replaces fused_epilogue
+  fused_epilogue_fp8      csrc/epilogue_fp8.cu  replaces fused_epilogue_fp8
+  fused_epilogue_complex  csrc/complex.cu       replaces fused_epilogue_complex
+  fused_recombine_3m      csrc/complex.cu       replaces fused_recombine_3m
 
-(the epilogues share csrc/crt.cuh's steps).
+(the encoders share csrc/encode.cuh's steps, the epilogues csrc/crt.cuh's).
 
 Each wrapper checks its operands, allocates the output with torch.empty,
 launches on the current stream, raises if the launch failed and adds one to
@@ -29,12 +31,15 @@ import shutil
 import subprocess
 import tempfile
 
+import numpy as np
 import torch
 
-from . import ff, quantize, tables
+from . import ff, fp8, quantize, tables
 
-LAUNCHES = {"encode_planes": 0, "fused_epilogue": 0,
-            "fused_epilogue_complex": 0, "fused_recombine_3m": 0}
+LAUNCHES = {"encode_planes": 0, "encode_planes_fp8": 0, "fused_epilogue": 0,
+            "fused_epilogue_fp8": 0, "fused_epilogue_complex": 0,
+            "fused_recombine_3m": 0}
+_INT8, _FP8 = tables.Backend.INT8, tables.Backend.FP8
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_HERE, "csrc")
@@ -47,8 +52,11 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
     # x, sft, out, plan, is_f64, scale_axis, rows, cols, stream
     "encode_planes": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "encode_planes_fp8": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     # c_hi, sft_a, sft_b, out, in_i8, out_f64, m, n, plan, stream
     "fused_epilogue": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
+    # c3, sft_a, sft_b, out, out_f64, m, n, plan, stream
+    "fused_epilogue_fp8": [_P, _P, _P, _P, _I, _I, _I, _P, _P],
     # c_hi3, sft_a, sft_b, out_re, out_im, stride, out_f64, m, n, plan, stream
     "fused_epilogue_complex": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
     # c_hi3, out_re, out_im, m, n, plan, stream
@@ -134,6 +142,8 @@ def _encode_plan(num_moduli: int, backend: str) -> _EncodePlan:
     plan = _EncodePlan()
     plan.nu = num_moduli
     plan.nl = quantize.n_limbs(num_moduli, backend)
+    if plan.nl > _MAX_NL:
+        raise ValueError(f"encode: {plan.nl} limbs exceed the kernel's {_MAX_NL}")
     plan.max_exp = tables.MAX_EXP
     for i, (p, ws) in enumerate(zip(tables.moduli(backend),
                                     quantize.limb_weights(num_moduli, backend))):
@@ -144,13 +154,14 @@ def _encode_plan(num_moduli: int, backend: str) -> _EncodePlan:
 
 
 def plane_buffer(lead: tuple, rows: int, cols: int, scale_axis: int,
-                 device) -> torch.Tensor:
-    """An empty int8 (*lead, rows, cols) plane stack in the layout the int8
-    product reads: row-major for A (scale_axis=0), a view of (*lead, cols,
-    rows) storage for B (scale_axis=1), so that each B plane is k-contiguous."""
+                 device, dtype=torch.int8) -> torch.Tensor:
+    """An empty (*lead, rows, cols) plane stack in the layout the tensor-core
+    products read: row-major for A (scale_axis=0), a view of (*lead, cols,
+    rows) storage for B (scale_axis=1), so that each B plane is k-contiguous
+    (column-major)."""
     if scale_axis == 0:
-        return torch.empty((*lead, rows, cols), dtype=torch.int8, device=device)
-    return torch.empty((*lead, cols, rows), dtype=torch.int8,
+        return torch.empty((*lead, rows, cols), dtype=dtype, device=device)
+    return torch.empty((*lead, cols, rows), dtype=dtype,
                        device=device).transpose(-1, -2)
 
 
@@ -173,23 +184,9 @@ def encode_planes(x: torch.Tensor, sft: torch.Tensor, scale_axis: int,
     if x.device.type == "cpu":
         planes = encode_planes_plain(x, sft, scale_axis, num_moduli, backend)
         return planes if out is None else out.copy_(planes)
-    if x.device.type != "cuda":
-        raise ValueError(f"encode_planes: unsupported device {x.device}")
-    if backend != tables.Backend.INT8:
+    if backend != _INT8:
         raise ValueError(f"encode_planes: backend must be INT8, got {backend!r}")
-    if x.dim() != 2 or x.dtype not in (torch.float32, torch.float64):
-        raise ValueError("encode_planes: x must be a 2-D f32 or f64 tensor")
-    if not x.is_contiguous():
-        raise ValueError("encode_planes: x must be contiguous")
-    if scale_axis not in (0, 1):
-        raise ValueError("encode_planes: scale_axis must be 0 or 1")
-    if not 1 <= num_moduli <= _MAX_NU:
-        raise ValueError(f"encode_planes: num_moduli={num_moduli} out of range")
-    rows, cols = x.shape
-    if (sft.device != x.device or sft.dtype != torch.int32
-            or sft.shape != (x.shape[scale_axis],) or not sft.is_contiguous()):
-        raise ValueError("encode_planes: sft must be a contiguous int32 "
-                         f"vector of length {x.shape[scale_axis]} on {x.device}")
+    rows, cols = _check_encode("encode_planes", x, sft, scale_axis, num_moduli)
     if out is None:
         out = plane_buffer((num_moduli,), rows, cols, scale_axis, x.device)
     elif (out.dtype != torch.int8 or out.device != x.device
@@ -204,6 +201,74 @@ def encode_planes(x: torch.Tensor, sft: torch.Tensor, scale_axis: int,
         _launch("encode_planes", x.data_ptr(), sft.data_ptr(), out.data_ptr(),
                 ctypes.addressof(plan), int(x.dtype == torch.float64),
                 scale_axis, rows, cols, _stream(x))
+    return out
+
+
+def _check_encode(name, x, sft, scale_axis, num_moduli):
+    """The checks both encode wrappers make on a CUDA input. Returns x's
+    (rows, cols)."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    if x.dim() != 2 or x.dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"{name}: x must be a 2-D f32 or f64 tensor")
+    if not x.is_contiguous():
+        raise ValueError(f"{name}: x must be contiguous")
+    if scale_axis not in (0, 1):
+        raise ValueError(f"{name}: scale_axis must be 0 or 1")
+    _check_nu(name, num_moduli)
+    if (sft.device != x.device or sft.dtype != torch.int32
+            or sft.shape != (x.shape[scale_axis],) or not sft.is_contiguous()):
+        raise ValueError(f"{name}: sft must be a contiguous int32 "
+                         f"vector of length {x.shape[scale_axis]} on {x.device}")
+    return x.shape
+
+
+class _EncodePlanFp8(ctypes.Structure):       # csrc/common.cuh: EncodePlanFp8
+    _fields_ = [("enc", _EncodePlan),
+                ("sq", ctypes.c_int * _MAX_NU),
+                ("inv_sq", ctypes.c_float * _MAX_NU),
+                ("slot", ctypes.c_int * (3 * _MAX_NU))]
+
+
+def _encode_plan_fp8(num_moduli: int, side: str) -> _EncodePlanFp8:
+    plan = _EncodePlanFp8()
+    plan.enc = _encode_plan(num_moduli, _FP8)
+    for i, q in enumerate(fp8._sqrt_moduli()[:num_moduli]):
+        plan.sq[i] = q
+        plan.inv_sq[i] = float(np.float32(1.0 / q))
+    for j, (_, s) in enumerate(fp8.slot_order(num_moduli, side)):
+        plan.slot[j] = s
+    return plan
+
+
+def encode_planes_fp8_plain(x, sft, scale_axis, num_moduli):
+    """Plain version of the FP8 encode kernel: the (3nu, *x.shape) e4m3
+    stack of this side (scale_axis 0: lhs, 1: rhs)."""
+    res = quantize.residues_wrapped(x, sft, scale_axis, num_moduli, _FP8)
+    return fp8._gemm_stack(fp8.split_planes(res, num_moduli), num_moduli,
+                           "lhs" if scale_axis == 0 else "rhs")
+
+
+def encode_planes_fp8(x: torch.Tensor, sft: torch.Tensor, scale_axis: int,
+                      num_moduli: int) -> torch.Tensor:
+    """The FP8 backend's GEMM-ready (3nu, *x.shape) float8_e4m3fn plane stack
+    of one operand, in its side's slot order (scale_axis 0: A, per-row
+    shifts; 1: B, per-column shifts).
+
+    On the card, B's stack is a (3nu, k, n) view of (3nu, n, k) storage: each
+    plane is the column-major operand torch._scaled_mm reads."""
+    if x.device.type == "cpu":
+        return encode_planes_fp8_plain(x, sft, scale_axis, num_moduli)
+    rows, cols = _check_encode("encode_planes_fp8", x, sft, scale_axis,
+                               num_moduli)
+    out = plane_buffer((3 * num_moduli,), rows, cols, scale_axis, x.device,
+                       torch.float8_e4m3fn)
+    if x.numel():
+        plan = _encode_plan_fp8(num_moduli, "lhs" if scale_axis == 0 else "rhs")
+        _launch("encode_planes_fp8", x.data_ptr(), sft.data_ptr(),
+                out.data_ptr(), ctypes.addressof(plan),
+                int(x.dtype == torch.float64), scale_axis, rows, cols,
+                _stream(x))
     return out
 
 
@@ -224,6 +289,8 @@ class _EpiloguePlan(ctypes.Structure):        # csrc/common.cuh: EpiloguePlan
 def _epilogue_plan(num_moduli: int, backend: str, out_bits: int):
     """The static plan of pallas_kernels._epilogue_plan, from ff.limb_plan."""
     base, L, w16, p16, invp_top = ff.limb_plan(num_moduli, backend, out_bits)
+    if L > _MAX_L:
+        raise ValueError(f"epilogue: {L} limbs exceed the kernel's {_MAX_L}")
     plan = _EpiloguePlan()
     plan.nu, plan.L, plan.base, plan.invp_top = num_moduli, L, base, invp_top
     for i, p in enumerate(tables.moduli(backend)[:num_moduli]):
@@ -238,14 +305,12 @@ def _epilogue_plan(num_moduli: int, backend: str, out_bits: int):
     return plan
 
 
-def _check_epilogue(name, c_hi, n_planes, dtypes, sft_a, sft_b, backend):
+def _check_epilogue(name, c_hi, n_planes, dtypes, sft_a, sft_b):
     """The checks every epilogue wrapper makes on a CUDA input: c_hi a
     contiguous (n_planes, m, n) stack of one of `dtypes`, int32 shift vectors
     on its device. Returns (m, n)."""
     if c_hi.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {c_hi.device}")
-    if backend != tables.Backend.INT8:
-        raise ValueError(f"{name}: backend must be INT8, got {backend!r}")
     if (c_hi.dim() != 3 or c_hi.dtype not in dtypes
             or c_hi.shape[0] != n_planes or not c_hi.is_contiguous()):
         raise ValueError(f"{name}: c_hi must be a contiguous ({n_planes}, m, n) "
@@ -270,8 +335,15 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _check_backend(name, backend, allowed):
+    if backend not in allowed:
+        raise ValueError(f"{name}: backend must be {' or '.join(allowed)}, "
+                         f"got {backend!r}")
+
+
 def fused_epilogue_plain(c_hi, sft_a, sft_b, num_moduli, backend, out_dtype):
-    """Plain version of the epilogue kernel: mod_reduce -> reconstruct_scale_ff."""
+    """Plain version of the epilogue kernel: mod_reduce (int8 residues for
+    the INT8 moduli, int16 for the FP8 ones) -> reconstruct_scale_ff."""
     from .core import mod_reduce
     return ff.reconstruct_scale_ff(mod_reduce(c_hi, num_moduli, backend),
                                    sft_a, sft_b, num_moduli, backend, out_dtype)
@@ -282,13 +354,16 @@ def fused_epilogue(c_hi: torch.Tensor, sft_a: torch.Tensor,
                    out_dtype: torch.dtype) -> torch.Tensor:
     """(nu, m, n) int32 C_hi (or K-chunked residue sums, any int32), or int8
     wrapped residues (fused_recombine_3m's output) -> (m, n) emulated product
-    in out_dtype (f32 or f64)."""
+    in out_dtype (f32 or f64). The FP8 backend takes int32 only (its K-chunked
+    residue sums): its residues do not fit int8."""
     if c_hi.device.type == "cpu":
         return fused_epilogue_plain(c_hi, sft_a, sft_b, num_moduli, backend,
                                     out_dtype)
     _check_nu("fused_epilogue", num_moduli)
+    _check_backend("fused_epilogue", backend, (_INT8, _FP8))
     m, n = _check_epilogue("fused_epilogue", c_hi, num_moduli,
-                           (torch.int32, torch.int8), sft_a, sft_b, backend)
+                           (torch.int32,) if backend == _FP8
+                           else (torch.int32, torch.int8), sft_a, sft_b)
     if out_dtype not in (torch.float32, torch.float64):
         raise ValueError("fused_epilogue: out_dtype must be f32 or f64")
     out = torch.empty((m, n), dtype=out_dtype, device=c_hi.device)
@@ -299,6 +374,50 @@ def fused_epilogue(c_hi: torch.Tensor, sft_a: torch.Tensor,
                 sft_b.data_ptr(), out.data_ptr(), int(c_hi.dtype == torch.int8),
                 int(out_bits == 53), m, n, ctypes.addressof(plan),
                 _stream(c_hi))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# FP8 fused epilogue: reassemble each modulus from its three split products,
+# then the CRT limbs and descale
+# ---------------------------------------------------------------------------
+
+class _EpiloguePlanFp8(ctypes.Structure):     # csrc/common.cuh: EpiloguePlanFp8
+    _fields_ = [("crt", _EpiloguePlan), ("sq", ctypes.c_int * _MAX_NU)]
+
+
+def fused_epilogue_fp8_plain(c3, sft_a, sft_b, num_moduli, out_dtype):
+    """Plain version of the FP8 epilogue kernel: fp8._reassemble -> int16 ->
+    reconstruct_scale_ff."""
+    c_mid = fp8._reassemble(c3.to(torch.int32), num_moduli).to(torch.int16)
+    return ff.reconstruct_scale_ff(c_mid, sft_a, sft_b, num_moduli, _FP8,
+                                   out_dtype)
+
+
+def fused_epilogue_fp8(c3: torch.Tensor, sft_a: torch.Tensor,
+                       sft_b: torch.Tensor, num_moduli: int,
+                       out_dtype: torch.dtype) -> torch.Tensor:
+    """(3nu, m, n) f32 exact lane products of the FP8 split planes
+    (fp8.residue_matmul_fp8, k <= K_CHUNK_FP8) -> (m, n) emulated product in
+    out_dtype (f32 or f64)."""
+    if c3.device.type == "cpu":
+        return fused_epilogue_fp8_plain(c3, sft_a, sft_b, num_moduli,
+                                        out_dtype)
+    _check_nu("fused_epilogue_fp8", num_moduli)
+    m, n = _check_epilogue("fused_epilogue_fp8", c3, 3 * num_moduli,
+                           (torch.float32,), sft_a, sft_b)
+    if out_dtype not in (torch.float32, torch.float64):
+        raise ValueError("fused_epilogue_fp8: out_dtype must be f32 or f64")
+    out = torch.empty((m, n), dtype=out_dtype, device=c3.device)
+    if out.numel():
+        out_bits = 53 if out_dtype == torch.float64 else 24
+        plan = _EpiloguePlanFp8()
+        plan.crt = _epilogue_plan(num_moduli, _FP8, out_bits)
+        for i, q in enumerate(fp8._sqrt_moduli()[:num_moduli]):
+            plan.sq[i] = q
+        _launch("fused_epilogue_fp8", c3.data_ptr(), sft_a.data_ptr(),
+                sft_b.data_ptr(), out.data_ptr(), int(out_bits == 53), m, n,
+                ctypes.addressof(plan), _stream(c3))
     return out
 
 
@@ -334,8 +453,9 @@ def fused_recombine_3m(c_hi3: torch.Tensor, num_moduli: int, backend: str):
     if c_hi3.device.type == "cpu":
         return fused_recombine_3m_plain(c_hi3, num_moduli, backend)
     _check_nu("fused_recombine_3m", num_moduli)
+    _check_backend("fused_recombine_3m", backend, (_INT8,))
     m, n = _check_epilogue("fused_recombine_3m", c_hi3, 3 * num_moduli,
-                           (torch.int32,), None, None, backend)
+                           (torch.int32,), None, None)
     re = torch.empty((num_moduli, m, n), dtype=torch.int8, device=c_hi3.device)
     im = torch.empty_like(re)
     if re.numel():
@@ -367,8 +487,9 @@ def fused_epilogue_complex(c_hi3: torch.Tensor, sft_a: torch.Tensor,
         return fused_epilogue_complex_plain(c_hi3, sft_a, sft_b, num_moduli,
                                             backend, out_dtype)
     _check_nu("fused_epilogue_complex", num_moduli)
+    _check_backend("fused_epilogue_complex", backend, (_INT8,))
     m, n = _check_epilogue("fused_epilogue_complex", c_hi3, 3 * num_moduli,
-                           (torch.int32,), sft_a, sft_b, backend)
+                           (torch.int32,), sft_a, sft_b)
     if out_dtype not in REAL_DTYPE:
         raise ValueError("fused_epilogue_complex: out_dtype must be c64, c128, "
                          "f32 or f64")

@@ -92,8 +92,8 @@ def test_unported_parts_raise_not_implemented():
         gt.gemm(ca, cb, fastmode=False, device="cpu")
     with pytest.raises(NotImplementedError, match="queue 8"):
         gt.gemm(ca, cb, backend="FP8", device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 8"):
-        gt.gemm(a, b, backend="FP8", device="cpu")
+    # real operands take the FP8 backend
+    assert float(gt.gemm(a, b, backend="FP8", device="cpu")[0, 0]) == 8.0
     with pytest.raises(NotImplementedError, match="queue 5"):
         gt.gemm(a, b, fastmode=False, device="cpu")
     for kw in ({"m_block": 2}, {"n_block": 2}):
