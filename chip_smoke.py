@@ -4,7 +4,11 @@ against its plain PyTorch version bit for bit, drives the main paths at 8192^3
 real DGEMM/SGEMM on the FP8 backend -- checks their launch counts, their
 accuracy against an extended-precision oracle and their bits against the
 package's own CPU path, checks that the FP8 tensor-core products are exact,
-and times the kernels, the int8 and FP8 products and the whole calls.
+and times the kernels, the int8 and FP8 products and the whole calls. It also
+holds the probe tools' kernels (the hand-written int8 product, both
+schedules, and the tensor-core CRT epilogue) against their plain versions and
+the DGEMM path's own products and epilogue, and runs the probes' tables
+(gemmul8_tpu_torch.probes).
 
     python3 chip_smoke.py            # needs one CUDA card and nvcc
 
@@ -24,6 +28,8 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+
+from gemmul8_tpu_torch.probes.timing import cuda_ms, cuda_times
 
 SEED = 20261016
 FULL = 8192
@@ -55,6 +61,29 @@ COUNT_KEYS = ("encode_planes", "_int_mm", "fused_epilogue_complex",
 # of the INT8 path's (encode, int8 products, real epilogue)
 FP8_COUNT_KEYS = ("encode_planes_fp8", "_scaled_mm", "fused_epilogue_fp8",
                   "encode_planes", "_int_mm", "fused_epilogue")
+# the probe tools' int8 products: kernels entry, probes module and function,
+# the kernel's schedule and K stage depth, and the Pallas function replaced
+PROBE_PRODUCTS = (
+    ("matmul_i8[seq]", "fused", "matmul_i8_seq", "kloop", 64,
+     "tools/probe_fused.py:24"),
+    ("matmul_i8[astat]", "fused", "matmul_i8_astat", "astat", 64,
+     "tools/probe_fused.py:98"),
+    ("mm_flat[kloop]", "matmul3", "mm_flat_kloop", "kloop", 64,
+     "tools/probe_matmul3.py:31"),
+    ("mm_flat[fullk]", "matmul3", "mm_flat_fullk", "astat", 64,
+     "tools/probe_matmul3.py:67"),
+    ("mm_flat[kloop_multidot]", "matmul3", "mm_flat_kloop_multidot", "kloop",
+     128, "tools/probe_matmul3.py:90"),
+)
+# each entry's rows in its probe's table: the name prefix, and the row timed
+# for the entry (the tool's own layout, B n-contiguous)
+PROBE_ROWS = {"matmul_i8[seq]": ("seq", "seq bk64 B n-contiguous"),
+              "matmul_i8[astat]": ("astat", "astat B n-contiguous"),
+              "mm_flat[kloop]": ("flat-kloop", "flat-kloop"),
+              "mm_flat[fullk]": ("flat-fullk", "flat-fullk"),
+              "mm_flat[kloop_multidot]": ("flat-multidot", "flat-multidot")}
+MXU_KEY = "fused_epilogue_mxu[pair nu=16]"
+PROBE_NU, PROBE_M = 16, 4096          # the product probes' own size
 T0 = time.perf_counter()
 
 
@@ -100,28 +129,6 @@ def max_median_relerr(c, ref):
     denom = np.where(denom == 0, np.longdouble(1), denom)
     err = np.abs(c - ref) / denom
     return float(np.max(err)), float(np.median(err))
-
-
-def cuda_ms(fn, reps=5, warmup=1):
-    """Median of `reps` CUDA-event timings of fn(), after `warmup` calls."""
-    return statistics.median(cuda_times(fn, reps, warmup))
-
-
-def cuda_times(fn, reps, warmup=1):
-    """`reps` CUDA-event timings of fn() in ms, after `warmup` calls."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
-        s.record()
-        fn()
-        e.record()
-        e.synchronize()
-        times.append(s.elapsed_time(e))
-    return times
 
 
 def first_diff(got, ref):
@@ -462,6 +469,70 @@ def full_size_fp8_cases(a64, b64):
         torch.cuda.empty_cache()
 
 
+def assert_equal_device(got, ref, what):
+    """Bit-equality of two large tensors on the card (no host copy)."""
+    torch.cuda.synchronize()
+    check(got.shape == ref.shape and got.dtype == ref.dtype,
+          f"{what}: {got.shape}/{got.dtype} vs {ref.shape}/{ref.dtype}")
+    if got.is_floating_point():
+        got, ref = (x.contiguous().view(torch.uint8) for x in (got, ref))
+    if not torch.equal(got, ref):
+        idx, g, r, n = first_diff(got, ref)
+        raise AssertionError(f"{what}: {n} elements differ, first at {idx}: "
+                             f"{g!r} vs {r!r}")
+
+
+def full_size_probe_cases(a64, b64):
+    """The probe kernels on the DGEMM 8192^3 nu=16 path's own inputs: the
+    int8 product (each schedule and K depth) on the path's planes (A from
+    encode_planes, B k-contiguous) against core.residue_matmul (16 x
+    torch._int_mm); K2 on the kernel's C_hi against gt.gemm's bits; K8 on the
+    path's C_hi and shifts against its plain version and K2's plain pair (in
+    row blocks), and at 24 bits hi + lo against K2's f32 output."""
+    import gemmul8_tpu_torch as gt
+    from gemmul8_tpu_torch import core, kernels, quantize
+    from gemmul8_tpu_torch.probes.epilogue import k2_pair_plain
+    nu = 16
+    sa = quantize.shift_fast(a64, nu, "INT8", 1)
+    sb = quantize.shift_fast(b64, nu, "INT8", 0)
+    ap = kernels.encode_planes(a64, sa, 0, nu, "INT8")
+    bp = kernels.encode_planes(b64, sb, 1, nu, "INT8")
+    c_hi = core.residue_matmul(ap, bp)
+    for schedule, bk in {(p[3], p[4]) for p in PROBE_PRODUCTS}:
+        c = kernels.matmul_i8(ap, bp, schedule, bk)
+        assert_equal_device(c, c_hi, f"int8 product {schedule} bk{bk} vs "
+                            "core.residue_matmul at 8192^3 nu=16")
+        for p in PROBE_PRODUCTS:
+            if (p[3], p[4]) == (schedule, bk):
+                CASES[p[0]] = CASES.get(p[0], 0) + 1
+        del c
+    c = kernels.matmul_i8(ap, bp, "kloop", 64)
+    del ap, bp
+    torch.cuda.empty_cache()
+    out = kernels.fused_epilogue(c, sa, sb, nu, "INT8", torch.float64)
+    del c
+    assert_equal_device(out, gt.gemm(a64, b64, num_moduli=nu, epilogue="ff"),
+                        "K2 on the int8 kernel's C_hi vs gt.gemm 8192^3 nu=16")
+    del out
+    torch.cuda.empty_cache()
+    blk = lambda r0, r1: c_hi[:, r0:r1].contiguous()  # noqa: E731
+    for out_bits in (53, 24):
+        got = kernels.fused_epilogue_mxu(c_hi, sa, sb, nu, "INT8", out_bits)
+        what = f"mxu epilogue full-size nu={nu} out_bits {out_bits}"
+        compare_rows(MXU_KEY, got, lambda r0, r1: kernels.
+                     fused_epilogue_mxu_plain(blk(r0, r1), sa[r0:r1], sb, nu,
+                                              "INT8", out_bits), what)
+        compare_rows(MXU_KEY, got, lambda r0, r1: k2_pair_plain(
+            blk(r0, r1), sa[r0:r1], sb, nu, out_bits), f"{what} vs K2 pair")
+        if out_bits == 24:
+            assert_equal_device(got[0] + got[1], kernels.fused_epilogue(
+                c_hi, sa, sb, nu, "INT8", torch.float32),
+                f"{what}: hi + lo vs K2 f32")
+        del got
+    del c_hi, blk
+    torch.cuda.empty_cache()
+
+
 def fp8_product_cases(k=1 << 16, m=128, n=128):
     """The inputs of the FP8 exactness check: (name, A, B) with A (m, k) and
     B (k, n) int8 on the card, every value an e4m3-exact integer in
@@ -538,6 +609,84 @@ def fp8_exactness_cases():
         log(f"fp8 products exact: {name} (max |sum| "
             f"{int(ref.abs().max())}) at chunks {exact[name]}")
     return exact
+
+
+def product_call(entry, a, b, b_kcontig):
+    """One call of a probe product on (nu, m, k) x (nu, k, n) planes: the
+    3-D functions take B as given; the flat ones take the flat views of
+    n-contiguous B, and for k-contiguous B (which has no flat view) the
+    kernel runs with the function's schedule."""
+    from gemmul8_tpu_torch import kernels
+    from gemmul8_tpu_torch.probes import fused, matmul3
+    _, module, fn, schedule, bk, _ = next(p for p in PROBE_PRODUCTS
+                                          if p[0] == entry)
+    if module == "fused":
+        return getattr(fused, fn)(a, b)
+    nu, m, k = a.shape
+    n = b.shape[2]
+    if b_kcontig:
+        return kernels.matmul_i8(a, b, schedule, bk)
+    return getattr(matmul3, fn)(a.view(nu * m, k), b.view(nu * k, n), nu=nu,
+                                m=m, k=k, n=n).view(nu, m, n)
+
+
+def product_cases(rng):
+    """The int8 product kernel through every probe function, B n- and
+    k-contiguous, against its plain version: random planes, odd shapes
+    (byte-loaded tiles, ragged edges), K past one staged tile, and the
+    +-127 extremes at k = 2^17 (sums of +-2,114,060,288)."""
+    from gemmul8_tpu_torch import kernels
+    from gemmul8_tpu_torch.probes.timing import k_contiguous
+    k17 = 1 << 17
+    cases = []
+    for nu, m, k, n in ((2, 256, 512, 256), (3, 130, 97, 200),
+                        (2, 200, 320, 136), (1, 64, 1000, 72), (2, 17, 33, 5)):
+        a, b = (torch.from_numpy(rng.integers(-128, 128, shape).astype(
+            np.int8)).cuda() for shape in ((nu, m, k), (nu, k, n)))
+        cases.append((f"random {nu}x{m}x{k}x{n}", a, b))
+    for va, vb in ((127, 127), (-127, 127)):
+        cases.append((f"{va} x {vb} at k=2^17",
+                      torch.full((1, 20, k17), va, dtype=torch.int8,
+                                 device="cuda"),
+                      torch.full((1, k17, 24), vb, dtype=torch.int8,
+                                 device="cuda")))
+    for what, a, b in cases:
+        ref = kernels.matmul_i8_plain(a, b)
+        for b_kcontig, bb in ((False, b), (True, k_contiguous(b))):
+            for entry, *_ in PROBE_PRODUCTS:
+                compare(entry, product_call(entry, a, bb, b_kcontig), ref,
+                        f"{entry} {what} B {'k' if b_kcontig else 'n'}-"
+                        "contiguous")
+
+
+def mxu_epilogue_cases(rng):
+    """The tensor-core CRT epilogue (K8) against its plain version, nu 8, 16
+    and 20, out_bits 53 and 24, on any int32 C_hi with zero shifts, shifts
+    in the f32 pair's range, and shifts from -40 to 300 (past 252, where the
+    probe's half split fails); against K2's plain pair too, and at 24 bits
+    its hi + lo against K2's f32 output."""
+    from gemmul8_tpu_torch import kernels
+    from gemmul8_tpu_torch.probes.epilogue import k2_pair_plain
+    m, n = 136, 200
+    for nu, in_range in ((8, (30, 60)), (16, (30, 60)), (20, (60, 90))):
+        for lo, hi in ((0, 1), in_range, (-40, 300)):
+            chi = torch.from_numpy(rng.integers(
+                -2 ** 31, 2 ** 31, (nu, m, n)).astype(np.int32)).cuda()
+            sa, sb = (torch.from_numpy(rng.integers(lo, hi, size).astype(
+                np.int32)).cuda() for size in (m, n))
+            for out_bits in (53, 24):
+                what = f"mxu epilogue nu={nu} shifts [{lo}, {hi}) {out_bits}"
+                got = kernels.fused_epilogue_mxu(chi, sa, sb, nu, "INT8",
+                                                 out_bits)
+                compare(MXU_KEY, got, kernels.fused_epilogue_mxu_plain(
+                    chi, sa, sb, nu, "INT8", out_bits), what)
+                compare(MXU_KEY, got, k2_pair_plain(chi, sa, sb, nu,
+                                                    out_bits),
+                        f"{what} vs K2's plain pair", count=False)
+                if out_bits == 24:
+                    compare(MXU_KEY, got[0] + got[1], kernels.fused_epilogue(
+                        chi, sa, sb, nu, "INT8", torch.float32),
+                        f"{what} hi + lo vs K2 f32", count=False)
 
 
 # rows 0-7 of A @ B per dtype of the real paths: (longdouble oracle, |A||B|,
@@ -1079,6 +1228,34 @@ def fp8_epilogue_bound(m, n, nu, out_bits):
     return bound(m * n * ops32, m * n * ops64, bytes_)
 
 
+def product_bound(nu, m, n, k):
+    """Least time of nu exact int8 products (m, k) x (k, n): 2 nu m n k
+    tensor-core operations at the int8 rate, or nu (mk + kn) bytes read and
+    4 nu m n written."""
+    t_ops = 2.0 * nu * m * n * k / PEAK_INT8_OPS * 1e3
+    t_bytes = nu * (m * k + k * n + 4 * m * n) / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
+
+
+def mxu_epilogue_bound(m, n, nu, out_bits):
+    """Least time of one tensor-core CRT epilogue (K8) at (m, n). Bytes: nu
+    int32 planes read once, the shifts, the f32 pair written once. 32-bit
+    operations per element: nu loads, two shift loads, two stores; per
+    modulus the f32 wrap (the split of C_hi in two 16-bit halves 2, two
+    conversions, a multiply and an add, the multiply by 1/p, rint, a
+    multiply and a subtraction, two corrections of 2, the conversion and
+    packing of the byte 3: 17); the limbs from column pairs (2 per limb);
+    the CRT pipeline after the multiply-adds (_crt_ops less its nu L).
+    Tensor-core operations: the padded 16 x 32 column product, 2 x 16 x 32
+    per element, at the int8 rate."""
+    from gemmul8_tpu_torch import ff
+    L = ff.limb_plan(nu, "INT8", out_bits)[1]
+    ops32 = nu + 4 + 17 * nu + 2 * L + _crt_ops(nu, L, False) - nu * L
+    t_ops, by = bound(m * n * ops32, 0, m * n * (4 * nu + 8) + 4 * (m + n))
+    t_mma = m * n * 2 * 16 * 32 / PEAK_INT8_OPS * 1e3
+    return (t_mma, "operations") if t_mma > t_ops else (t_ops, by)
+
+
 def bound(ops32, ops64, bytes_):
     """The larger of the operations' and the bytes' least times (ms)."""
     t_ops = max(ops32 / PEAK_OPS32, ops64 / PEAK_OPS64) * 1e3
@@ -1213,6 +1390,139 @@ def complex_times(name, dt, nu, entry, A, B, card):
     return t
 
 
+def probe_paths():
+    """The probe tools' counterparts through their entry points
+    (probes.fused.main, probes.matmul3.main, probes.epilogue.main), each with
+    its launch counts set to 0 just before and read just after; every row
+    must be bit-ok, the rows' launches must add up to the run's, and each
+    probe function must have launched its kernel. Returns {probe: (rows,
+    counts)}."""
+    from gemmul8_tpu_torch.probes import epilogue, fused, matmul3
+    runs = {}
+    for name, main, keys in (
+            ("fused", fused.main, ("matmul_i8_kloop", "matmul_i8_astat")),
+            ("matmul3", matmul3.main, ("matmul_i8_kloop", "matmul_i8_astat")),
+            ("epilogue", epilogue.main, ("fused_epilogue_mxu",
+                                         "fused_epilogue"))):
+        rows, counts = run_counted(main)
+        check(all(r["ok"] for r in rows), f"probes.{name}: a row is not ok")
+        check(sum(r["launches"] for r in rows) == sum(counts[k] for k in keys),
+              f"probes.{name}: rows' launches {rows} vs counts {counts}")
+        log(f"probe {name} launches: {counts}")
+        runs[name] = rows, counts
+        torch.cuda.empty_cache()
+    for entry, probe, *_ in PROBE_PRODUCTS:
+        check(probe_launches(runs, entry) > 0, f"{entry}: no launch")
+    check(probe_launches(runs, MXU_KEY) > 0, f"{MXU_KEY}: no launch")
+    return runs
+
+
+def probe_launches(runs, entry):
+    """An entry's launches in its probe's run: the sum over its rows."""
+    if entry == MXU_KEY:
+        rows, prefix = runs["epilogue"][0], "B mxu"
+    else:
+        probe = next(p[1] for p in PROBE_PRODUCTS if p[0] == entry)
+        rows, prefix = runs[probe][0], PROBE_ROWS[entry][0]
+    return sum(r["launches"] for r in rows if r["name"].startswith(prefix))
+
+
+def probe_row(rows, name):
+    return next(r for r in rows if r["name"] == name)
+
+
+def probe_times(a64, b64, card):
+    """Phase 6 for the probe kernels: the plain product at the probes' size
+    (the same planes the probe tables draw); on the DGEMM 8192^3 nu=16
+    path's planes the int8 kernel (each schedule and K depth) against
+    core.residue_matmul (16 x torch._int_mm); K8 (out_bits 53) on the path's
+    C_hi and shifts against K2 (f64 out), and K8's plain version."""
+    from gemmul8_tpu_torch import core, kernels, quantize
+    from gemmul8_tpu_torch.probes.fused import random_planes
+    a, b = random_planes(PROBE_NU, PROBE_M, PROBE_M, PROBE_M, 0)
+    t = dict(product_plain_ms=cuda_ms(lambda: kernels.matmul_i8_plain(a, b),
+                                      reps=3))
+    del a, b
+    torch.cuda.empty_cache()
+    nu = 16
+    sa = quantize.shift_fast(a64, nu, "INT8", 1)
+    sb = quantize.shift_fast(b64, nu, "INT8", 0)
+    ap = kernels.encode_planes(a64, sa, 0, nu, "INT8")
+    bp = kernels.encode_planes(b64, sb, 1, nu, "INT8")
+    t["main_int_mm_ms"] = cuda_ms(lambda: core.residue_matmul(ap, bp))
+    for schedule, bk in (("kloop", 64), ("kloop", 128), ("astat", 64)):
+        t[f"main_{schedule}{bk}_ms"] = cuda_ms(
+            lambda: kernels.matmul_i8(ap, bp, schedule, bk))
+    t["main_products_bound"] = product_bound(nu, FULL, FULL, FULL)
+    c_hi = core.residue_matmul(ap, bp)
+    del ap, bp
+    torch.cuda.empty_cache()
+    t["main_mxu_ms"] = cuda_ms(lambda: kernels.fused_epilogue_mxu(
+        c_hi, sa, sb, nu, "INT8", 53))
+    t["main_k2_f64_ms"] = cuda_ms(lambda: kernels.fused_epilogue(
+        c_hi, sa, sb, nu, "INT8", torch.float64))
+    t["mxu_plain_ms"] = cuda_ms(lambda: kernels.fused_epilogue_mxu_plain(
+        c_hi, sa, sb, nu, "INT8", 53), reps=3)
+    t["mxu_bound"] = mxu_epilogue_bound(FULL, FULL, nu, 53)
+    t["probe_products_bound"] = product_bound(PROBE_NU, PROBE_M, PROBE_M,
+                                              PROBE_M)
+    del c_hi
+    torch.cuda.empty_cache()
+    ops = 2.0 * nu * FULL ** 3
+    t["main_kloop64_tops"] = ops / (t["main_kloop64_ms"] * 1e-3) / 1e12
+    t["main_int_mm_tops"] = ops / (t["main_int_mm_ms"] * 1e-3) / 1e12
+    check(max(t["main_kloop64_tops"], t["main_int_mm_tops"]) * 1e12
+          <= PEAK_INT8_OPS, "int8 products exceed the peak")
+    log(f"times {card} | probe kernels: " + ", ".join(
+        f"{k_} {v:.4f}" if isinstance(v, float) else f"{k_} {v}"
+        for k_, v in t.items()))
+    return t
+
+
+def probe_entries(runs, t):
+    """The kernels-line entries of the probe functions: times from their
+    probe's run (the tool's own size and B layout), with the same run's
+    torch._int_mm x nu as library_ms; the int8 kernel on the DGEMM path's
+    planes and K8 on its C_hi beside them."""
+    entries = []
+    for entry, probe, fn, schedule, bk, replaces in PROBE_PRODUCTS:
+        rows = runs[probe][0]
+        entries.append(dict(
+            name=entry, route="cuda",
+            source="gemmul8_tpu_torch/csrc/matmul_i8.cu",
+            replaces=replaces, launches=probe_launches(runs, entry),
+            max_abs_err=MAX_ABS_ERR[entry], cases=CASES[entry],
+            ms=probe_row(rows, PROBE_ROWS[entry][1])["ms"],
+            plain_ms=t["product_plain_ms"],
+            bound_ms=t["probe_products_bound"][0],
+            bound_by=t["probe_products_bound"][1],
+            library_ms=probe_row(rows, "torch._int_mm x nu")["ms"],
+            path=f"probes.{probe}.main, {fn}",
+            shape=f"{PROBE_NU} x ({PROBE_M}^3) int8, B n-contiguous, "
+                  f"schedule {schedule} bk{bk}",
+            main_path_ms=t[f"main_{schedule}{bk}_ms"],
+            main_path_library_ms=t["main_int_mm_ms"],
+            main_path_bound_ms=t["main_products_bound"][0],
+            main_path_shape="DGEMM 8192^3 nu=16 planes, B k-contiguous"))
+    rows = runs["epilogue"][0]
+    entries.append(dict(
+        name=MXU_KEY, route="cuda",
+        source="gemmul8_tpu_torch/csrc/epilogue_mxu.cu",
+        replaces="tools/probe_epilogue.py:103",
+        launches=probe_launches(runs, MXU_KEY),
+        max_abs_err=MAX_ABS_ERR[MXU_KEY], cases=CASES[MXU_KEY],
+        ms=probe_row(rows, "B mxu out_bits 53")["ms"],
+        plain_ms=t["mxu_plain_ms"], bound_ms=t["mxu_bound"][0],
+        bound_by=t["mxu_bound"][1], library_ms=None,
+        k2_f32_ms=probe_row(rows, "A K2 f32")["ms"],
+        k2_f64_ms=probe_row(rows, "A K2 f64")["ms"],
+        path="probes.epilogue.main, fused_epilogue_mxu",
+        shape="C_hi 16x8192x8192 int32, zero shifts -> (hi, lo) f32",
+        main_path_ms=t["main_mxu_ms"], main_path_k2_f64_ms=t["main_k2_f64_ms"],
+        main_path_shape="DGEMM 8192^3 nu=16 C_hi and shifts"))
+    return entries
+
+
 # ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
@@ -1259,6 +1569,10 @@ def main():
     fp8_encode_cases(frng)
     fp8_epilogue_cases(frng)
     fp8_exact = fp8_exactness_cases()
+    # and the probe kernels from a fourth
+    prng = np.random.default_rng(SEED + 4)
+    product_cases(prng)
+    mxu_epilogue_cases(prng)
     log(f"kernels vs plain, small shapes, all bit-equal: {CASES}")
     log_phase("phase 3 (kernels vs plain, FP8 product exactness)")
     if args.quick:
@@ -1275,6 +1589,9 @@ def main():
     main_launches = {dt: real_main_path(a64.to(dt), b64.to(dt), nu, "INT8")
                      for dt, nu in PATHS}
     log_phase("phase 4 (INT8 real paths)")
+    full_size_probe_cases(a64, b64)
+    log(f"probe kernels bit-equal at the DGEMM path's inputs: {CASES}")
+    log_phase("phase 4 (probe kernels at the DGEMM path's inputs)")
     full_size_fp8_cases(a64, b64)
     log(f"kernels vs plain, all bit-equal, FP8 full size included: {CASES}")
     fp8_launches = {dt: real_main_path(a64.to(dt), b64.to(dt), nu, "FP8")
@@ -1368,6 +1685,8 @@ def main():
             f"({t['products_tops']:.1f} TOPS), torch.matmul "
             f"{t['library_tflops']:.3f} TF/s")
     log(json.dumps({"fp8_products_exact_chunks": fp8_exact}))
+    probe_runs = probe_paths()
+    ptiming = probe_times(a64, b64, card)
     log_phase("phase 6 (times)")
 
     # one entry per kernel and main path: launches are that path's own gemm
@@ -1455,6 +1774,7 @@ def main():
              bound_by=t["k2_bound"][1], path="gemm c128 8192^3 nu=20",
              shape="20x8192x8192 int8 -> f64"),
     ]
+    kern += probe_entries(probe_runs, ptiming)
     log(card)
     log(json.dumps({"kernels": kern}))
     print(json.dumps({"ok": True, "device": {

@@ -51,6 +51,22 @@ struct EpiloguePlanFp8 {
     int sq[G8_MAX_NU];
 };
 
+// the tensor-core CRT epilogue's plan: the CRT plan (its L, base, p16,
+// invp_top and descale pairs), the number of 8-bit columns, per modulus the
+// f32 wrap's constants (wrap(2^16 mod p) and the f32 of the double 1/p),
+// and the 8-bit columns of qPi >> base as the u8 operand of the column sum:
+// c8[j][i] = byte j of qP_i >> base, zero past n_cols and nu
+#define G8_MXU_COLS 16  // n_cols <= 14, padded to the mma's 16 rows
+#define G8_MXU_K 32     // nu <= 20, padded to the mma's depth of 32
+
+struct EpiloguePlanMxu {
+    EpiloguePlan crt;
+    int n_cols;
+    int w2[G8_MAX_NU];
+    float inv_p[G8_MAX_NU];
+    unsigned char c8[G8_MXU_COLS][G8_MXU_K];
+};
+
 // floor(a / b) for b > 0 (C's / truncates toward zero)
 __device__ __forceinline__ int floordiv(int a, int b) {
     int q = a / b;

@@ -6,7 +6,9 @@
 // loop over limbs is unrolled to G8_MAX_L with a guard on the plan's L.
 //
 // Each helper follows its plain PyTorch twin op for op (core.mod_reduce,
-// complex_gemm._recombine_3m, ff.crt_limbs_matrix, ff.reconstruct_scale_ff).
+// complex_gemm._recombine_3m, ff.crt_limbs_matrix, ff.fold_quotient,
+// ff.reconstruct_scale_ff, ff.descale_pair). The tensor-core CRT epilogue
+// (epilogue_mxu.cu) shares the fold and the descale.
 #pragma once
 
 #include "common.cuh"
@@ -116,13 +118,15 @@ __device__ __forceinline__ Pow2x3 descale_factors(int sft) {
     return {pow2f(h1), pow2f(h2), pow2f(r - h2)};
 }
 
-// f32 out: the rank-1 descale with the static per-limb pow2 pair and the
-// row and column factor triples, merged smallest first with two_sum
-// (ff.descale_accel)
-__device__ __forceinline__ float emit_f32(const int* lim,
+// the rank-1 descale with the static per-limb pow2 pair and the row and
+// column factor triples, merged smallest first with two_sum: the (hi, lo)
+// f32 pair (ff.descale_pair)
+__device__ __forceinline__ void emit_pair(const int* lim,
                                           const EpiloguePlan& plan,
-                                          const Pow2x3& fa, const Pow2x3& fb) {
-    float hi = 0.0f, lo = 0.0f;
+                                          const Pow2x3& fa, const Pow2x3& fb,
+                                          float& hi, float& lo) {
+    hi = 0.0f;
+    lo = 0.0f;
 #pragma unroll
     for (int li = 0; li < G8_MAX_L; ++li) {
         if (li < plan.L) {
@@ -141,5 +145,13 @@ __device__ __forceinline__ float emit_f32(const int* lim,
             }
         }
     }
+}
+
+// f32 out: the pair's sum (ff.descale_accel)
+__device__ __forceinline__ float emit_f32(const int* lim,
+                                          const EpiloguePlan& plan,
+                                          const Pow2x3& fa, const Pow2x3& fb) {
+    float hi, lo;
+    emit_pair(lim, plan, fa, fb, hi, lo);
     return hi + lo;
 }

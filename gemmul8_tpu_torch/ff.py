@@ -114,7 +114,14 @@ def crt_limbs_matrix(c_mid: torch.Tensor, num_moduli: int, backend: str,
             if w16[i][li]:
                 # |r * w16| <= (p/2) * 65535 < 2^26; nu-term sums < 2^31
                 limbs[li] = limbs[li] + res[i] * w16[i][li]
-    # normalize first, then estimate the quotient from the top three limbs
+    return fold_quotient(limbs, p16, invp_top), base
+
+
+def fold_quotient(limbs, p16, invp_top):
+    """Carry the raw limb sums, estimate rint(t / P) from the top (up to
+    three) balanced limbs in f32, fold -quot * P in and carry again: the
+    limbs then sum to t, |t| < P/2."""
+    L = len(limbs)
     limbs = _carry16(limbs)
     t_top = limbs[L - 1].to(torch.float32)
     for i in range(2, min(3, L) + 1):
@@ -123,7 +130,7 @@ def crt_limbs_matrix(c_mid: torch.Tensor, num_moduli: int, backend: str,
     for li in range(L):
         if p16[li]:
             limbs[li] = limbs[li] - quot * p16[li]
-    return _carry16(limbs), base
+    return _carry16(limbs)
 
 
 def pow2_f32(e: torch.Tensor) -> torch.Tensor:
@@ -166,8 +173,17 @@ def _descale_factors(sft: torch.Tensor):
 
 
 def descale_accel(limbs, base, lb, sft_a, sft_b, out_bits, out_dtype):
+    """Rank-1 descale in f32 (descale_pair), combined in the output dtype."""
+    hi, lo = descale_pair(limbs, base, lb, sft_a, sft_b)
+    if out_bits == 24:
+        return (hi + lo).to(out_dtype)
+    return hi.to(out_dtype) + lo.to(out_dtype)
+
+
+def descale_pair(limbs, base, lb, sft_a, sft_b):
     """Rank-1 descale in f32: per-limb static pow2 pair times row and column
-    factor triples (all exact), merged smallest-first with two_sum."""
+    factor triples (all exact), merged smallest-first with two_sum. Returns
+    the (hi, lo) f32 pair."""
     fa1, fa2, fa3 = (f[:, None] for f in _descale_factors(sft_a))
     fb1, fb2, fb3 = (f[None, :] for f in _descale_factors(sft_b))
     hi = None
@@ -186,6 +202,4 @@ def descale_accel(limbs, base, lb, sft_a, sft_b, out_bits, out_dtype):
         else:
             hi, err = two_sum(hi, term)
             lo = lo + err
-    if out_bits == 24:
-        return (hi + lo).to(out_dtype)
-    return hi.to(out_dtype) + lo.to(out_dtype)
+    return hi, lo

@@ -9,6 +9,16 @@ The counterpart of gemmul8_tpu/pallas_kernels.py:
   fused_epilogue_complex  csrc/complex.cu       replaces fused_epilogue_complex
   fused_recombine_3m      csrc/complex.cu       replaces fused_recombine_3m
 
+and of the int8 product and CRT-epilogue kernels of the probe tools
+(tools/probe_fused.py, tools/probe_matmul3.py, tools/probe_epilogue.py;
+run by gemmul8_tpu_torch/probes/):
+
+  matmul_i8               csrc/matmul_i8.cu     replaces pallas_matmul_i8_seq,
+                                                pallas_matmul_i8_astat,
+                                                mm_flat_kloop, mm_flat_fullk,
+                                                mm_flat_kloop_multidot
+  fused_epilogue_mxu      csrc/epilogue_mxu.cu  replaces fused_epilogue_mxu
+
 (the encoders share csrc/encode.cuh's steps, the epilogues csrc/crt.cuh's).
 
 Each wrapper checks its operands, allocates the output with torch.empty,
@@ -17,10 +27,11 @@ LAUNCHES[name]. Beside each wrapper is its plain PyTorch version; the wrapper
 takes it only for tensors on the CPU. A CUDA tensor launches the kernel or
 raises.
 
-The kernels are built at first use by one nvcc call (sm_90a, -fmad=false so
-that no multiply-add is contracted) into one shared library under
-gemmul8_tpu_torch/_build/, named by a hash of the sources and flags, and are
-bound with ctypes through a plain C interface.
+The kernels are built at first use (sm_90a, -fmad=false so that no
+multiply-add is contracted; one nvcc per source, all started together, then
+one link) into one shared library under gemmul8_tpu_torch/_build/, named by a
+hash of the sources and flags, and are bound with ctypes through a plain C
+interface.
 """
 from __future__ import annotations
 
@@ -38,14 +49,15 @@ from . import ff, fp8, quantize, tables
 
 LAUNCHES = {"encode_planes": 0, "encode_planes_fp8": 0, "fused_epilogue": 0,
             "fused_epilogue_fp8": 0, "fused_epilogue_complex": 0,
-            "fused_recombine_3m": 0}
+            "fused_recombine_3m": 0, "matmul_i8_kloop": 0,
+            "matmul_i8_astat": 0, "fused_epilogue_mxu": 0}
 _INT8, _FP8 = tables.Backend.INT8, tables.Backend.FP8
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_HERE, "csrc")
 _BUILD = os.path.join(_HERE, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+              "-fmad=false", "-Xcompiler", "-fPIC"]
 _LIB: ctypes.CDLL | None = None
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # the C entry points' signatures (csrc/*.cu)
@@ -61,6 +73,10 @@ _ARGTYPES = {
     "fused_epilogue_complex": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
     # c_hi3, out_re, out_im, m, n, plan, stream
     "fused_recombine_3m": [_P, _P, _P, _I, _I, _P, _P],
+    # a, b, c, nu, m, n, k, b_kcontig, astat, bk, a_vec, b_vec, stream
+    "matmul_i8": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # c_hi, sft_a, sft_b, hi, lo, m, n, plan, stream
+    "fused_epilogue_mxu": [_P, _P, _P, _P, _P, _I, _I, _P, _P],
 }
 
 _MAX_NU = 20        # csrc/common.cuh: G8_MAX_NU
@@ -86,7 +102,8 @@ def _nvcc() -> str:
 
 def build() -> str:
     """Compile csrc/*.cu into one library unless it is built already (the
-    name holds a hash of the sources and flags). Returns its path."""
+    name holds a hash of the sources and flags): one nvcc per source, all
+    started together, then one link. Returns its path."""
     sources = sorted(n for n in os.listdir(_CSRC) if n.endswith((".cu", ".cuh")))
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for name in sources:
@@ -96,15 +113,25 @@ def build() -> str:
     if os.path.exists(out):
         return out
     os.makedirs(_BUILD, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *(os.path.join(_CSRC, n) for n in sources if n.endswith(".cu"))]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed:\n{proc.stderr}")
-    os.replace(tmp, out)              # atomic: a half-written .so never loads
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=_BUILD) as tmp:
+        objs, procs = [], []
+        for name in sources:
+            if name.endswith(".cu"):
+                objs.append(os.path.join(tmp, name + ".o"))
+                procs.append(subprocess.Popen(
+                    [nvcc, *NVCC_FLAGS, "-c", "-o", objs[-1],
+                     os.path.join(_CSRC, name)],
+                    stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        errors = [p.communicate()[1] for p in procs]
+        if any(p.returncode for p in procs):
+            raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
+        lib = os.path.join(tmp, "lib.so")
+        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{proc.stderr}")
+        os.replace(lib, out)          # atomic: a half-written .so never loads
     return out
 
 
@@ -120,11 +147,13 @@ def _lib() -> ctypes.CDLL:
     return _LIB
 
 
-def _launch(name: str, *args) -> None:
+def _launch(name: str, *args, count: str | None = None) -> None:
+    """Call the C entry point g8_<name>, raise on its CUDA error, and add one
+    to LAUNCHES[count or name]."""
     err = getattr(_lib(), "g8_" + name)(*args)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
-    LAUNCHES[name] += 1
+    LAUNCHES[count or name] += 1
 
 
 # ---------------------------------------------------------------------------
@@ -510,3 +539,179 @@ def fused_epilogue_complex(c_hi3: torch.Tensor, sft_a: torch.Tensor,
                 int(out_bits == 53), m, n, ctypes.addressof(plan),
                 _stream(c_hi3))
     return out
+
+
+# ---------------------------------------------------------------------------
+# exact int8 products on the tensor cores (the probe tools' Pallas products)
+# ---------------------------------------------------------------------------
+
+# the schedules and, per schedule, the K depths of a staged tile the kernel
+# is built for (csrc/matmul_i8.cu)
+MATMUL_BK = {"kloop": (64, 128), "astat": (64,)}
+
+
+def matmul_i8_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Plain version of the product kernel: the exact batched product as
+    int32. On the CPU in int64, whose cast wraps as the kernel's int32 sums
+    do; on the card in f64, exact while every |sum| < 2^31."""
+    wide = torch.int64 if a.device.type == "cpu" else torch.float64
+    return torch.matmul(a.to(wide), b.to(wide)).to(torch.int32)
+
+
+def _b_layout(b: torch.Tensor) -> bool:
+    """True if B's planes are k-contiguous (the (nu, n, k) storage that
+    plane_buffer and encode_planes give B), False if n-contiguous ((nu, k, n)
+    row-major, the probe tools' layout); raises on any other layout."""
+    if b.is_contiguous():
+        return False
+    if b.transpose(-1, -2).is_contiguous():
+        return True
+    raise ValueError("matmul_i8: b must be (nu, k, n) row-major or a "
+                     "transposed view of (nu, n, k) row-major storage")
+
+
+def matmul_i8(a: torch.Tensor, b: torch.Tensor, schedule: str = "kloop",
+              bk: int = 64) -> torch.Tensor:
+    """(nu, m, k) int8 @ (nu, k, n) int8 -> (nu, m, n) int32, exact while no
+    sum leaves int32 (past that it wraps, as torch._int_mm's does).
+
+    schedule "kloop": one thread block per output tile, K innermost (the
+    probes' K-sequential and flat K-loop products); "astat": one block per
+    (plane, row block) sweeping every column block, so that its rows of A
+    are re-read from L2 (the A-stationary and full-K ones). bk is the K depth
+    of a staged tile (MATMUL_BK). A is row-major; B is n-contiguous or
+    k-contiguous (_b_layout), the latter as the main path's planes come."""
+    if bk not in MATMUL_BK.get(schedule, ()):
+        raise ValueError(f"matmul_i8: no {schedule!r} kernel with bk={bk}; "
+                         f"built: {MATMUL_BK}")
+    if a.device.type == "cpu":
+        return matmul_i8_plain(a, b)
+    if (a.device.type != "cuda" or b.device != a.device
+            or a.dtype != torch.int8 or b.dtype != torch.int8
+            or a.dim() != 3 or b.dim() != 3):
+        raise ValueError("matmul_i8: a and b must be 3-D int8 tensors on one "
+                         "CUDA device")
+    nu, m, k = a.shape
+    if b.shape[0] != nu or b.shape[1] != k:
+        raise ValueError(f"matmul_i8: shapes {tuple(a.shape)} and "
+                         f"{tuple(b.shape)} do not chain")
+    if not a.is_contiguous():
+        raise ValueError("matmul_i8: a must be contiguous")
+    n = b.shape[2]
+    b_kcontig = _b_layout(b)
+    if max(nu, -(-m // 128)) > 65535:
+        raise ValueError("matmul_i8: too many planes or row blocks for the "
+                         "grid")
+    c = torch.empty((nu, m, n), dtype=torch.int32, device=a.device)
+    if c.numel():
+        a_vec = k % 16 == 0 and a.data_ptr() % 16 == 0
+        b_vec = (k % 16 == 0 and b.data_ptr() % 16 == 0 if b_kcontig
+                 else n % 4 == 0 and b.data_ptr() % 4 == 0)
+        _launch("matmul_i8", a.data_ptr(), b.data_ptr(), c.data_ptr(), nu, m,
+                n, k, int(b_kcontig), int(schedule == "astat"), bk,
+                int(a_vec), int(b_vec), _stream(a),
+                count=f"matmul_i8_{schedule}")
+    return c
+
+
+# ---------------------------------------------------------------------------
+# tensor-core CRT epilogue: the CRT sum as a product against 8-bit columns
+# ---------------------------------------------------------------------------
+
+_MXU_COLS, _MXU_K = 16, 32     # csrc/common.cuh: G8_MXU_COLS, G8_MXU_K
+
+
+class _EpiloguePlanMxu(ctypes.Structure):  # csrc/common.cuh: EpiloguePlanMxu
+    _fields_ = [("crt", _EpiloguePlan), ("n_cols", ctypes.c_int),
+                ("w2", ctypes.c_int * _MAX_NU),
+                ("inv_p", ctypes.c_float * _MAX_NU),
+                ("c8", (ctypes.c_ubyte * _MXU_K) * _MXU_COLS)]
+
+
+def _mxu_constants(num_moduli: int, backend: str):
+    """Per modulus the f32 wrap's constants: wrap(2^16 mod p) and the f32 of
+    the double 1/p (as tools/probe_epilogue.py takes them)."""
+    mods = [int(p) for p in tables.moduli(backend)[:num_moduli]]
+    w2 = []
+    for p in mods:
+        w = pow(2, 16, int(p))
+        w2.append(w - p if 2 * w >= p else w)
+    return mods, w2, [float(np.float32(1.0 / p)) for p in mods]
+
+
+def fused_epilogue_mxu_plain(c_hi, sft_a, sft_b, num_moduli, backend,
+                             out_bits):
+    """Plain version of the tensor-core CRT epilogue: per modulus the f32
+    wrap t = hi16 * wrap(2^16) + lo16, r = t - rint(t / p) * p with two
+    balanced corrections; the 8-bit columns of the CRT sum as an f32
+    torch.matmul (exact: every partial sum is an integer below 2^24, with
+    TF32 off as PyTorch has it by default); column pairs as 16-bit limbs;
+    ff.fold_quotient; ff.descale_pair. Returns the (hi, lo) f32 pair."""
+    _check_backend("fused_epilogue_mxu", backend, (_INT8,))
+    base, n_cols, C, _, _ = ff._crt_matrix_plan(num_moduli, backend, out_bits)
+    _, L, _, p16, invp_top = ff.limb_plan(num_moduli, backend, out_bits)
+    mods, w2, inv_p = _mxu_constants(num_moduli, backend)
+    rs = []
+    for i, p in enumerate(mods):
+        acc = c_hi[i].to(torch.int32)
+        acc_hi = acc >> 16
+        acc_lo = acc - (acc_hi << 16)
+        t = acc_hi.to(torch.float32) * float(w2[i]) + acc_lo.to(torch.float32)
+        r = t - torch.round(t * inv_p[i]) * float(p)
+        r = torch.where(2.0 * r >= p, r - p, r)
+        rs.append(torch.where(2.0 * r < -p, r + p, r))
+    m, n = c_hi.shape[1:]
+    c8t = torch.from_numpy(np.ascontiguousarray(C.T)).to(c_hi.device)
+    cols = torch.matmul(c8t, torch.stack(rs).reshape(num_moduli, m * n))
+    cols = cols.to(torch.int32).reshape(n_cols, m, n)
+    limbs = []
+    for li in range(L):
+        v = cols[2 * li]
+        if 2 * li + 1 < n_cols:
+            v = v + (cols[2 * li + 1] << 8)
+        limbs.append(v)
+    return ff.descale_pair(ff.fold_quotient(limbs, p16, invp_top), base, 16,
+                           sft_a, sft_b)
+
+
+def _epilogue_plan_mxu(num_moduli: int, backend: str, out_bits: int):
+    base, n_cols, C, _, _ = ff._crt_matrix_plan(num_moduli, backend, out_bits)
+    if n_cols > _MXU_COLS or num_moduli > _MXU_K:
+        raise ValueError(f"fused_epilogue_mxu: {n_cols} columns of "
+                         f"{num_moduli} moduli exceed the kernel's tile")
+    plan = _EpiloguePlanMxu()
+    plan.crt = _epilogue_plan(num_moduli, backend, out_bits)
+    plan.n_cols = n_cols
+    _, w2, inv_p = _mxu_constants(num_moduli, backend)
+    for i in range(num_moduli):
+        plan.w2[i], plan.inv_p[i] = w2[i], inv_p[i]
+        for j in range(n_cols):
+            plan.c8[j][i] = int(C[i, j])
+    return plan
+
+
+def fused_epilogue_mxu(c_hi: torch.Tensor, sft_a: torch.Tensor,
+                       sft_b: torch.Tensor, num_moduli: int, backend: str,
+                       out_bits: int):
+    """(nu, m, n) int32 C_hi -> the (hi, lo) f32 pair of K2's f32 route
+    (hi + lo is the emulated product), with the CRT sum over the moduli done
+    as a u8 x s8 tensor-core product against the 8-bit columns of qPi.
+    INT8 only: the FP8 moduli's residues (up to +-544) do not fit the s8
+    operand. out_bits: 53 or 24, the plan's precision."""
+    _check_backend("fused_epilogue_mxu", backend, (_INT8,))
+    if out_bits not in (24, 53):
+        raise ValueError("fused_epilogue_mxu: out_bits must be 24 or 53")
+    if c_hi.device.type == "cpu":
+        return fused_epilogue_mxu_plain(c_hi, sft_a, sft_b, num_moduli,
+                                        backend, out_bits)
+    _check_nu("fused_epilogue_mxu", num_moduli)
+    m, n = _check_epilogue("fused_epilogue_mxu", c_hi, num_moduli,
+                           (torch.int32,), sft_a, sft_b)
+    hi = torch.empty((m, n), dtype=torch.float32, device=c_hi.device)
+    lo = torch.empty_like(hi)
+    if hi.numel():
+        plan = _epilogue_plan_mxu(num_moduli, backend, out_bits)
+        _launch("fused_epilogue_mxu", c_hi.data_ptr(), sft_a.data_ptr(),
+                sft_b.data_ptr(), hi.data_ptr(), lo.data_ptr(), m, n,
+                ctypes.addressof(plan), _stream(c_hi))
+    return hi, lo

@@ -1,0 +1,11 @@
+"""Counterparts of the JAX package's probe tools, run on the card.
+
+  fused     tools/probe_fused.py     the batched exact int8 product,
+                                     K-sequential and A-stationary
+  matmul3   tools/probe_matmul3.py   the same product on flat plane views
+  epilogue  tools/probe_epilogue.py  the tensor-core CRT epilogue against K2
+
+Each runs as `python -m gemmul8_tpu_torch.probes.<name>` on a CUDA card and
+prints a table; chip_smoke.py drives their main() functions and reads the
+rows they return.
+"""

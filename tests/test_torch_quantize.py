@@ -152,7 +152,9 @@ def test_encode_wrapper_cpu_takes_plain_version():
     assert kernels.LAUNCHES == {"encode_planes": 0, "encode_planes_fp8": 0,
                                 "fused_epilogue": 0, "fused_epilogue_fp8": 0,
                                 "fused_epilogue_complex": 0,
-                                "fused_recombine_3m": 0}
+                                "fused_recombine_3m": 0,
+                                "matmul_i8_kloop": 0, "matmul_i8_astat": 0,
+                                "fused_epilogue_mxu": 0}
 
 
 def test_limb_counts_fit_the_kernel():
