@@ -62,7 +62,11 @@ COUNT_KEYS = ("encode_planes", "_int_mm", "fused_epilogue_complex",
 FP8_COUNT_KEYS = ("encode_planes_fp8", "_scaled_mm", "fused_epilogue_fp8",
                   "encode_planes", "_int_mm", "fused_epilogue")
 # the probe tools' int8 products: kernels entry, probes module and function,
-# the kernel's schedule and K stage depth, and the Pallas function replaced
+# the kernel's schedule and K stage depth, and the Pallas function replaced.
+# The functions take the wgmma kernel wherever TMA can address the operands
+# (kernels._product_route), as at the probes' own sizes; it stages 128 bytes
+# of K whatever the depth, so there mm_flat_kloop and mm_flat_kloop_multidot
+# make the same launch (their entries say so: same_launch_as).
 PROBE_PRODUCTS = (
     ("matmul_i8[seq]", "fused", "matmul_i8_seq", "kloop", 64,
      "tools/probe_fused.py:24"),
@@ -77,11 +81,28 @@ PROBE_PRODUCTS = (
 )
 # each entry's rows in its probe's table: the name prefix, and the row timed
 # for the entry (the tool's own layout, B n-contiguous)
-PROBE_ROWS = {"matmul_i8[seq]": ("seq", "seq bk64 B n-contiguous"),
+PROBE_ROWS = {"matmul_i8[seq]": ("seq", "seq B n-contiguous"),
               "matmul_i8[astat]": ("astat", "astat B n-contiguous"),
               "mm_flat[kloop]": ("flat-kloop", "flat-kloop"),
               "mm_flat[fullk]": ("flat-fullk", "flat-fullk"),
               "mm_flat[kloop_multidot]": ("flat-multidot", "flat-multidot")}
+# the mma.sync product kernel (csrc/matmul_i8.cu), reached by kernel=
+# "mma_sync" and by the shapes TMA cannot address: entry, schedule, K depth,
+# its rows in the probe tables ((probe, name prefix), ...) and the row timed
+MMA_SYNC = (
+    ("matmul_i8_mma_sync[kloop bk64]", "kloop", 64,
+     (("fused", "mma.sync seq bk64"), ("matmul3", "mma.sync flat-kloop")),
+     "mma.sync seq bk64 B n-contiguous"),
+    ("matmul_i8_mma_sync[kloop bk128]", "kloop", 128,
+     (("fused", "mma.sync seq bk128"), ("matmul3", "mma.sync flat-multidot")),
+     "mma.sync seq bk128 B n-contiguous"),
+    ("matmul_i8_mma_sync[astat bk64]", "astat", 64,
+     (("fused", "mma.sync astat"), ("matmul3", "mma.sync flat-fullk")),
+     "mma.sync astat B n-contiguous"),
+)
+TRANSPOSE_KEY = "transpose_i8[4096^2 nu=16]"
+PRODUCT_COUNTS = ("matmul_i8_kloop", "matmul_i8_astat", "matmul_i8_wgmma_kloop",
+                  "matmul_i8_wgmma_astat", "transpose_i8")
 MXU_KEY = "fused_epilogue_mxu[pair nu=16]"
 PROBE_NU, PROBE_M = 16, 4096          # the product probes' own size
 T0 = time.perf_counter()
@@ -224,21 +245,33 @@ def run_counted(fn):
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def encode_cases(rng):
+def encode_cases(rng, erng):
+    """K1 against its plain version: f64 and f32, both sides, on random
+    operands and the edge corpus (from rng); and, from erng, for every nu
+    (2-20 for f64, 2-13 for f32), operands whose plane widths are not
+    multiples of the kernel's 4-element words and whose row counts are odd
+    (x 129 x 263, so both sides take the byte-store tail), and one of
+    aligned widths (132 x 260)."""
     from gemmul8_tpu_torch import kernels, quantize
+
+    def case(x_np, nu):
+        x = torch.from_numpy(x_np).cuda()
+        for axis in (0, 1):
+            sft = quantize.shift_fast(x, nu, "INT8", 1 - axis)
+            compare(f"encode_planes[{TAG[x.dtype]}]",
+                    kernels.encode_planes(x, sft, axis, nu, "INT8"),
+                    kernels.encode_planes_plain(x, sft, axis, nu, "INT8"),
+                    f"encode {x.dtype} {tuple(x.shape)} nu={nu} axis={axis}")
+
     for dt, nus in ((np.float64, (8, 16, 20)), (np.float32, (8, 13))):
         for nu in nus:
             for x_np in (phi_matrix(rng, 200, 392, 0.5, dt),
                          phi_matrix(rng, 77, 130, 4.0, dt), edge_corpus(dt)):
-                x = torch.from_numpy(x_np).cuda()
-                for axis in (0, 1):
-                    sft = quantize.shift_fast(x, nu, "INT8", 1 - axis)
-                    compare(f"encode_planes[{TAG[x.dtype]}]",
-                            kernels.encode_planes(x, sft, axis, nu, "INT8"),
-                            kernels.encode_planes_plain(x, sft, axis, nu,
-                                                        "INT8"),
-                            f"encode {x.dtype} {tuple(x.shape)} nu={nu} "
-                            f"axis={axis}")
+                case(x_np, nu)
+    for dt, top in ((np.float64, 20), (np.float32, 13)):
+        for nu in range(2, top + 1):
+            case(phi_matrix(erng, 129, 263, 2.0, dt), nu)
+            case(phi_matrix(erng, 132, 260, 0.5, dt), nu)
 
 
 def epilogue_cases(rng):
@@ -484,9 +517,10 @@ def assert_equal_device(got, ref, what):
 
 def full_size_probe_cases(a64, b64):
     """The probe kernels on the DGEMM 8192^3 nu=16 path's own inputs: the
-    int8 product (each schedule and K depth) on the path's planes (A from
-    encode_planes, B k-contiguous) against core.residue_matmul (16 x
-    torch._int_mm); K2 on the kernel's C_hi against gt.gemm's bits; K8 on the
+    int8 products (the wgmma kernel's two schedules, the mma.sync kernel's
+    three instantiations) on the path's planes (A from encode_planes, B
+    k-contiguous) against core.residue_matmul (16 x torch._int_mm); K2 on the
+    wgmma kernel's C_hi against gt.gemm's bits; K8 on the
     path's C_hi and shifts against its plain version and K2's plain pair (in
     row blocks), and at 24 bits hi + lo against K2's f32 output."""
     import gemmul8_tpu_torch as gt
@@ -498,15 +532,23 @@ def full_size_probe_cases(a64, b64):
     ap = kernels.encode_planes(a64, sa, 0, nu, "INT8")
     bp = kernels.encode_planes(b64, sb, 1, nu, "INT8")
     c_hi = core.residue_matmul(ap, bp)
-    for schedule, bk in {(p[3], p[4]) for p in PROBE_PRODUCTS}:
-        c = kernels.matmul_i8(ap, bp, schedule, bk)
-        assert_equal_device(c, c_hi, f"int8 product {schedule} bk{bk} vs "
+    check(kernels._product_route(ap, bp) == "wgmma",
+          "the DGEMM planes do not take the wgmma route")
+    for schedule in ("kloop", "astat"):           # the wgmma kernel
+        c = kernels.matmul_i8(ap, bp, schedule)
+        assert_equal_device(c, c_hi, f"int8 product wgmma {schedule} vs "
                             "core.residue_matmul at 8192^3 nu=16")
         for p in PROBE_PRODUCTS:
-            if (p[3], p[4]) == (schedule, bk):
+            if p[3] == schedule:
                 CASES[p[0]] = CASES.get(p[0], 0) + 1
         del c
-    c = kernels.matmul_i8(ap, bp, "kloop", 64)
+    for entry, schedule, bk, *_ in MMA_SYNC:
+        c = kernels.matmul_i8(ap, bp, schedule, bk, "mma_sync")
+        assert_equal_device(c, c_hi, f"int8 product {entry} vs "
+                            "core.residue_matmul at 8192^3 nu=16")
+        CASES[entry] = CASES.get(entry, 0) + 1
+        del c
+    c = kernels.matmul_i8(ap, bp, "kloop")
     del ap, bp
     torch.cuda.empty_cache()
     out = kernels.fused_epilogue(c, sa, sb, nu, "INT8", torch.float64)
@@ -615,48 +657,84 @@ def product_call(entry, a, b, b_kcontig):
     """One call of a probe product on (nu, m, k) x (nu, k, n) planes: the
     3-D functions take B as given; the flat ones take the flat views of
     n-contiguous B, and for k-contiguous B (which has no flat view) the
-    kernel runs with the function's schedule."""
+    kernel runs with the function's schedule. Checks that the call launched
+    the kernel its route names (kernels._product_route)."""
     from gemmul8_tpu_torch import kernels
     from gemmul8_tpu_torch.probes import fused, matmul3
     _, module, fn, schedule, bk, _ = next(p for p in PROBE_PRODUCTS
                                           if p[0] == entry)
-    if module == "fused":
-        return getattr(fused, fn)(a, b)
+    route = kernels._product_route(a, b)
+    key = (f"matmul_i8_wgmma_{schedule}" if route == "wgmma"
+           else f"matmul_i8_{schedule}")
+    n0 = kernels.LAUNCHES[key]
     nu, m, k = a.shape
     n = b.shape[2]
-    if b_kcontig:
-        return kernels.matmul_i8(a, b, schedule, bk)
-    return getattr(matmul3, fn)(a.view(nu * m, k), b.view(nu * k, n), nu=nu,
-                                m=m, k=k, n=n).view(nu, m, n)
+    if module == "fused":
+        c = getattr(fused, fn)(a, b)
+    elif b_kcontig:
+        c = kernels.matmul_i8(a, b, schedule, bk)
+    else:
+        c = getattr(matmul3, fn)(a.view(nu * m, k), b.view(nu * k, n), nu=nu,
+                                 m=m, k=k, n=n).view(nu, m, n)
+    check(kernels.LAUNCHES[key] == n0 + 1, f"{entry}: no {key} launch")
+    return c
 
 
-def product_cases(rng):
-    """The int8 product kernel through every probe function, B n- and
-    k-contiguous, against its plain version: random planes, odd shapes
-    (byte-loaded tiles, ragged edges), K past one staged tile, and the
-    +-127 extremes at k = 2^17 (sums of +-2,114,060,288)."""
+def product_cases(rng, rng2):
+    """The int8 product kernels against their plain version, B n- and
+    k-contiguous: through every probe function (the wgmma kernel where TMA
+    can address the operands, else the mma.sync one), and through the
+    mma.sync kernel by name on every case. From rng: random planes, odd
+    shapes (byte-loaded tiles, ragged edges, k = 97 and 33 on the mma.sync
+    route), K past one staged tile, and the +-127 extremes at k = 2^17 (sums
+    of +-2,114,060,288). From rng2, the wgmma route's edges: ragged m and n
+    (2 x 130 x 320 x 200, 1 x 17 x 48 x 5), k = 16 and k = 336 (multiples
+    of 16, not of the 128-byte stage), and m = 200 (a row block that would
+    straddle two planes in the flat view); and transpose_i8 (n-contiguous B
+    into the k-contiguous scratch) against a plain copy."""
     from gemmul8_tpu_torch import kernels
     from gemmul8_tpu_torch.probes.timing import k_contiguous
     k17 = 1 << 17
+
+    def planes(g, nu, m, k, n):
+        return tuple(torch.from_numpy(g.integers(-128, 128, shape).astype(
+            np.int8)).cuda() for shape in ((nu, m, k), (nu, k, n)))
+
     cases = []
     for nu, m, k, n in ((2, 256, 512, 256), (3, 130, 97, 200),
                         (2, 200, 320, 136), (1, 64, 1000, 72), (2, 17, 33, 5)):
-        a, b = (torch.from_numpy(rng.integers(-128, 128, shape).astype(
-            np.int8)).cuda() for shape in ((nu, m, k), (nu, k, n)))
-        cases.append((f"random {nu}x{m}x{k}x{n}", a, b))
+        cases.append((f"random {nu}x{m}x{k}x{n}", *planes(rng, nu, m, k, n)))
     for va, vb in ((127, 127), (-127, 127)):
         cases.append((f"{va} x {vb} at k=2^17",
                       torch.full((1, 20, k17), va, dtype=torch.int8,
                                  device="cuda"),
                       torch.full((1, k17, 24), vb, dtype=torch.int8,
                                  device="cuda")))
+    for nu, m, k, n in ((2, 130, 320, 200), (1, 17, 48, 5), (2, 64, 16, 72),
+                        (3, 100, 336, 264), (2, 200, 128, 300)):
+        cases.append((f"random {nu}x{m}x{k}x{n}", *planes(rng2, nu, m, k, n)))
+    routes = {"wgmma": 0, "mma_sync": 0}
     for what, a, b in cases:
         ref = kernels.matmul_i8_plain(a, b)
+        k = a.shape[2]
+        want = "wgmma" if k > 0 and k % 16 == 0 else "mma_sync"
         for b_kcontig, bb in ((False, b), (True, k_contiguous(b))):
+            layout = f"B {'k' if b_kcontig else 'n'}-contiguous"
+            route = kernels._product_route(a, bb)
+            check(route == want, f"{what} {layout}: route {route}, want {want}")
+            routes[route] += 1
             for entry, *_ in PROBE_PRODUCTS:
                 compare(entry, product_call(entry, a, bb, b_kcontig), ref,
-                        f"{entry} {what} B {'k' if b_kcontig else 'n'}-"
-                        "contiguous")
+                        f"{entry} {what} {layout}")
+            for entry, schedule, bk, *_ in MMA_SYNC:
+                compare(entry, kernels.matmul_i8(a, bb, schedule, bk,
+                                                 "mma_sync"), ref,
+                        f"{entry} {what} {layout}")
+            if route == "wgmma" and not b_kcontig:
+                compare(TRANSPOSE_KEY, kernels.transpose_i8(bb), k_contiguous(bb),
+                        f"transpose_i8 {what}")
+    log(f"product cases by route: {routes}")
+    check(all(routes.values()), f"a product route went untested: {routes}")
 
 
 def mxu_epilogue_cases(rng):
@@ -1395,13 +1473,13 @@ def probe_paths():
     (probes.fused.main, probes.matmul3.main, probes.epilogue.main), each with
     its launch counts set to 0 just before and read just after; every row
     must be bit-ok, the rows' launches must add up to the run's, and each
-    probe function must have launched its kernel. Returns {probe: (rows,
-    counts)}."""
+    probe function (on the wgmma kernel), each mma.sync instantiation and the
+    transposing pass must have launched. Returns {probe: (rows, counts)}."""
     from gemmul8_tpu_torch.probes import epilogue, fused, matmul3
     runs = {}
     for name, main, keys in (
-            ("fused", fused.main, ("matmul_i8_kloop", "matmul_i8_astat")),
-            ("matmul3", matmul3.main, ("matmul_i8_kloop", "matmul_i8_astat")),
+            ("fused", fused.main, PRODUCT_COUNTS),
+            ("matmul3", matmul3.main, PRODUCT_COUNTS),
             ("epilogue", epilogue.main, ("fused_epilogue_mxu",
                                          "fused_epilogue"))):
         rows, counts = run_counted(main)
@@ -1411,20 +1489,30 @@ def probe_paths():
         log(f"probe {name} launches: {counts}")
         runs[name] = rows, counts
         torch.cuda.empty_cache()
-    for entry, probe, *_ in PROBE_PRODUCTS:
+    for entry, *_ in PROBE_PRODUCTS + MMA_SYNC:
         check(probe_launches(runs, entry) > 0, f"{entry}: no launch")
+    for entry, probe, _, schedule, *_ in PROBE_PRODUCTS:
+        check(runs[probe][1][f"matmul_i8_wgmma_{schedule}"] > 0,
+              f"{entry}: the wgmma kernel was not launched")
+    check(probe_launches(runs, TRANSPOSE_KEY) > 0, "transpose_i8: no launch")
     check(probe_launches(runs, MXU_KEY) > 0, f"{MXU_KEY}: no launch")
     return runs
 
 
 def probe_launches(runs, entry):
-    """An entry's launches in its probe's run: the sum over its rows."""
+    """An entry's launches in its probe's run: the sum over its rows (the
+    transposing pass: its count over both product probes)."""
+    if entry == TRANSPOSE_KEY:
+        return sum(runs[p][1]["transpose_i8"] for p in ("fused", "matmul3"))
     if entry == MXU_KEY:
-        rows, prefix = runs["epilogue"][0], "B mxu"
-    else:
+        pairs = (("epilogue", "B mxu"),)
+    elif entry in PROBE_ROWS:
         probe = next(p[1] for p in PROBE_PRODUCTS if p[0] == entry)
-        rows, prefix = runs[probe][0], PROBE_ROWS[entry][0]
-    return sum(r["launches"] for r in rows if r["name"].startswith(prefix))
+        pairs = ((probe, PROBE_ROWS[entry][0]),)
+    else:
+        pairs = next(p[3] for p in MMA_SYNC if p[0] == entry)
+    return sum(r["launches"] for probe, prefix in pairs
+               for r in runs[probe][0] if r["name"].startswith(prefix))
 
 
 def probe_row(rows, name):
@@ -1432,16 +1520,22 @@ def probe_row(rows, name):
 
 
 def probe_times(a64, b64, card):
-    """Phase 6 for the probe kernels: the plain product at the probes' size
-    (the same planes the probe tables draw); on the DGEMM 8192^3 nu=16
-    path's planes the int8 kernel (each schedule and K depth) against
-    core.residue_matmul (16 x torch._int_mm); K8 (out_bits 53) on the path's
-    C_hi and shifts against K2 (f64 out), and K8's plain version."""
+    """Phase 6 for the probe kernels: the plain product and the transposing
+    pass (beside its plain version, torch's copy of the transposed view) at
+    the probes' size (the same planes the probe tables draw); on the DGEMM
+    8192^3 nu=16 path's planes the product kernels in turns
+    (probes.fused.product_rows: torch._int_mm x 16, the wgmma kernel's
+    rasters, the mma.sync kernel's three instantiations); K8 (out_bits 53) on the path's C_hi and shifts against
+    K2 (f64 out), and K8's plain version."""
     from gemmul8_tpu_torch import core, kernels, quantize
-    from gemmul8_tpu_torch.probes.fused import random_planes
+    from gemmul8_tpu_torch.probes.fused import product_rows, random_planes
+    from gemmul8_tpu_torch.probes.timing import k_contiguous
     a, b = random_planes(PROBE_NU, PROBE_M, PROBE_M, PROBE_M, 0)
     t = dict(product_plain_ms=cuda_ms(lambda: kernels.matmul_i8_plain(a, b),
-                                      reps=3))
+                                      reps=3),
+             transpose_ms=cuda_ms(lambda: kernels.transpose_i8(b)),
+             transpose_plain_ms=cuda_ms(lambda: k_contiguous(b)))
+    t["transpose_bound"] = (2.0 * b.numel() / PEAK_BYTES * 1e3, "bytes")
     del a, b
     torch.cuda.empty_cache()
     nu = 16
@@ -1449,10 +1543,15 @@ def probe_times(a64, b64, card):
     sb = quantize.shift_fast(b64, nu, "INT8", 0)
     ap = kernels.encode_planes(a64, sa, 0, nu, "INT8")
     bp = kernels.encode_planes(b64, sb, 1, nu, "INT8")
-    t["main_int_mm_ms"] = cuda_ms(lambda: core.residue_matmul(ap, bp))
-    for schedule, bk in (("kloop", 64), ("kloop", 128), ("astat", 64)):
-        t[f"main_{schedule}{bk}_ms"] = cuda_ms(
-            lambda: kernels.matmul_i8(ap, bp, schedule, bk))
+    rows = {r["name"]: r for r in product_rows(ap, bp)}
+    check(all(r["ok"] for r in rows.values()),
+          "a product differs from torch._int_mm on the DGEMM planes")
+    t["main_rows"] = rows
+    t["main_int_mm_ms"] = rows["torch._int_mm x nu"]["ms"]
+    for schedule in ("kloop", "astat"):
+        t[f"main_wgmma_{schedule}_ms"] = rows[f"wgmma {schedule}"]["ms"]
+    for entry, schedule, bk, *_ in MMA_SYNC:
+        t[f"main_{entry}_ms"] = rows[f"mma.sync {schedule} bk{bk}"]["ms"]
     t["main_products_bound"] = product_bound(nu, FULL, FULL, FULL)
     c_hi = core.residue_matmul(ap, bp)
     del ap, bp
@@ -1468,42 +1567,87 @@ def probe_times(a64, b64, card):
                                               PROBE_M)
     del c_hi
     torch.cuda.empty_cache()
-    ops = 2.0 * nu * FULL ** 3
-    t["main_kloop64_tops"] = ops / (t["main_kloop64_ms"] * 1e-3) / 1e12
-    t["main_int_mm_tops"] = ops / (t["main_int_mm_ms"] * 1e-3) / 1e12
-    check(max(t["main_kloop64_tops"], t["main_int_mm_tops"]) * 1e12
-          <= PEAK_INT8_OPS, "int8 products exceed the peak")
+    check(max(r["tops"] for r in rows.values()) * 1e12 <= PEAK_INT8_OPS,
+          "int8 products exceed the peak")
+    best = min(t["main_wgmma_kloop_ms"], t["main_wgmma_astat_ms"])
+    log(f"product on the DGEMM 8192^3 nu=16 planes {card}: wgmma {best:.3f} "
+        f"ms, torch._int_mm x 16 {t['main_int_mm_ms']:.3f} ms, mma.sync "
+        f"{min(t[f'main_{e[0]}_ms'] for e in MMA_SYNC):.3f} ms, bound "
+        f"{t['main_products_bound'][0]:.3f} ms: the wgmma kernel "
+        f"{'beats' if best < t['main_int_mm_ms'] else 'does not beat'} "
+        "torch._int_mm")
     log(f"times {card} | probe kernels: " + ", ".join(
         f"{k_} {v:.4f}" if isinstance(v, float) else f"{k_} {v}"
-        for k_, v in t.items()))
+        for k_, v in t.items() if k_ != "main_rows"))
     return t
 
 
 def probe_entries(runs, t):
     """The kernels-line entries of the probe functions: times from their
-    probe's run (the tool's own size and B layout), with the same run's
-    torch._int_mm x nu as library_ms; the int8 kernel on the DGEMM path's
-    planes and K8 on its C_hi beside them."""
+    probe's run (the tool's own size and B layout; on the wgmma route the
+    transposing pass included), with the same run's torch._int_mm x nu as
+    library_ms; the products on the DGEMM path's planes and K8 on its C_hi
+    beside them; the mma.sync instantiations and the transposing pass. On
+    the wgmma route the two K-loop entries of matmul3 time one launch, and
+    the second names the first (same_launch_as)."""
     entries = []
+    common = dict(route="cuda", plain_ms=t["product_plain_ms"],
+                  bound_ms=t["probe_products_bound"][0],
+                  bound_by=t["probe_products_bound"][1],
+                  main_path_library_ms=t["main_int_mm_ms"],
+                  main_path_bound_ms=t["main_products_bound"][0],
+                  main_path_shape="DGEMM 8192^3 nu=16 planes, B k-contiguous")
     for entry, probe, fn, schedule, bk, replaces in PROBE_PRODUCTS:
         rows = runs[probe][0]
+        if probe == "fused":
+            kc = probe_row(rows, f"{schedule if schedule == 'astat' else 'seq'}"
+                           " B k-contiguous")["ms"]
+            mma = (f"mma.sync seq bk{bk} B n-contiguous" if schedule == "kloop"
+                   else "mma.sync astat B n-contiguous")
+        else:
+            kc, mma = None, "mma.sync " + PROBE_ROWS[entry][1]
         entries.append(dict(
-            name=entry, route="cuda",
-            source="gemmul8_tpu_torch/csrc/matmul_i8.cu",
+            common, name=entry,
+            source="gemmul8_tpu_torch/csrc/matmul_i8_wgmma.cu",
             replaces=replaces, launches=probe_launches(runs, entry),
             max_abs_err=MAX_ABS_ERR[entry], cases=CASES[entry],
             ms=probe_row(rows, PROBE_ROWS[entry][1])["ms"],
-            plain_ms=t["product_plain_ms"],
-            bound_ms=t["probe_products_bound"][0],
-            bound_by=t["probe_products_bound"][1],
+            ms_b_kcontig=kc, mma_sync_ms=probe_row(rows, mma)["ms"],
             library_ms=probe_row(rows, "torch._int_mm x nu")["ms"],
             path=f"probes.{probe}.main, {fn}",
+            shape=f"{PROBE_NU} x ({PROBE_M}^3) int8, B n-contiguous "
+                  f"(transposed into a scratch first), schedule {schedule}",
+            main_path_ms=t[f"main_wgmma_{schedule}_ms"],
+            **({"same_launch_as": "mm_flat[kloop]"}
+               if entry == "mm_flat[kloop_multidot]" else {})))
+    fused_rows = runs["fused"][0]
+    for entry, schedule, bk, _, row in MMA_SYNC:
+        entries.append(dict(
+            common, name=entry, source="gemmul8_tpu_torch/csrc/matmul_i8.cu",
+            replaces={("kloop", 64): "tools/probe_fused.py:24",
+                      ("kloop", 128): "tools/probe_matmul3.py:90",
+                      ("astat", 64): "tools/probe_fused.py:98"}[schedule, bk],
+            launches=probe_launches(runs, entry),
+            max_abs_err=MAX_ABS_ERR[entry], cases=CASES[entry],
+            ms=probe_row(fused_rows, row)["ms"],
+            library_ms=probe_row(fused_rows, "torch._int_mm x nu")["ms"],
+            path="probes.fused.main and probes.matmul3.main, kernel=mma_sync",
             shape=f"{PROBE_NU} x ({PROBE_M}^3) int8, B n-contiguous, "
                   f"schedule {schedule} bk{bk}",
-            main_path_ms=t[f"main_{schedule}{bk}_ms"],
-            main_path_library_ms=t["main_int_mm_ms"],
-            main_path_bound_ms=t["main_products_bound"][0],
-            main_path_shape="DGEMM 8192^3 nu=16 planes, B k-contiguous"))
+            main_path_ms=t[f"main_{entry}_ms"]))
+    entries.append(dict(
+        name=TRANSPOSE_KEY, route="cuda",
+        source="gemmul8_tpu_torch/csrc/matmul_i8_wgmma.cu",
+        replaces="tools/probe_fused.py:24",
+        launches=probe_launches(runs, TRANSPOSE_KEY),
+        max_abs_err=MAX_ABS_ERR[TRANSPOSE_KEY], cases=CASES[TRANSPOSE_KEY],
+        ms=t["transpose_ms"], plain_ms=t["transpose_plain_ms"],
+        bound_ms=t["transpose_bound"][0], bound_by=t["transpose_bound"][1],
+        library_ms=t["transpose_plain_ms"],
+        path="probes.fused.main and probes.matmul3.main, n-contiguous B on "
+             "the wgmma route",
+        shape=f"{PROBE_NU} x {PROBE_M} x {PROBE_M} int8 (nu, k, n) -> "
+              "(nu, n, k)"))
     rows = runs["epilogue"][0]
     entries.append(dict(
         name=MXU_KEY, route="cuda",
@@ -1554,6 +1698,11 @@ def main():
     t0 = time.perf_counter()
     lib = kernels.build()
     log(f"build: {time.perf_counter() - t0:.1f}s {lib}")
+    for name in kernels.PTXAS_VERBOSE:
+        check(name in kernels.BUILD_LOG, f"{name}: no ptxas report")
+        text = kernels.BUILD_LOG[name]
+        log(f"nvcc -Xptxas -v {name}:\n{text.strip()}")
+        check("C7508" not in text, f"{name}: setmaxnreg ignored (C7508)")
     log_phase("phase 2 (build)")
 
     # phase 3: kernels against their plain versions, bit for bit
@@ -1563,7 +1712,9 @@ def main():
     crng = np.random.default_rng(SEED + 1)
     # and the FP8 phases from a third
     frng = np.random.default_rng(SEED + 3)
-    encode_cases(rng)
+    # the encode cases added with the redesigned K1 draw from a stream of
+    # their own, so that the real paths' inputs stay as they were
+    encode_cases(rng, np.random.default_rng(SEED + 5))
     epilogue_cases(rng)
     complex_cases(crng)
     fp8_encode_cases(frng)
@@ -1571,7 +1722,7 @@ def main():
     fp8_exact = fp8_exactness_cases()
     # and the probe kernels from a fourth
     prng = np.random.default_rng(SEED + 4)
-    product_cases(prng)
+    product_cases(prng, np.random.default_rng(SEED + 6))
     mxu_epilogue_cases(prng)
     log(f"kernels vs plain, small shapes, all bit-equal: {CASES}")
     log_phase("phase 3 (kernels vs plain, FP8 product exactness)")

@@ -14,12 +14,21 @@
 #define G8_MAX_NL 6    // 20-bit limbs of the quantized integer (encode)
 #define G8_MAX_L 7     // 16-bit limbs of the CRT sum (epilogue)
 
+// magic and bias are the division-free reduction's constants (encode.cuh,
+// reduce_biased): bias_i is a multiple of p_i plus floor(p_i / 2), at least
+// G8_REDUCE_RANGE, so that acc + bias_i lies in [0, 2^32) for every
+// |acc| <= G8_REDUCE_RANGE; magic_i = floor(2^32 / p_i). Both are 0 for a
+// power-of-two modulus, which is reduced by a mask.
+#define G8_REDUCE_RANGE 2147481600u  // 2^31 - 2^11 > 6 * 2^19 * 545
+
 struct EncodePlan {
     int nu;                          // number of moduli
     int nl;                          // 20-bit limbs in use (<= G8_MAX_NL)
     int max_exp;                     // clamp of a component's bit position
     int p[G8_MAX_NU];                // moduli
     int w[G8_MAX_NU][G8_MAX_NL];     // wrap(2^(20*lv) mod p_i)
+    unsigned magic[G8_MAX_NU];       // floor(2^32 / p_i)
+    unsigned bias[G8_MAX_NU];        // ceil(RANGE / p_i) * p_i + p_i / 2
 };
 
 // the FP8 encoder's plan: the limb plan of the FP8 moduli, and per modulus
@@ -91,18 +100,25 @@ __device__ __forceinline__ double pow2d(int e) {
         (long long)((unsigned long long)(long long)(e + 1023) << 52));
 }
 
-// x * 2^s as three power-of-two multiplies with the floor split of s
-// (quantize.pow2_scale)
-__device__ __forceinline__ double pow2_scale_d(double x, int s) {
-    int h1 = floordiv(s, 3);
-    int h2 = floordiv(s - h1, 2);
-    int h3 = s - h1 - h2;
-    return ((x * pow2d(h1)) * pow2d(h2)) * pow2d(h3);
-}
+__device__ __forceinline__ void pow2_factor(int e, float& f) { f = pow2f(e); }
+__device__ __forceinline__ void pow2_factor(int e, double& f) { f = pow2d(e); }
 
-__device__ __forceinline__ float pow2_scale_f(float x, int s) {
-    int h1 = floordiv(s, 3);
-    int h2 = floordiv(s - h1, 2);
-    int h3 = s - h1 - h2;
-    return ((x * pow2f(h1)) * pow2f(h2)) * pow2f(h3);
+// x * 2^s as three power-of-two multiplies with the floor split of s
+// (quantize.pow2_scale): the factors are computed once per shift (a row's
+// or column's) and applied to each element in pow2_scale's order
+template <typename T>
+struct Pow2Split {
+    T f1, f2, f3;
+    __device__ explicit Pow2Split(int s) {
+        const int h1 = floordiv(s, 3);
+        const int h2 = floordiv(s - h1, 2);
+        pow2_factor(h1, f1);
+        pow2_factor(h2, f2);
+        pow2_factor(s - h1 - h2, f3);
+    }
+    __device__ T apply(T x) const { return ((x * f1) * f2) * f3; }
+};
+
+__device__ __forceinline__ double pow2_scale_d(double x, int s) {
+    return Pow2Split<double>(s).apply(x);
 }

@@ -19,12 +19,14 @@
 // (50 B at nu=14 f64: 1.0 ms at 8192^2); the operations are the INT8
 // encoder's preamble plus, per modulus, the limb dot, a reduction by the
 // constant p, the split and three conversions (chip_smoke.fp8_encode_bound).
-// This kernel reduces with `%` by a modulus read from the plan at run time.
+// The limb steps and the division-free reduction (a multiply-high by the
+// plan's magic, limb count a template parameter) are encode.cuh's, shared
+// with the INT8 encoder.
 //
-// Design: K1's (encode.cu): one thread per element, limbs in registers, the
-// plan a __grid_constant__ parameter, warps along the output's contiguous
-// axis. A's stack is (3nu, m, k) row-major; B's is stored (3nu, n, k), so
-// each B plane is the column-major operand the FP8 tensor-core product
+// Design: one thread per element, limbs in registers, the plan a
+// __grid_constant__ parameter, warps along the output's contiguous axis.
+// A's stack is (3nu, m, k) row-major; B's is stored (3nu, n, k), so each B
+// plane is the column-major operand the FP8 tensor-core product
 // (torch._scaled_mm) reads.
 #include <cuda_fp8.h>
 
@@ -36,7 +38,7 @@ __device__ __forceinline__ __nv_fp8_storage_t to_e4m3(float v) {
     return __nv_cvt_float_to_fp8(v, __NV_SATFINITE, __NV_E4M3);
 }
 
-template <typename T, int AXIS>
+template <typename T, int AXIS, int NL>
 __global__ void encode_fp8_kernel(const T* __restrict__ x,
                                   const int* __restrict__ sft,
                                   __nv_fp8_storage_t* __restrict__ out,
@@ -44,12 +46,13 @@ __global__ void encode_fp8_kernel(const T* __restrict__ x,
                                   int rows, int cols) {
     const EncodeIndex<AXIS> at(rows, cols);
     if (at.r >= rows || at.c >= cols) return;
-    int lim[G8_MAX_NL];
-    quantize_limbs<T>(x[(size_t)at.r * cols + at.c],
-                      sft[AXIS == 0 ? at.r : at.c], plan.enc, lim);
+    int lim[NL];
+    const Pow2Split<T> scale(sft[AXIS == 0 ? at.r : at.c]);
+    quantize_limbs<T, NL>(scale.apply(x[(size_t)at.r * cols + at.c]),
+                          plan.enc.max_exp, lim);
     const size_t plane = (size_t)rows * cols;
     for (int i = 0; i < plan.enc.nu; ++i) {
-        const int r = limb_residue(lim, plan.enc, i);
+        const int r = limb_residue<NL>(lim, plan.enc, i);
         float v0, v1, v2;
         const int q = plan.sq[i];
         if (q != 0) {                       // perfect square: r = q*bx + by
@@ -75,12 +78,16 @@ __global__ void encode_fp8_kernel(const T* __restrict__ x,
 }
 
 template <typename T, int AXIS>
-void launch(const void* x, const void* sft, void* out,
-            const EncodePlanFp8& plan, int rows, int cols, dim3 grid,
-            dim3 block, cudaStream_t stream) {
-    encode_fp8_kernel<T, AXIS><<<grid, block, 0, stream>>>(
-        static_cast<const T*>(x), static_cast<const int*>(sft),
-        static_cast<__nv_fp8_storage_t*>(out), plan, rows, cols);
+int launch(const void* x, const void* sft, void* out,
+           const EncodePlanFp8& plan, int rows, int cols, dim3 grid,
+           dim3 block, cudaStream_t stream) {
+    return dispatch_nl(plan.enc.nl, [&](auto nl) {
+        encode_fp8_kernel<T, AXIS, decltype(nl)::value>
+            <<<grid, block, 0, stream>>>(
+                static_cast<const T*>(x), static_cast<const int*>(sft),
+                static_cast<__nv_fp8_storage_t*>(out), plan, rows, cols);
+        return (int)cudaGetLastError();
+    });
 }
 
 }  // namespace
@@ -94,21 +101,15 @@ extern "C" int g8_encode_planes_fp8(const void* x, const void* sft, void* out,
                                     void* stream) {
     const EncodePlanFp8& plan = *static_cast<const EncodePlanFp8*>(plan_ptr);
     dim3 grid, block;
-    if (plan.enc.nu < 1 || plan.enc.nu > G8_MAX_NU || plan.enc.nl < 1
-        || plan.enc.nl > G8_MAX_NL
+    if (plan.enc.nu < 1 || plan.enc.nu > G8_MAX_NU
         || !encode_grid(scale_axis, rows, cols, grid, block))
         return (int)cudaErrorInvalidValue;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (is_f64) {
-        if (scale_axis == 0)
-            launch<double, 0>(x, sft, out, plan, rows, cols, grid, block, st);
-        else
-            launch<double, 1>(x, sft, out, plan, rows, cols, grid, block, st);
-    } else {
-        if (scale_axis == 0)
-            launch<float, 0>(x, sft, out, plan, rows, cols, grid, block, st);
-        else
-            launch<float, 1>(x, sft, out, plan, rows, cols, grid, block, st);
-    }
-    return (int)cudaGetLastError();
+    if (is_f64)
+        return scale_axis == 0
+            ? launch<double, 0>(x, sft, out, plan, rows, cols, grid, block, st)
+            : launch<double, 1>(x, sft, out, plan, rows, cols, grid, block, st);
+    return scale_axis == 0
+        ? launch<float, 0>(x, sft, out, plan, rows, cols, grid, block, st)
+        : launch<float, 1>(x, sft, out, plan, rows, cols, grid, block, st);
 }

@@ -16,11 +16,13 @@
 // dense 1,979 T/s (8.889 ms at 8192^3, nu=16), against nu * (m*k + k*n) bytes
 // read and 4 * nu * m * n written (1.6 ms at 8192^3).
 //
-// Design (a first, simple kernel; the warpgroup wgmma + TMA form is later
-// work): a 128 x 128 output tile per thread block of 8 warps, each warp a
-// 64 x 32 tile of mma.sync.m16n8k32.s32.s8.s8.s32 fragments held in
-// registers. K is staged through shared memory in BK-deep tiles (64, or 128
-// for the deeper K stage), double-buffered: the next tile's loads are in
+// Design (a first, simple kernel; the wgmma + TMA kernel that replaces it
+// wherever TMA can address the operands is matmul_i8_wgmma.cu, and this one
+// stays the route for the rest, e.g. k = 97): a 128 x 128 output tile per
+// thread block of 8 warps, each warp a 64 x 32 tile of
+// mma.sync.m16n8k32.s32.s8.s8.s32 fragments held in registers. K is staged
+// through shared memory in BK-deep tiles (64, or 128 for the deeper K
+// stage), double-buffered: the next tile's loads are in
 // flight while the tensor cores work on the current one.
 //  - A is row-major, and B k-contiguous ((nu, n, k) storage, the main path's
 //    plane layout) is the .col operand mma wants: both are copied with 16-byte

@@ -13,10 +13,11 @@ and of the int8 product and CRT-epilogue kernels of the probe tools
 (tools/probe_fused.py, tools/probe_matmul3.py, tools/probe_epilogue.py;
 run by gemmul8_tpu_torch/probes/):
 
-  matmul_i8               csrc/matmul_i8.cu     replaces pallas_matmul_i8_seq,
-                                                pallas_matmul_i8_astat,
-                                                mm_flat_kloop, mm_flat_fullk,
-                                                mm_flat_kloop_multidot
+  matmul_i8               csrc/matmul_i8_wgmma.cu (wgmma + TMA) where TMA
+                          can address the operands, else csrc/matmul_i8.cu
+                          (mma.sync); replaces pallas_matmul_i8_seq,
+                          pallas_matmul_i8_astat, mm_flat_kloop,
+                          mm_flat_fullk, mm_flat_kloop_multidot
   fused_epilogue_mxu      csrc/epilogue_mxu.cu  replaces fused_epilogue_mxu
 
 (the encoders share csrc/encode.cuh's steps, the epilogues csrc/crt.cuh's).
@@ -37,6 +38,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import json
 import os
 import shutil
 import subprocess
@@ -50,7 +52,9 @@ from . import ff, fp8, quantize, tables
 LAUNCHES = {"encode_planes": 0, "encode_planes_fp8": 0, "fused_epilogue": 0,
             "fused_epilogue_fp8": 0, "fused_epilogue_complex": 0,
             "fused_recombine_3m": 0, "matmul_i8_kloop": 0,
-            "matmul_i8_astat": 0, "fused_epilogue_mxu": 0}
+            "matmul_i8_astat": 0, "matmul_i8_wgmma_kloop": 0,
+            "matmul_i8_wgmma_astat": 0, "transpose_i8": 0,
+            "fused_epilogue_mxu": 0}
 _INT8, _FP8 = tables.Backend.INT8, tables.Backend.FP8
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
@@ -58,12 +62,17 @@ _CSRC = os.path.join(_HERE, "csrc")
 _BUILD = os.path.join(_HERE, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xcompiler", "-fPIC"]
+# sources whose registers, shared memory and spills the build reports
+# (nvcc -Xptxas -v) into BUILD_LOG[source]
+PTXAS_VERBOSE = ("matmul_i8_wgmma.cu",)
+BUILD_LOG: dict[str, str] = {}
 _LIB: ctypes.CDLL | None = None
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # the C entry points' signatures (csrc/*.cu)
 _ARGTYPES = {
+    # x, sft, out, plan, is_f64, scale_axis, rows, cols, vec, stream
+    "encode_planes": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # x, sft, out, plan, is_f64, scale_axis, rows, cols, stream
-    "encode_planes": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "encode_planes_fp8": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     # c_hi, sft_a, sft_b, out, in_i8, out_f64, m, n, plan, stream
     "fused_epilogue": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
@@ -75,6 +84,10 @@ _ARGTYPES = {
     "fused_recombine_3m": [_P, _P, _P, _I, _I, _P, _P],
     # a, b, c, nu, m, n, k, b_kcontig, astat, bk, a_vec, b_vec, stream
     "matmul_i8": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # a, b (k-contiguous), c, nu, m, n, k, astat, stream
+    "matmul_i8_wgmma": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # src (nu, k, n), dst (nu, n, k), nu, k, n, stream
+    "transpose_i8": [_P, _P, _I, _I, _I, _P],
     # c_hi, sft_a, sft_b, hi, lo, m, n, plan, stream
     "fused_epilogue_mxu": [_P, _P, _P, _P, _P, _I, _I, _P, _P],
 }
@@ -82,6 +95,7 @@ _ARGTYPES = {
 _MAX_NU = 20        # csrc/common.cuh: G8_MAX_NU
 _MAX_NL = 6         # G8_MAX_NL: 20-bit encode limbs
 _MAX_L = 7          # G8_MAX_L: 16-bit epilogue limbs
+REDUCE_RANGE = 2 ** 31 - 2 ** 11   # G8_REDUCE_RANGE: encode's exact |acc|
 
 
 def reset_launches() -> None:
@@ -103,14 +117,20 @@ def _nvcc() -> str:
 def build() -> str:
     """Compile csrc/*.cu into one library unless it is built already (the
     name holds a hash of the sources and flags): one nvcc per source, all
-    started together, then one link. Returns its path."""
+    started together, then one link. The ptxas reports of PTXAS_VERBOSE's
+    sources are kept beside the library (same name, .ptxas.json) and loaded
+    into BUILD_LOG, whether this call built it or found it. Returns its
+    path."""
     sources = sorted(n for n in os.listdir(_CSRC) if n.endswith((".cu", ".cuh")))
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + list(PTXAS_VERBOSE)).encode())
     for name in sources:
         with open(os.path.join(_CSRC, name), "rb") as f:
             h.update(name.encode() + f.read())
     out = os.path.join(_BUILD, f"libgemmul8_kernels_{h.hexdigest()[:16]}.so")
-    if os.path.exists(out):
+    log = out[:-len(".so")] + ".ptxas.json"
+    if os.path.exists(out) and os.path.exists(log):
+        with open(log) as f:
+            BUILD_LOG.update(json.load(f))
         return out
     os.makedirs(_BUILD, exist_ok=True)
     nvcc = _nvcc()
@@ -119,18 +139,26 @@ def build() -> str:
         for name in sources:
             if name.endswith(".cu"):
                 objs.append(os.path.join(tmp, name + ".o"))
-                procs.append(subprocess.Popen(
-                    [nvcc, *NVCC_FLAGS, "-c", "-o", objs[-1],
+                verbose = ["-Xptxas", "-v"] if name in PTXAS_VERBOSE else []
+                procs.append((name, subprocess.Popen(
+                    [nvcc, *NVCC_FLAGS, *verbose, "-c", "-o", objs[-1],
                      os.path.join(_CSRC, name)],
-                    stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
-        errors = [p.communicate()[1] for p in procs]
-        if any(p.returncode for p in procs):
-            raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
+                    stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        errors = [(name, p.communicate()[1]) for name, p in procs]
+        reports = {name: err for name, err in errors if name in PTXAS_VERBOSE}
+        BUILD_LOG.update(reports)
+        if any(p.returncode for _, p in procs):
+            raise RuntimeError("nvcc failed:\n" + "\n".join(
+                f"{name}: {err}" for name, err in errors if err))
         lib = os.path.join(tmp, "lib.so")
         proc = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs],
                               capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc link failed:\n{proc.stderr}")
+        tmp_log = os.path.join(tmp, "ptxas.json")
+        with open(tmp_log, "w") as f:
+            json.dump(reports, f)
+        os.replace(tmp_log, log)      # before the library, which marks a build
         os.replace(lib, out)          # atomic: a half-written .so never loads
     return out
 
@@ -164,7 +192,19 @@ class _EncodePlan(ctypes.Structure):          # csrc/common.cuh: EncodePlan
     _fields_ = [("nu", ctypes.c_int), ("nl", ctypes.c_int),
                 ("max_exp", ctypes.c_int),
                 ("p", ctypes.c_int * _MAX_NU),
-                ("w", (ctypes.c_int * _MAX_NL) * _MAX_NU)]
+                ("w", (ctypes.c_int * _MAX_NL) * _MAX_NU),
+                ("magic", ctypes.c_uint * _MAX_NU),
+                ("bias", ctypes.c_uint * _MAX_NU)]
+
+
+def reduce_constants(p: int) -> tuple[int, int]:
+    """The encoders' division-free reduction constants of modulus p
+    (csrc/encode.cuh, reduce_biased): magic = floor(2^32 / p) and bias = the
+    least multiple of p >= REDUCE_RANGE, plus floor(p / 2); both 0 for a
+    power-of-two p, which the kernels reduce by a mask."""
+    if p & (p - 1) == 0:
+        return 0, 0
+    return 2 ** 32 // p, -(-REDUCE_RANGE // p) * p + p // 2
 
 
 def _encode_plan(num_moduli: int, backend: str) -> _EncodePlan:
@@ -177,6 +217,7 @@ def _encode_plan(num_moduli: int, backend: str) -> _EncodePlan:
     for i, (p, ws) in enumerate(zip(tables.moduli(backend),
                                     quantize.limb_weights(num_moduli, backend))):
         plan.p[i] = p
+        plan.magic[i], plan.bias[i] = reduce_constants(p)
         for lv, w in enumerate(ws):
             plan.w[i][lv] = w
     return plan
@@ -229,8 +270,19 @@ def encode_planes(x: torch.Tensor, sft: torch.Tensor, scale_axis: int,
         plan = _encode_plan(num_moduli, backend)
         _launch("encode_planes", x.data_ptr(), sft.data_ptr(), out.data_ptr(),
                 ctypes.addressof(plan), int(x.dtype == torch.float64),
-                scale_axis, rows, cols, _stream(x))
+                scale_axis, rows, cols,
+                int(_encode_vec(x, out, scale_axis)), _stream(x))
     return out
+
+
+def _encode_vec(x: torch.Tensor, out: torch.Tensor, scale_axis: int) -> bool:
+    """Whether csrc/encode.cu may store a word per plane and 4 elements (and,
+    for A, read x with 16-byte loads): the planes' contiguous axis (x's cols
+    for A, its rows for B) a multiple of 4, out (and, for A, x) 16-byte
+    aligned."""
+    width = x.shape[1 - scale_axis]
+    return (width % 4 == 0 and out.data_ptr() % 16 == 0
+            and (scale_axis == 1 or x.data_ptr() % 16 == 0))
 
 
 def _check_encode(name, x, sft, scale_axis, num_moduli):
@@ -545,14 +597,19 @@ def fused_epilogue_complex(c_hi3: torch.Tensor, sft_a: torch.Tensor,
 # exact int8 products on the tensor cores (the probe tools' Pallas products)
 # ---------------------------------------------------------------------------
 
-# the schedules and, per schedule, the K depths of a staged tile the kernel
-# is built for (csrc/matmul_i8.cu)
+# the schedules and, per schedule, the K depths of a staged tile the
+# mma.sync kernel is built for (csrc/matmul_i8.cu); the wgmma kernel
+# (csrc/matmul_i8_wgmma.cu) stages 128 bytes of K whatever bk says
 MATMUL_BK = {"kloop": (64, 128), "astat": (64,)}
+# the product kernel: "auto" takes csrc/matmul_i8_wgmma.cu wherever TMA can
+# address the operands, else csrc/matmul_i8.cu (_product_route); "mma_sync"
+# takes the latter on any operands
+MATMUL_KERNELS = ("auto", "mma_sync")
 
 
 def matmul_i8_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Plain version of the product kernel: the exact batched product as
-    int32. On the CPU in int64, whose cast wraps as the kernel's int32 sums
+    """Plain version of the product kernels: the exact batched product as
+    int32. On the CPU in int64, whose cast wraps as the kernels' int32 sums
     do; on the card in f64, exact while every |sum| < 2^31."""
     wide = torch.int64 if a.device.type == "cpu" else torch.float64
     return torch.matmul(a.to(wide), b.to(wide)).to(torch.int32)
@@ -570,47 +627,93 @@ def _b_layout(b: torch.Tensor) -> bool:
                      "transposed view of (nu, n, k) row-major storage")
 
 
+def _product_route(a: torch.Tensor, b: torch.Tensor,
+                   kernel: str = "auto") -> str:
+    """The kernel that computes a @ b: "wgmma" where TMA can address the
+    operands -- k a multiple of 16 (16-byte row strides), k > 0, A's base and
+    (if B is k-contiguous) B's 16-byte aligned; n-contiguous B goes through a
+    transposed scratch that is aligned -- else "mma_sync", as it is for
+    kernel="mma_sync"."""
+    if kernel not in MATMUL_KERNELS:
+        raise ValueError(f"matmul_i8: kernel must be one of {MATMUL_KERNELS}, "
+                         f"got {kernel!r}")
+    if kernel == "mma_sync":
+        return kernel
+    k = a.shape[-1]
+    tma = (k > 0 and k % 16 == 0 and a.data_ptr() % 16 == 0
+           and (not _b_layout(b) or b.data_ptr() % 16 == 0))
+    return "wgmma" if tma else "mma_sync"
+
+
+def transpose_i8(b: torch.Tensor) -> torch.Tensor:
+    """(nu, k, n) row-major int8 -> a (nu, k, n) view of (nu, n, k) storage
+    holding the same values (k-contiguous planes), by csrc/matmul_i8_wgmma.cu's
+    byte-transposing pass on the card."""
+    if b.device.type == "cpu":
+        return b.transpose(-1, -2).contiguous().transpose(-1, -2)
+    nu, k, n = b.shape
+    out = torch.empty((nu, n, k), dtype=torch.int8, device=b.device)
+    if out.numel():
+        _launch("transpose_i8", b.data_ptr(), out.data_ptr(), nu, k, n,
+                _stream(b))
+    return out.transpose(-1, -2)
+
+
 def matmul_i8(a: torch.Tensor, b: torch.Tensor, schedule: str = "kloop",
-              bk: int = 64) -> torch.Tensor:
+              bk: int = 64, kernel: str = "auto") -> torch.Tensor:
     """(nu, m, k) int8 @ (nu, k, n) int8 -> (nu, m, n) int32, exact while no
     sum leaves int32 (past that it wraps, as torch._int_mm's does).
 
-    schedule "kloop": one thread block per output tile, K innermost (the
-    probes' K-sequential and flat K-loop products); "astat": one block per
-    (plane, row block) sweeping every column block, so that its rows of A
-    are re-read from L2 (the A-stationary and full-K ones). bk is the K depth
-    of a staged tile (MATMUL_BK). A is row-major; B is n-contiguous or
-    k-contiguous (_b_layout), the latter as the main path's planes come."""
+    kernel (MATMUL_KERNELS): "auto" takes the wgmma + TMA kernel wherever TMA
+    can address the operands (_product_route), else the mma.sync one, which
+    "mma_sync" takes on any operands. schedule "kloop": K innermost, tiles in
+    a grouped raster (wgmma) or one thread block per output tile (mma.sync)
+    -- the probes' K-sequential and flat K-loop products; "astat": every
+    column tile of a row block in turn, so that its rows of A are re-read
+    from L2 (the A-stationary and full-K ones). bk is the mma.sync kernel's
+    K depth of a staged tile (MATMUL_BK; the wgmma kernel stages 128 bytes
+    of K whatever bk is). A is row-major; B is n-contiguous or k-contiguous
+    (_b_layout), the latter as the main path's planes come; the wgmma kernel
+    reads n-contiguous B through transpose_i8's scratch."""
     if bk not in MATMUL_BK.get(schedule, ()):
         raise ValueError(f"matmul_i8: no {schedule!r} kernel with bk={bk}; "
                          f"built: {MATMUL_BK}")
-    if a.device.type == "cpu":
-        return matmul_i8_plain(a, b)
-    if (a.device.type != "cuda" or b.device != a.device
-            or a.dtype != torch.int8 or b.dtype != torch.int8
-            or a.dim() != 3 or b.dim() != 3):
+    if (a.dtype != torch.int8 or b.dtype != torch.int8 or a.dim() != 3
+            or b.dim() != 3 or b.device != a.device):
         raise ValueError("matmul_i8: a and b must be 3-D int8 tensors on one "
-                         "CUDA device")
+                         "device")
     nu, m, k = a.shape
     if b.shape[0] != nu or b.shape[1] != k:
         raise ValueError(f"matmul_i8: shapes {tuple(a.shape)} and "
                          f"{tuple(b.shape)} do not chain")
     if not a.is_contiguous():
         raise ValueError("matmul_i8: a must be contiguous")
+    route = _product_route(a, b, kernel)
+    if a.device.type == "cpu":
+        return matmul_i8_plain(a, b)
+    if a.device.type != "cuda":
+        raise ValueError(f"matmul_i8: unsupported device {a.device}")
     n = b.shape[2]
     b_kcontig = _b_layout(b)
+    c = torch.empty((nu, m, n), dtype=torch.int32, device=a.device)
+    if not c.numel():
+        return c
+    if route == "wgmma":
+        bt = b if b_kcontig else transpose_i8(b)
+        _launch("matmul_i8_wgmma", a.data_ptr(), bt.data_ptr(), c.data_ptr(),
+                nu, m, n, k, int(schedule == "astat"), _stream(a),
+                count=f"matmul_i8_wgmma_{schedule}")
+        return c
     if max(nu, -(-m // 128)) > 65535:
         raise ValueError("matmul_i8: too many planes or row blocks for the "
                          "grid")
-    c = torch.empty((nu, m, n), dtype=torch.int32, device=a.device)
-    if c.numel():
-        a_vec = k % 16 == 0 and a.data_ptr() % 16 == 0
-        b_vec = (k % 16 == 0 and b.data_ptr() % 16 == 0 if b_kcontig
-                 else n % 4 == 0 and b.data_ptr() % 4 == 0)
-        _launch("matmul_i8", a.data_ptr(), b.data_ptr(), c.data_ptr(), nu, m,
-                n, k, int(b_kcontig), int(schedule == "astat"), bk,
-                int(a_vec), int(b_vec), _stream(a),
-                count=f"matmul_i8_{schedule}")
+    a_vec = k % 16 == 0 and a.data_ptr() % 16 == 0
+    b_vec = (k % 16 == 0 and b.data_ptr() % 16 == 0 if b_kcontig
+             else n % 4 == 0 and b.data_ptr() % 4 == 0)
+    _launch("matmul_i8", a.data_ptr(), b.data_ptr(), c.data_ptr(), nu, m,
+            n, k, int(b_kcontig), int(schedule == "astat"), bk,
+            int(a_vec), int(b_vec), _stream(a),
+            count=f"matmul_i8_{schedule}")
     return c
 
 

@@ -1,33 +1,41 @@
 """Counterpart of tools/probe_fused.py on the card: the batched exact int8
 product (nu, m, k) x (nu, k, n) -> (nu, m, n) int32, K-sequential
-(pallas_matmul_i8_seq) and A-stationary (pallas_matmul_i8_astat), both
-through the hand-written tensor-core kernel (csrc/matmul_i8.cu), beside
+(pallas_matmul_i8_seq) and A-stationary (pallas_matmul_i8_astat), through
+the hand-written tensor-core kernels: the wgmma + TMA one
+(csrc/matmul_i8_wgmma.cu, which the functions take wherever TMA can address
+the operands) and the mma.sync one (csrc/matmul_i8.cu), beside
 core.residue_matmul, one torch._int_mm per plane (the counterpart of "XLA
 batched dot").
 
     python -m gemmul8_tpu_torch.probes.fused
 
-Runs the tool's two sweeps (main, main2) in one table, over the kernel's
-instantiations: the K-loop schedule with 64- and 128-deep K stages and the
-A-stationary one, on the tool's n-contiguous B and on the main path's
-k-contiguous B; `ok` holds rows 0-255 against torch._int_mm.
+Runs the tool's two sweeps (main, main2) in one table, on the tool's
+n-contiguous B (the wgmma rows include the transposing pass) and on the main
+path's k-contiguous B: the wgmma kernel's K-loop (grouped raster) and
+A-stationary schedules, then the mma.sync kernel's instantiations (K-loop
+with 64- and 128-deep K stages, A-stationary). `ok` holds rows 0-255
+against torch._int_mm. torch._int_mm's row takes B k-contiguous: the fair
+comparison is with the k-contiguous rows.
+
+product_rows times the same kernels in turns on given planes with B
+k-contiguous (chip_smoke.py: the DGEMM 8192^3 nu=16 path's own planes).
 """
 from __future__ import annotations
 
 import torch
 
 from .. import core, kernels
-from .timing import cuda_ms, k_contiguous, launches, require_cuda
+from .timing import cuda_ms, in_turns, k_contiguous, launches, require_cuda
 
 
-def matmul_i8_seq(a, b, bk=64):
+def matmul_i8_seq(a, b, bk=64, kernel="auto"):
     """(nu, m, k) i8 x (nu, k, n) i8 -> (nu, m, n) i32; K innermost."""
-    return kernels.matmul_i8(a, b, "kloop", bk)
+    return kernels.matmul_i8(a, b, "kloop", bk, kernel)
 
 
-def matmul_i8_astat(a, b):
+def matmul_i8_astat(a, b, kernel="auto"):
     """A-stationary: each block keeps its rows of A across the column sweep."""
-    return kernels.matmul_i8(a, b, "astat", 64)
+    return kernels.matmul_i8(a, b, "astat", 64, kernel)
 
 
 def random_planes(nu, m, k, n, seed, device="cuda"):
@@ -58,6 +66,46 @@ def report(rows, name, fn, out_rows, ref, ops, reps, shape=None):
     return row
 
 
+def product_fns(a, b):
+    """The product kernels on (nu, m, k) A and k-contiguous B, beside
+    torch._int_mm x nu: the wgmma kernel's two rasters (the route of such
+    planes, kernels._product_route) and the mma.sync kernel's
+    instantiations."""
+    fns = {"torch._int_mm x nu": lambda: core.residue_matmul(a, b)}
+    for schedule in ("kloop", "astat"):
+        fns[f"wgmma {schedule}"] = (
+            lambda s=schedule: kernels.matmul_i8(a, b, s))
+    for schedule, bk in (("kloop", 64), ("kloop", 128), ("astat", 64)):
+        fns[f"mma.sync {schedule} bk{bk}"] = (
+            lambda s=schedule, d=bk: kernels.matmul_i8(a, b, s, d,
+                                                       "mma_sync"))
+    return fns
+
+
+def product_rows(a, b, reps=5, check_rows=256):
+    """In-turn times (timing.in_turns) of product_fns(a, b), each held on
+    rows 0..check_rows of every plane against torch._int_mm first; returns
+    the rows (name, ms, pass1_ms, pass2_ms, tops, ok)."""
+    if kernels._product_route(a, b) != "wgmma":
+        raise ValueError("product_rows: the planes do not take the wgmma "
+                         "route")
+    nu, m, k = a.shape
+    ops = 2.0 * nu * m * b.shape[2] * k
+    ref = core.residue_matmul(a[:, :check_rows].contiguous(), b)
+    fns = product_fns(a, b)
+    ok = {}
+    for name, fn in fns.items():
+        ok[name] = bool(torch.equal(fn()[:, :check_rows], ref))
+        torch.cuda.empty_cache()
+    rows = []
+    for name, (ms, ms1, ms2) in in_turns(fns, reps).items():
+        rows.append(dict(name=name, ms=ms, pass1_ms=ms1, pass2_ms=ms2,
+                         tops=ops / (ms * 1e-3) / 1e12, ok=ok[name]))
+        print(f"product {name}: {ms:9.3f} ms ({ms1:.3f}, {ms2:.3f})  "
+              f"{rows[-1]['tops']:7.1f} TOPS  ok={ok[name]}", flush=True)
+    return rows
+
+
 def main(nu=16, m=4096, seed=0, reps=5):
     """Both sweeps at nu planes of m x m x m; returns the rows (name, ms,
     tops, ok, launches)."""
@@ -71,12 +119,17 @@ def main(nu=16, m=4096, seed=0, reps=5):
     report(rows, "torch._int_mm x nu", lambda: core.residue_matmul(a, b_kc),
            256, ref, ops, reps)
     for layout, bb in (("B n-contiguous", b), ("B k-contiguous", b_kc)):
-        for bk in kernels.MATMUL_BK["kloop"]:
-            report(rows, f"seq bk{bk} {layout}",
-                   lambda bk=bk, bb=bb: matmul_i8_seq(a, bb, bk), 256, ref,
-                   ops, reps)
+        report(rows, f"seq {layout}", lambda bb=bb: matmul_i8_seq(a, bb),
+               256, ref, ops, reps)
         report(rows, f"astat {layout}", lambda bb=bb: matmul_i8_astat(a, bb),
                256, ref, ops, reps)
+        for bk in kernels.MATMUL_BK["kloop"]:
+            report(rows, f"mma.sync seq bk{bk} {layout}",
+                   lambda bk=bk, bb=bb: matmul_i8_seq(a, bb, bk, "mma_sync"),
+                   256, ref, ops, reps)
+        report(rows, f"mma.sync astat {layout}",
+               lambda bb=bb: matmul_i8_astat(a, bb, "mma_sync"), 256, ref,
+               ops, reps)
     if not all(r["ok"] for r in rows):
         raise AssertionError("probes.fused: a product differs from "
                              "torch._int_mm")

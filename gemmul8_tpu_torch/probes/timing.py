@@ -39,6 +39,19 @@ def cuda_ms(fn, reps: int = 5, warmup: int = 1) -> float:
     return statistics.median(cuda_times(fn, reps, warmup))
 
 
+def in_turns(fns: dict, reps: int = 5) -> dict:
+    """Each fn() timed `reps` times per pass, in two passes (the dict's order,
+    then the reverse), so that every fn meets the same clocks; returns
+    {name: (median of all, pass-1 median, pass-2 median)} in ms."""
+    times = {name: [] for name in fns}
+    for order in (list(fns), list(reversed(fns))):
+        for name in order:
+            times[name].append(cuda_times(fns[name], reps))
+            torch.cuda.empty_cache()
+    return {name: (statistics.median(t[0] + t[1]), statistics.median(t[0]),
+                   statistics.median(t[1])) for name, t in times.items()}
+
+
 def launches() -> int:
     """All kernel launches counted so far (kernels.LAUNCHES)."""
     return sum(kernels.LAUNCHES.values())

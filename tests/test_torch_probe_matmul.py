@@ -1,6 +1,7 @@
-"""The port's int8 products (kernels.matmul_i8, csrc/matmul_i8.cu's plain
-version, driven through gemmul8_tpu_torch.probes) bit-equal to the probe
-tools' Pallas products on the CPU:
+"""The port's int8 products (kernels.matmul_i8: the plain version of
+csrc/matmul_i8_wgmma.cu and csrc/matmul_i8.cu, on either route, driven
+through gemmul8_tpu_torch.probes) bit-equal to the probe tools' Pallas
+products on the CPU:
 
   * tools/probe_fused.py pallas_matmul_i8_seq / _astat (K7), in TPU
     interpret mode;
@@ -78,6 +79,9 @@ def k7_outputs():
     ("seq", lambda a, b: fused.matmul_i8_seq(a, k_contiguous(b))),
     ("astat", fused.matmul_i8_astat),
     ("astat", lambda a, b: fused.matmul_i8_astat(a, k_contiguous(b))),
+    ("seq", lambda a, b: fused.matmul_i8_seq(a, b, 128, "mma_sync")),
+    ("astat", lambda a, b: fused.matmul_i8_astat(a, k_contiguous(b),
+                                                 kernel="mma_sync")),
 ])
 def test_k7_bit_equal_to_probe_fused(k7_outputs, probe, port):
     a, b, ref = k7_outputs
@@ -98,22 +102,38 @@ def interpreted_matmul3(monkeypatch):
     return probe_matmul3
 
 
-@pytest.mark.parametrize("name,blocks", [
+K9_BLOCKS = [
     ("mm_flat_kloop", dict(bm=128, bn=128, bk=256)),
     ("mm_flat_fullk", dict(bm=128, bn=128)),
     ("mm_flat_kloop_multidot", dict(bm=128, bn=128, bk=128, nd=2)),
-])
-def test_k9_bit_equal_to_probe_matmul3(interpreted_matmul3, name, blocks):
+]
+
+
+def _check_k9(tool, name, blocks, **port_kw):
     a, b = _planes(1)
     dims = dict(nu=NU, m=M, k=K, n=N)
     a2, b2 = a.reshape(NU * M, K), b.reshape(NU * K, N)
-    ref = np.asarray(getattr(interpreted_matmul3, name)(
+    ref = np.asarray(getattr(tool, name)(
         jnp.asarray(a2), jnp.asarray(b2), **dims, **blocks))
     got = getattr(matmul3, name)(torch.from_numpy(a2), torch.from_numpy(b2),
-                                 **dims)
+                                 **dims, **port_kw)
     assert got.dtype == torch.int32 and got.shape == (NU * M, N)
     np.testing.assert_array_equal(got.numpy(), ref)
     np.testing.assert_array_equal(ref.reshape(NU, M, N), _exact(a, b))
+
+
+@pytest.mark.parametrize("name,blocks", K9_BLOCKS)
+def test_k9_bit_equal_to_probe_matmul3(interpreted_matmul3, name, blocks):
+    _check_k9(interpreted_matmul3, name, blocks)
+
+
+@pytest.mark.parametrize("kernel", ["mma_sync"])
+@pytest.mark.parametrize("name,blocks", K9_BLOCKS)
+def test_k9_each_kernel_bit_equal_to_probe_matmul3(interpreted_matmul3, name,
+                                                   blocks, kernel):
+    """The flat functions with the mma.sync kernel named (the default
+    "auto" is test_k9_bit_equal_to_probe_matmul3), against the same tool."""
+    _check_k9(interpreted_matmul3, name, blocks, kernel=kernel)
 
 
 def test_k9_tpu_interpret_mode_refuses_its_grid():
@@ -165,6 +185,72 @@ def test_matmul_i8_cpu_takes_plain_version_and_checks_arguments():
         kernels._b_layout(torch.zeros((2, 32, 16), dtype=torch.int8)[:, :, ::2])
     assert kernels._b_layout(b) is False
     assert kernels._b_layout(k_contiguous(b)) is True
+
+
+def _misaligned(t):
+    """A copy of t whose storage starts one byte past an aligned address."""
+    flat = torch.zeros(t.numel() + 1, dtype=t.dtype)[1:]
+    return flat.view(t.shape).copy_(t)
+
+
+@pytest.mark.parametrize("k,want", [(16, "wgmma"), (336, "wgmma"),
+                                    (4096, "wgmma"), (97, "mma_sync"),
+                                    (33, "mma_sync"), (8, "mma_sync"),
+                                    (0, "mma_sync")])
+def test_product_route_by_k(k, want):
+    """TMA needs 16-byte row strides (k % 16 == 0) and k > 0; both B
+    layouts take the same route."""
+    a, b = (torch.from_numpy(x) for x in _planes(6, 2, 20, k, 24))
+    assert kernels._product_route(a, b) == want
+    assert kernels._product_route(a, k_contiguous(b)) == want
+    assert kernels._product_route(a, b, "auto") == want
+    assert kernels._product_route(a, b, "mma_sync") == "mma_sync"
+
+
+def test_product_route_by_alignment():
+    """A misaligned A, or a misaligned k-contiguous B, goes to mma.sync;
+    n-contiguous B is read through an aligned transposed scratch, so its own
+    alignment does not matter."""
+    a, b = (torch.from_numpy(x) for x in _planes(7, 2, 20, 64, 24))
+    b_kc = k_contiguous(b)
+    assert kernels._product_route(a, b) == "wgmma"
+    assert kernels._product_route(_misaligned(a), b) == "mma_sync"
+    assert kernels._product_route(a, _misaligned(b)) == "wgmma"
+    assert kernels._product_route(a, b_kc) == "wgmma"
+    mis = _misaligned(b_kc.transpose(-1, -2)).transpose(-1, -2)
+    assert kernels._b_layout(mis) is True and mis.data_ptr() % 16 != 0
+    assert kernels._product_route(a, mis) == "mma_sync"
+    for kernel in ("wgmma", "cublas"):
+        with pytest.raises(ValueError, match="kernel must be one of"):
+            kernels._product_route(a, b, kernel)
+
+
+@pytest.mark.parametrize("kernel", kernels.MATMUL_KERNELS)
+@pytest.mark.parametrize("schedule,bk", [("kloop", 64), ("kloop", 128),
+                                         ("astat", 64)])
+def test_matmul_i8_cpu_every_route_takes_plain_version(kernel, schedule, bk):
+    """On the CPU each route and schedule returns matmul_i8_plain and
+    launches nothing."""
+    kernels.reset_launches()
+    for k in (48, 97):
+        a, b = (torch.from_numpy(x) for x in _planes(8, 2, 36, k, 20))
+        for bb in (b, k_contiguous(b), _misaligned(b)):
+            got = kernels.matmul_i8(a, bb, schedule, bk, kernel)
+            assert torch.equal(got, kernels.matmul_i8_plain(a, b))
+    assert not any(kernels.LAUNCHES.values())
+    assert set(kernels.LAUNCHES) >= {"matmul_i8_wgmma_kloop",
+                                     "matmul_i8_wgmma_astat", "transpose_i8"}
+
+
+def test_transpose_i8_cpu_plain():
+    """transpose_i8 on the CPU: the same values as a view of (nu, n, k)
+    storage, nothing launched."""
+    kernels.reset_launches()
+    _, b = (torch.from_numpy(x) for x in _planes(9, 3, 5, 40, 24))
+    t = kernels.transpose_i8(b)
+    assert torch.equal(t, b) and t.transpose(-1, -2).is_contiguous()
+    assert kernels._b_layout(t) is True
+    assert not any(kernels.LAUNCHES.values())
 
 
 @pytest.mark.parametrize("main", [fused.main, matmul3.main])
