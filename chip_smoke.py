@@ -241,6 +241,24 @@ def run_counted(fn):
     return out, counts
 
 
+def log_build_report(kernels):
+    """Each source's kernels with their registers and spills (nvcc -Xptxas
+    -v, kernels.BUILD_LOG); fails if a source has no report or the wgmma
+    product's setmaxnreg was ignored (ptxas warning C7508)."""
+    import os
+    sources = sorted(n for n in os.listdir(kernels._CSRC) if n.endswith(".cu"))
+    for name in sources:
+        check(name in kernels.BUILD_LOG, f"{name}: no ptxas report")
+        text = kernels.BUILD_LOG[name]
+        rows = kernels.ptxas_report(text)
+        check(rows, f"{name}: no kernel in its ptxas report")
+        log(f"ptxas {name}: " + "; ".join(
+            f"{k} {r} registers, spills {st}/{ld} bytes"
+            for k, r, st, ld in rows))
+    check("C7508" not in kernels.BUILD_LOG["matmul_i8_wgmma.cu"],
+          "matmul_i8_wgmma.cu: setmaxnreg ignored (C7508)")
+
+
 # ---------------------------------------------------------------------------
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -293,6 +311,84 @@ def epilogue_cases(rng):
                         kernels.fused_epilogue_plain(chi, sa, sb, nu, "INT8",
                                                      out),
                         f"epilogue nu={nu} chunked={chunked} out={out}")
+
+
+# ragged shapes of K2 and K4: m*n odd, one row, one column, n not a multiple
+# of the columns a thread takes (4 in K2, 2 in K4), and whole ones
+RAGGED = ((129, 263), (1, 263), (129, 1), (33, 20), (31, 9), (17, 264),
+          (64, 256))
+
+
+def ragged_epilogue_cases(rng):
+    """K2 (int32 input: f32 and f64 out; int8 input: f32 and f64) and K4
+    (planar f32 and f64, interleaved c64 and c128) against their plain
+    versions on RAGGED, once on a stack that starts off 16-byte alignment,
+    and twice with shifts up to +-600, whose sums take some elements' limb
+    exponents outside the one-multiply f64 range (crt.cuh: emit_f64_direct).
+    Checks that each kernel took both its routes: whole vectors and one
+    column at a time (kernels._epilogue_vec)."""
+    from gemmul8_tpu_torch import kernels
+    routes = {}
+
+    def tensor(x, misalign):
+        """x on the card; misaligned: a contiguous view one element into a
+        larger buffer."""
+        t = torch.from_numpy(x).cuda()
+        if not misalign:
+            return t
+        buf = torch.empty(t.numel() + 16, dtype=t.dtype, device=t.device)
+        return buf[1:1 + t.numel()].view(t.shape).copy_(t)
+
+    def route(key, n, cols, chi):
+        routes.setdefault(key, set()).add(kernels._epilogue_vec(n, cols, chi))
+
+    cases = [(m, n, False, False) for m, n in RAGGED] + [
+        (17, 264, True, False), (129, 263, False, True), (64, 256, False, True)]
+    for m, n, misalign, wide in cases:
+        lo, hi = (-600, 600) if wide else (-40, 90)
+        sa = torch.from_numpy(rng.integers(lo, hi, m).astype(np.int32)).cuda()
+        sb = torch.from_numpy(rng.integers(lo, hi, n).astype(np.int32)).cuda()
+        shape = (f"{m}x{n}{' misaligned' if misalign else ''}"
+                 f"{' wide shifts' if wide else ''}")
+        for nu in (8, 16, 20):
+            chi = tensor(rng.integers(-2 ** 31, 2 ** 31, (nu, m, n))
+                         .astype(np.int32), misalign)
+            route("K2 int32", n, kernels.EPILOGUE_COLS["fused_epilogue"], chi)
+            for out in (torch.float32, torch.float64):
+                compare(f"fused_epilogue[{TAG[out]}]",
+                        kernels.fused_epilogue(chi, sa, sb, nu, "INT8", out),
+                        kernels.fused_epilogue_plain(chi, sa, sb, nu, "INT8",
+                                                     out),
+                        f"epilogue {shape} nu={nu} out={out}")
+        for nu in (16, 20):
+            mid = tensor(rng.integers(-128, 128, (nu, m, n)).astype(np.int8),
+                         misalign)
+            route("K2 int8", n, kernels.EPILOGUE_COLS["fused_epilogue"], mid)
+            for out in (torch.float32, torch.float64):
+                compare("fused_epilogue[c128 nu=20 split]",
+                        kernels.fused_epilogue(mid, sa, sb, nu, "INT8", out),
+                        kernels.fused_epilogue_plain(mid, sa, sb, nu, "INT8",
+                                                     out),
+                        f"epilogue int8 {shape} nu={nu} out={out}")
+        for nu in (8, 13, 16):
+            chi = tensor(rng.integers(-2 ** 31, 2 ** 31, (3 * nu, m, n))
+                         .astype(np.int32), misalign)
+            route("K4", n, kernels.EPILOGUE_COLS["fused_epilogue_complex"], chi)
+            for out in (torch.complex128, torch.float64, torch.complex64,
+                        torch.float32):
+                if nu > 13 and out in (torch.complex64, torch.float32):
+                    continue
+                key = "fused_epilogue_complex[" + (
+                    "c64]" if out in (torch.complex64, torch.float32)
+                    else "c128]")
+                compare(key, kernels.fused_epilogue_complex(
+                            chi, sa, sb, nu, "INT8", out),
+                        kernels.fused_epilogue_complex_plain(
+                            chi, sa, sb, nu, "INT8", out),
+                        f"complex epilogue {shape} nu={nu} out={out}")
+    for key, seen in routes.items():
+        check(seen == {True, False}, f"{key}: routes taken {seen}")
+    log(f"ragged K2/K4 cases: both routes taken by {sorted(routes)}")
 
 
 def lane_products(rng, nu, m, n, chunked):
@@ -1698,11 +1794,7 @@ def main():
     t0 = time.perf_counter()
     lib = kernels.build()
     log(f"build: {time.perf_counter() - t0:.1f}s {lib}")
-    for name in kernels.PTXAS_VERBOSE:
-        check(name in kernels.BUILD_LOG, f"{name}: no ptxas report")
-        text = kernels.BUILD_LOG[name]
-        log(f"nvcc -Xptxas -v {name}:\n{text.strip()}")
-        check("C7508" not in text, f"{name}: setmaxnreg ignored (C7508)")
+    log_build_report(kernels)
     log_phase("phase 2 (build)")
 
     # phase 3: kernels against their plain versions, bit for bit
@@ -1717,6 +1809,9 @@ def main():
     encode_cases(rng, np.random.default_rng(SEED + 5))
     epilogue_cases(rng)
     complex_cases(crng)
+    # the ragged K2 and K4 cases added with their redesign, on a stream of
+    # their own
+    ragged_epilogue_cases(np.random.default_rng(SEED + 7))
     fp8_encode_cases(frng)
     fp8_epilogue_cases(frng)
     fp8_exact = fp8_exactness_cases()

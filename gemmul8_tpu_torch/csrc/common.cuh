@@ -50,6 +50,8 @@ struct EpiloguePlan {
     int w16[G8_MAX_NU][G8_MAX_L];    // 16-bit slices of qPi >> base
     int p16[G8_MAX_L];               // 16-bit slices of P >> base
     float s1[G8_MAX_L], s2[G8_MAX_L];  // static pow2 pair of limb li's unit
+    unsigned magic[G8_MAX_NU];       // floor(2^32 / p_i)
+    unsigned wrap_off[G8_MAX_NU];    // (floor(p_i / 2) - 2^31) mod p_i
 };
 
 // the FP8 epilogue's plan: the CRT plan of the FP8 moduli and, per modulus,
@@ -80,13 +82,6 @@ struct EpiloguePlanMxu {
 __device__ __forceinline__ int floordiv(int a, int b) {
     int q = a / b;
     return (q * b > a) ? q - 1 : q;
-}
-
-// unique representative of a mod p in [-p/2, p/2)
-__device__ __forceinline__ int wrap_mod(int a, int p) {
-    int r = a % p;
-    if (r < 0) r += p;
-    return (2 * r >= p) ? r - p : r;
 }
 
 // exact 2^e by exponent-field assembly (the field wraps outside the range,

@@ -28,51 +28,145 @@
 //   Bound on the H100: device memory, 12nu bytes read and 2nu written per
 //   element: at 8192^2, nu=20, 18.8 GB, 5.6 ms.
 //
-// Design: one thread per element along n, as in the real epilogue, so each of
-// the 3nu planes is read coalesced; limbs stay in registers; the static plan
-// travels as a __grid_constant__ kernel parameter.
+// Design of K4: K2's (epilogue.cu), with two pipelines.
+//   - crt.cuh's 2-D tiling and division-free wrap: each thread takes one row
+//     and kCols = 2 consecutive columns, reads the row's shift once and
+//     divides no index.
+//   - Where every row's columns are whole pairs (n even, the pointers 16-byte
+//     aligned: the wrapper's vec flag), each lane of a modulus is one 8-byte
+//     load per thread, and kMods moduli's 3 x kMods loads (96 bytes) are
+//     issued before the first is used. The output goes out as one 16-byte
+//     store per element (c128), per pair of elements (c64) or per pair of Re
+//     or Im values (planar f64), 8 bytes per pair for planar f32. Otherwise
+//     each thread loads and stores its columns one by one.
+//   - Built for each limb count L, f64 out through emit_f64_direct, as K2.
+//   - Two columns, not K2's four, and registers capped so that 28 warps fit
+//     an SM (72 a thread): two 7-limb pipelines of four columns and their
+//     loads leave too few threads to keep the loads in flight; under the cap
+//     a few bytes spill (chip_smoke.py phase 2 prints registers and spills),
+//     and the kernel runs faster on the card than uncapped
+//     (probes.epilogue_tiles times each choice undone).
+// Design of K5: one thread per element along n, the 3nu planes read
+// coalesced, and the division-free wrap.
+#include <type_traits>
+
 #include "crt.cuh"
 
 namespace {
 
-template <bool F64>
-__global__ void epilogue_complex_kernel(const int* __restrict__ chi,
-                                        const int* __restrict__ sfta,
-                                        const int* __restrict__ sftb,
-                                        void* __restrict__ out_re,
-                                        void* __restrict__ out_im,
-                                        int stride, int m, int n,
-                                        const __grid_constant__ EpiloguePlan plan) {
-    const size_t mn = (size_t)m * n;
-    const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-    if (idx >= mn) return;
-    const int i = (int)(idx / n);
-    const int j = (int)(idx - (size_t)i * n);
-    const int nu = plan.nu;
+constexpr int kCols = 2;            // columns a thread (K4)
+constexpr int kMods = 4;            // moduli loaded before the first is used
+// blocks an SM: 28 warps, which caps registers at 72 a thread
+constexpr int kMinBlocks = 28 / G8_TILE_ROWS;
 
-    int lre[G8_MAX_L], lim[G8_MAX_L];
-    limbs_zero(lre);
-    limbs_zero(lim);
-    for (int q = 0; q < nu; ++q) {
-        int re, im;
-        lane_recombine_3m(chi[q * mn + idx], chi[(nu + q) * mn + idx],
-                          chi[(2 * nu + q) * mn + idx], plan.p[q], re, im);
-        limbs_mac(lre, re, plan, q);
-        limbs_mac(lim, im, plan, q);
+template <bool F64, bool VEC, int STRIDE, int L>
+__global__ void __launch_bounds__(32 * G8_TILE_ROWS, kMinBlocks)
+epilogue_complex_kernel(const int* __restrict__ chi,
+                        const int* __restrict__ sfta,
+                        const int* __restrict__ sftb,
+                        void* __restrict__ out_re, void* __restrict__ out_im,
+                        int m, int n,
+                        const __grid_constant__ EpiloguePlan plan) {
+    constexpr int V = kCols;
+    constexpr LimbCount<L> nl{};
+    using O = typename std::conditional<F64, double, float>::type;
+    const Tile t = Tile::make<V>(n);
+    if (t.nv == 0) return;
+    const size_t mn = (size_t)m * n;
+    const int nu = plan.nu;
+    int sb[V];
+#pragma unroll
+    for (int v = 0; v < V; ++v) sb[v] = v < t.nv ? sftb[t.j0 + v] : 0;
+
+    for (int i = t.i0; i < m; i += t.row_step) {
+        const size_t off = (size_t)i * n + t.j0;
+        int lre[V][G8_MAX_L], lim[V][G8_MAX_L];
+#pragma unroll
+        for (int v = 0; v < V; ++v) {
+            limbs_zero(lre[v]);
+            limbs_zero(lim[v]);
+        }
+        for (int q0 = 0; q0 < nu; q0 += kMods) {
+            int x[kMods][3][V];               // Crr, Cii, Crii of each modulus
+#pragma unroll
+            for (int u = 0; u < kMods; ++u) {
+                if (q0 + u < nu) {
+#pragma unroll
+                    for (int lane = 0; lane < 3; ++lane)
+                        load_cols<V, VEC>(
+                            chi + (size_t)(lane * nu + q0 + u) * mn + off,
+                            t.nv, x[u][lane]);
+                }
+            }
+#pragma unroll
+            for (int u = 0; u < kMods; ++u) {
+                const int q = q0 + u;
+                if (q < nu) {
+#pragma unroll
+                    for (int v = 0; v < V; ++v) {
+                        int re, im;
+                        lane_recombine_3m(x[u][0][v], x[u][1][v], x[u][2][v],
+                                          plan, q, re, im);
+                        limbs_mac(lre[v], re, plan, q, nl);
+                        limbs_mac(lim[v], im, plan, q, nl);
+                    }
+                }
+            }
+        }
+        const int sa = sfta[i];
+        O yre[V], yim[V];
+#pragma unroll
+        for (int v = 0; v < V; ++v) {
+            fold_quotient(lre[v], plan, nl);
+            fold_quotient(lim[v], plan, nl);
+            if constexpr (F64) {
+                yre[v] = emit_f64_direct(lre[v], plan, sa + sb[v], nl);
+                yim[v] = emit_f64_direct(lim[v], plan, sa + sb[v], nl);
+            } else {
+                const Pow2x3 fa = descale_factors(sa);
+                const Pow2x3 fb = descale_factors(sb[v]);
+                yre[v] = emit_f32(lre[v], plan, fa, fb, nl);
+                yim[v] = emit_f32(lim[v], plan, fa, fb, nl);
+            }
+        }
+        O* re = static_cast<O*>(out_re) + off * STRIDE;
+        O* im = static_cast<O*>(out_im) + off * STRIDE;
+        if constexpr (STRIDE == 2) {                   // (re, im) pairs
+            O y[2 * V];
+#pragma unroll
+            for (int v = 0; v < V; ++v) {
+                y[2 * v] = yre[v];
+                y[2 * v + 1] = yim[v];
+            }
+            store_cols<2 * V, VEC>(re, 2 * t.nv, y);
+        } else {
+            store_cols<V, VEC>(re, t.nv, yre);
+            store_cols<V, VEC>(im, t.nv, yim);
+        }
     }
-    fold_quotient(lre, plan);
-    fold_quotient(lim, plan);
-    const size_t o = idx * (size_t)stride;
-    if (F64) {
-        const int ss = sfta[i] + sftb[j];
-        static_cast<double*>(out_re)[o] = emit_f64(lre, plan, ss);
-        static_cast<double*>(out_im)[o] = emit_f64(lim, plan, ss);
-    } else {
-        const Pow2x3 fa = descale_factors(sfta[i]);
-        const Pow2x3 fb = descale_factors(sftb[j]);
-        static_cast<float*>(out_re)[o] = emit_f32(lre, plan, fa, fb);
-        static_cast<float*>(out_im)[o] = emit_f32(lim, plan, fa, fb);
-    }
+}
+
+// the kernel for the plan's L: 2-7 for f64 out, 2-5 for f32 out (24 bits)
+template <bool F64, bool VEC>
+int launch_complex(const int* c, const int* a, const int* b, void* re,
+                   void* im, int stride, int m, int n,
+                   const EpiloguePlan& plan, cudaStream_t st) {
+    dim3 grid, block;
+    tile_grid(m, n, kCols, grid, block);
+    return dispatch_l(plan.L, [&](auto nl) {
+        constexpr int L = decltype(nl)::value;
+        if constexpr (F64 || L <= 5) {
+            if (stride == 2)
+                epilogue_complex_kernel<F64, VEC, 2, L><<<grid, block, 0, st>>>(
+                    c, a, b, re, im, m, n, plan);
+            else
+                epilogue_complex_kernel<F64, VEC, 1, L><<<grid, block, 0, st>>>(
+                    c, a, b, re, im, m, n, plan);
+            return 0;
+        } else {
+            return (int)cudaErrorInvalidValue;
+        }
+    });
 }
 
 __global__ void recombine_3m_kernel(const int* __restrict__ chi,
@@ -86,7 +180,7 @@ __global__ void recombine_3m_kernel(const int* __restrict__ chi,
     for (int q = 0; q < nu; ++q) {
         int re, im;
         lane_recombine_3m(chi[q * mn + idx], chi[(nu + q) * mn + idx],
-                          chi[(2 * nu + q) * mn + idx], plan.p[q], re, im);
+                          chi[(2 * nu + q) * mn + idx], plan, q, re, im);
         out_re[q * mn + idx] = (int8_t)re;
         out_im[q * mn + idx] = (int8_t)im;
     }
@@ -103,31 +197,43 @@ int grid_for(int m, int n, int threads, unsigned* blocks) {
 
 // chi: (3nu, m, n) contiguous int32; sfta: int32 (m); sftb: int32 (n);
 // out_re, out_im: element (i, j) at [(i * n + j) * stride], f64 if out_f64
-// else f32 (stride 1 for planar outputs, 2 for the two halves of a complex
-// tensor). Returns the CUDA error of the launch (0 on success).
+// else f32: stride 1 for planar outputs, 2 for the two halves of a complex
+// tensor (out_im one value after out_re). vec: n even and chi, out_re and
+// out_im (planar) 16-byte aligned (kernels._epilogue_vec).
+// Returns the CUDA error of the launch (0 on success).
 extern "C" int g8_fused_epilogue_complex(const void* chi, const void* sfta,
                                          const void* sftb, void* out_re,
                                          void* out_im, int stride, int out_f64,
-                                         int m, int n, const void* plan_ptr,
-                                         void* stream) {
+                                         int m, int n, int vec,
+                                         const void* plan_ptr, void* stream) {
     const EpiloguePlan& plan = *static_cast<const EpiloguePlan*>(plan_ptr);
+    const size_t elem = out_f64 ? 8 : 4;
+    const uintptr_t ptrs = (uintptr_t)chi | (uintptr_t)out_re
+        | (stride == 1 ? (uintptr_t)out_im : 0);
     if (plan.nu < 1 || plan.nu > G8_MAX_NU || plan.L < 1 || plan.L > G8_MAX_L
-            || stride < 1)
+        || m < 1 || n < 1 || n > 0x7fffffff - 32 * kCols
+        || (stride != 1 && stride != 2)
+        || (stride == 2 && (char*)out_im != (char*)out_re + elem)
+        || (vec && (n % kCols || ptrs % 16)))
         return (int)cudaErrorInvalidValue;
-    const int threads = 256;
-    unsigned blocks;
-    if (int err = grid_for(m, n, threads, &blocks)) return err;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     const int* c = static_cast<const int*>(chi);
     const int* a = static_cast<const int*>(sfta);
     const int* b = static_cast<const int*>(sftb);
-    if (out_f64)
-        epilogue_complex_kernel<true><<<blocks, threads, 0, st>>>(
-            c, a, b, out_re, out_im, stride, m, n, plan);
+    int err;
+    if (out_f64 && vec)
+        err = launch_complex<true, true>(c, a, b, out_re, out_im, stride, m,
+                                         n, plan, st);
+    else if (out_f64)
+        err = launch_complex<true, false>(c, a, b, out_re, out_im, stride, m,
+                                          n, plan, st);
+    else if (vec)
+        err = launch_complex<false, true>(c, a, b, out_re, out_im, stride, m,
+                                          n, plan, st);
     else
-        epilogue_complex_kernel<false><<<blocks, threads, 0, st>>>(
-            c, a, b, out_re, out_im, stride, m, n, plan);
-    return (int)cudaGetLastError();
+        err = launch_complex<false, false>(c, a, b, out_re, out_im, stride, m,
+                                           n, plan, st);
+    return err ? err : (int)cudaGetLastError();
 }
 
 // chi: (3nu, m, n) contiguous int32; out_re, out_im: (nu, m, n) contiguous

@@ -8,17 +8,46 @@
 // Each helper follows its plain PyTorch twin op for op (core.mod_reduce,
 // complex_gemm._recombine_3m, ff.crt_limbs_matrix, ff.fold_quotient,
 // ff.reconstruct_scale_ff, ff.descale_pair). The tensor-core CRT epilogue
-// (epilogue_mxu.cu) shares the fold and the descale.
+// (epilogue_mxu.cu) shares the fold and the descale; the FP8 epilogue
+// (epilogue_fp8.cu) the wrap.
+//
+// Below them, the 2-D tiling and the column loads of K2 and K4.
 #pragma once
+
+#include <cstring>
 
 #include "common.cuh"
 
-// the unique representative in [-p/2, p/2) of any int32 value (a mask for
-// p = 256)
-__device__ __forceinline__ int wrap_any(int v, int p) {
-    return (p & (p - 1)) == 0
-        ? (int)(((unsigned)v + (unsigned)(p / 2)) & (unsigned)(p - 1)) - p / 2
-        : wrap_mod(v, p);
+// wrap(v mod p_q) in [-p/2, p/2) of any int32 v, without a division: u =
+// v + 2^31 (the sign bit flipped) lies in [0, 2^32); with magic =
+// floor(2^32 / p), q = umulhi(u, magic) undershoots floor(u / p) by at most
+// 1, so r = u - q p lies in [0, 2p), and one unsigned min takes it into
+// [0, p). r = v + 2^31 mod p, so adding wrap_off = (floor(p/2) - 2^31) mod p
+// and one more min gives (v + floor(p/2)) mod p, whose less floor(p/2) is
+// the wrap. A power-of-two modulus (256; 1024 among the FP8 moduli) is
+// wrapped by a mask.
+__device__ __forceinline__ int wrap_any(int v, const EpiloguePlan& plan,
+                                        int q) {
+    const int p = plan.p[q];
+    if ((p & (p - 1)) == 0)
+        return (int)(((unsigned)v + (unsigned)(p >> 1)) & (unsigned)(p - 1))
+            - (p >> 1);
+    const unsigned up = (unsigned)p;
+    const unsigned u = (unsigned)v ^ 0x80000000u;
+    unsigned r = u - __umulhi(u, plan.magic[q]) * up;
+    r = min(r, r - up);
+    r += plan.wrap_off[q];
+    r = min(r, r - up);
+    return (int)r - (p >> 1);
+}
+
+// the wrap of v in [-3p/2, 3p/2): one balanced correction each way. It is
+// exact on int8 input for every INT8 modulus (all above 128) and on the 3M
+// recombine's re and im.
+__device__ __forceinline__ int wrap_small(int v, int p) {
+    if (2 * v >= p) v -= p;
+    if (2 * v < -p) v += p;
+    return v;
 }
 
 // 3M recombine of one modulus' three lane products (raw int32 sums):
@@ -26,16 +55,13 @@ __device__ __forceinline__ int wrap_any(int v, int p) {
 // The wrapped lanes put re in (-p, p) and im in (-3p/2, 3p/2), so one
 // correction each way lands both.
 __device__ __forceinline__ void lane_recombine_3m(int crr, int cii, int cri,
-                                                  int p, int& re, int& im) {
-    crr = wrap_any(crr, p);
-    cii = wrap_any(cii, p);
-    cri = wrap_any(cri, p);
-    re = crr - cii;
-    if (2 * re >= p) re -= p;
-    if (2 * re < -p) re += p;
-    im = cri - crr - cii;
-    if (2 * im >= p) im -= p;
-    if (2 * im < -p) im += p;
+                                                  const EpiloguePlan& plan,
+                                                  int q, int& re, int& im) {
+    crr = wrap_any(crr, plan, q);
+    cii = wrap_any(cii, plan, q);
+    cri = wrap_any(cri, plan, q);
+    re = wrap_small(crr - cii, plan.p[q]);
+    im = wrap_small(cri - crr - cii, plan.p[q]);
 }
 
 __device__ __forceinline__ void limbs_zero(int* lim) {
@@ -43,17 +69,34 @@ __device__ __forceinline__ void limbs_zero(int* lim) {
     for (int li = 0; li < G8_MAX_L; ++li) lim[li] = 0;
 }
 
+// The limb helpers take the limb count L last: the plan's L (an int), or a
+// LimbCount for kernels built for one L (K2, K4), in which every guard on L
+// below folds away. The overloads without it take plan.L.
+template <int N>
+struct LimbCount {
+    static constexpr int value = N;
+    __host__ __device__ constexpr operator int() const { return N; }
+};
+
 // lim += r * (16-bit slices of qP_q >> base); |r * w16| < 2^26, nu-term
 // sums < 2^31
+template <typename LN>
 __device__ __forceinline__ void limbs_mac(int* lim, int r,
-                                          const EpiloguePlan& plan, int q) {
+                                          const EpiloguePlan& plan, int q,
+                                          LN L) {
 #pragma unroll
     for (int li = 0; li < G8_MAX_L; ++li)
-        if (li < plan.L) lim[li] += r * plan.w16[q][li];
+        if (li < L) lim[li] += r * plan.w16[q][li];
+}
+
+__device__ __forceinline__ void limbs_mac(int* lim, int r,
+                                          const EpiloguePlan& plan, int q) {
+    limbs_mac(lim, r, plan, q, plan.L);
 }
 
 // balanced carry pass: every limb but the top into [-2^15, 2^15)
-__device__ __forceinline__ void carry16(int* lim, int L) {
+template <typename LN>
+__device__ __forceinline__ void carry16(int* lim, LN L) {
 #pragma unroll
     for (int li = 0; li < G8_MAX_L - 1; ++li) {
         if (li < L - 1) {
@@ -66,9 +109,10 @@ __device__ __forceinline__ void carry16(int* lim, int L) {
 
 // carry, quotient rint(t / P) from the top (up to three) balanced limbs in
 // f32, fold -quot * P, carry again: the limbs then sum to t, |t| < P/2
+template <typename LN>
 __device__ __forceinline__ void fold_quotient(int* lim,
-                                              const EpiloguePlan& plan) {
-    const int L = plan.L;
+                                              const EpiloguePlan& plan,
+                                              LN L) {
     carry16(lim, L);
     float t_top = 0.0f;
     bool first = true;
@@ -86,17 +130,60 @@ __device__ __forceinline__ void fold_quotient(int* lim,
     carry16(lim, L);
 }
 
+__device__ __forceinline__ void fold_quotient(int* lim,
+                                              const EpiloguePlan& plan) {
+    fold_quotient(lim, plan, plan.L);
+}
+
 // f64 out: each limb scaled by 2^(base + 16*li - ss) in f64 over the full
 // exponent range (pow2_scale's floor split), summed highest first
+template <typename LN>
 __device__ __forceinline__ double emit_f64(const int* lim,
-                                           const EpiloguePlan& plan, int ss) {
+                                           const EpiloguePlan& plan, int ss,
+                                           LN L) {
     double acc = 0.0;
     bool first = true;
 #pragma unroll
     for (int li = G8_MAX_L - 1; li >= 0; --li) {
-        if (li < plan.L) {
+        if (li < L) {
             const double term = pow2_scale_d((double)lim[li],
                                              plan.base + 16 * li - ss);
+            acc = first ? term : acc + term;
+            first = false;
+        }
+    }
+    return acc;
+}
+
+__device__ __forceinline__ double emit_f64(const int* lim,
+                                           const EpiloguePlan& plan, int ss) {
+    return emit_f64(lim, plan, ss, plan.L);
+}
+
+// emit_f64's value with one multiply a limb where every limb's exponent
+// s = base + 16*li - ss lies in [-1022, 992] (G8_DIRECT_LO, G8_DIRECT_HI):
+// a limb x is an int (0, or 1 <= |x| <= 2^31), so x * 2^s and each partial
+// product of pow2_scale's floor split (exponents between 0 and s) are
+// normal f64, every one of those power-of-two multiplies is exact, and
+// ((x * 2^h1) * 2^h2) * 2^h3 = x * 2^s, the product with the assembled 2^s:
+// the same bits, summed in the same order. Elsewhere emit_f64 itself.
+#define G8_DIRECT_LO (-1022)
+#define G8_DIRECT_HI 992
+
+template <typename LN>
+__device__ __forceinline__ double emit_f64_direct(const int* lim,
+                                                  const EpiloguePlan& plan,
+                                                  int ss, LN L) {
+    if (plan.base - ss < G8_DIRECT_LO
+            || plan.base + 16 * (L - 1) - ss > G8_DIRECT_HI)
+        return emit_f64(lim, plan, ss, L);
+    double acc = 0.0;
+    bool first = true;
+#pragma unroll
+    for (int li = G8_MAX_L - 1; li >= 0; --li) {
+        if (li < L) {
+            const double term = (double)lim[li]
+                * pow2d(plan.base + 16 * li - ss);
             acc = first ? term : acc + term;
             first = false;
         }
@@ -121,15 +208,16 @@ __device__ __forceinline__ Pow2x3 descale_factors(int sft) {
 // the rank-1 descale with the static per-limb pow2 pair and the row and
 // column factor triples, merged smallest first with two_sum: the (hi, lo)
 // f32 pair (ff.descale_pair)
+template <typename LN>
 __device__ __forceinline__ void emit_pair(const int* lim,
                                           const EpiloguePlan& plan,
                                           const Pow2x3& fa, const Pow2x3& fb,
-                                          float& hi, float& lo) {
+                                          float& hi, float& lo, LN L) {
     hi = 0.0f;
     lo = 0.0f;
 #pragma unroll
     for (int li = 0; li < G8_MAX_L; ++li) {
-        if (li < plan.L) {
+        if (li < L) {
             float term = (float)lim[li] * plan.s1[li];
             term = ((term * fa.f1) * fb.f1) * plan.s2[li];
             term = (term * fa.f2) * fb.f2;
@@ -147,11 +235,127 @@ __device__ __forceinline__ void emit_pair(const int* lim,
     }
 }
 
+__device__ __forceinline__ void emit_pair(const int* lim,
+                                          const EpiloguePlan& plan,
+                                          const Pow2x3& fa, const Pow2x3& fb,
+                                          float& hi, float& lo) {
+    emit_pair(lim, plan, fa, fb, hi, lo, plan.L);
+}
+
 // f32 out: the pair's sum (ff.descale_accel)
+template <typename LN>
+__device__ __forceinline__ float emit_f32(const int* lim,
+                                          const EpiloguePlan& plan,
+                                          const Pow2x3& fa, const Pow2x3& fb,
+                                          LN L) {
+    float hi, lo;
+    emit_pair(lim, plan, fa, fb, hi, lo, L);
+    return hi + lo;
+}
+
 __device__ __forceinline__ float emit_f32(const int* lim,
                                           const EpiloguePlan& plan,
                                           const Pow2x3& fa, const Pow2x3& fb) {
-    float hi, lo;
-    emit_pair(lim, plan, fa, fb, hi, lo);
-    return hi + lo;
+    return emit_f32(lim, plan, fa, fb, plan.L);
+}
+
+// F(LimbCount<L>()) for the run-time limb count L in [2, G8_MAX_L];
+// returns cudaErrorInvalidValue for any other
+template <typename F>
+inline int dispatch_l(int L, F&& f) {
+    switch (L) {
+        case 2: return f(LimbCount<2>());
+        case 3: return f(LimbCount<3>());
+        case 4: return f(LimbCount<4>());
+        case 5: return f(LimbCount<5>());
+        case 6: return f(LimbCount<6>());
+        case 7: return f(LimbCount<7>());
+        default: return (int)cudaErrorInvalidValue;
+    }
+}
+
+// The 2-D tiling of K2 and K4: a block of G8_TILE_ROWS warps; warp y takes
+// row blockIdx.y * G8_TILE_ROWS + y (and every gridDim.y * G8_TILE_ROWS-th
+// row after it, past the grid's y limit), lane x the V consecutive columns
+// from (blockIdx.x * 32 + x) * V. Each thread loads its row's shift once per
+// row and its columns' shifts once, and needs no division.
+#define G8_TILE_ROWS 4
+
+struct Tile {
+    int j0;     // first column
+    int nv;     // columns in the matrix, <= V (0: the thread idles)
+    int i0;     // first row; then i0 + k * row_step
+    int row_step;
+    template <int V>
+    __device__ static Tile make(int n) {
+        Tile t;
+        t.j0 = (blockIdx.x * 32 + threadIdx.x) * V;
+        t.nv = max(0, min(V, n - t.j0));
+        t.i0 = blockIdx.y * G8_TILE_ROWS + threadIdx.y;
+        t.row_step = gridDim.y * G8_TILE_ROWS;
+        return t;
+    }
+};
+
+// the launch grid of Tile for V columns a thread
+inline void tile_grid(int m, int n, int V, dim3& grid, dim3& block) {
+    block = dim3(32, G8_TILE_ROWS);
+    const int rows = (m + G8_TILE_ROWS - 1) / G8_TILE_ROWS;
+    grid = dim3((unsigned)((n + 32 * V - 1) / (32 * V)),
+                (unsigned)min(rows, 65535));
+}
+
+// x[0 .. V) = V consecutive int32 or int8 values as int; VEC: one load of
+// V * sizeof(T) bytes (4, 8 or 16; src aligned to it), streamed past the
+// caches; else nv scalar loads, the rest 0
+template <typename W>
+__device__ __forceinline__ void load_words(const void* src, int* w) {
+    const W t = __ldcs(static_cast<const W*>(src));
+    static_assert(sizeof(W) % 4 == 0, "whole 32-bit words");
+    memcpy(w, &t, sizeof(W));
+}
+
+template <int V, bool VEC, typename T>
+__device__ __forceinline__ void load_cols(const T* src, int nv, int* x) {
+    constexpr int bytes = V * (int)sizeof(T);
+    if constexpr (VEC && bytes % 4 == 0 && bytes <= 16) {
+        int w[bytes / 4];
+        if constexpr (bytes == 16) load_words<int4>(src, w);
+        else if constexpr (bytes == 8) load_words<int2>(src, w);
+        else load_words<int>(src, w);
+#pragma unroll
+        for (int v = 0; v < V; ++v) {
+            if constexpr (sizeof(T) == 4)
+                x[v] = w[v];
+            else                                      // byte v, signed
+                x[v] = (signed char)((unsigned)w[v / 4] >> (8 * (v % 4)));
+        }
+    } else {
+        static_assert(!VEC || V == 1, "no vector load of V values");
+#pragma unroll
+        for (int v = 0; v < V; ++v) x[v] = v < nv ? (int)src[v] : 0;
+    }
+}
+
+// out[0 .. nv) = y[0 .. nv); VEC: whole 16-byte stores where V values fill
+// them, one 8-byte store where they fill 8 (out aligned to it), else scalar
+template <int V, bool VEC, typename O>
+__device__ __forceinline__ void store_cols(O* out, int nv, const O* y) {
+    constexpr int bytes = V * (int)sizeof(O);
+    if constexpr (VEC && bytes % 16 == 0) {
+#pragma unroll
+        for (int s = 0; s < bytes / 16; ++s) {
+            int4 t;
+            memcpy(&t, y + s * (16 / sizeof(O)), 16);
+            reinterpret_cast<int4*>(out)[s] = t;
+        }
+    } else if constexpr (VEC && bytes == 8) {
+        int2 t;
+        memcpy(&t, y, 8);
+        reinterpret_cast<int2*>(out)[0] = t;
+    } else {
+#pragma unroll
+        for (int v = 0; v < V; ++v)
+            if (v < nv) out[v] = y[v];
+    }
 }

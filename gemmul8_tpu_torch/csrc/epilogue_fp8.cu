@@ -21,28 +21,29 @@
 // nu=14) and writes 4 or 8 bytes: 11.8 GB at 8192^2, nu=14, f64, 3.5 ms at
 // 3.35 TB/s. The operations the function needs (per modulus three
 // conversions, three or four reductions by the constant p and the recombine,
-// then the CRT pipeline: chip_smoke.fp8_epilogue_bound) take less. This
-// kernel reduces with `%` by a modulus read from the plan at run time.
+// then the CRT pipeline: chip_smoke.fp8_epilogue_bound) take less. The
+// reductions are crt.cuh's division-free wrap, shared with K2 and K4.
 //
-// Design: K2's (epilogue.cu): one thread per element along n, so each of the
-// 3nu planes is read coalesced; limbs in registers; the plan a
-// __grid_constant__ parameter. Nothing but the output is written.
+// Design: one thread per element along n, so each of the 3nu planes is read
+// coalesced; limbs in registers; the plan a __grid_constant__ parameter.
+// Nothing but the output is written.
 #include "crt.cuh"
 
 namespace {
 
-// the residue of one FP8 modulus' product from its three lane products
+// the residue of FP8 modulus qi's product from its three lane products
 __device__ __forceinline__ int reassemble_fp8(float f0, float f1, float f2,
-                                              int p, int q) {
+                                              const EpiloguePlan& crt, int qi,
+                                              int q) {
     const int c0 = (int)f0, c1 = (int)f1, c2 = (int)f2;   // exact integers
     int t;
     if (q != 0) {                           // |c0 + c1| <= 2^25
-        t = q * wrap_any(c0 + c1, p) + wrap_any(c2, p);
+        t = q * wrap_any(c0 + c1, crt, qi) + wrap_any(c2, crt, qi);
     } else {
-        const int r0 = wrap_any(c0, p), r1 = wrap_any(c1, p);
-        t = 256 * r0 + 16 * (wrap_any(c2, p) - r0 - r1) + r1;
+        const int r0 = wrap_any(c0, crt, qi), r1 = wrap_any(c1, crt, qi);
+        t = 256 * r0 + 16 * (wrap_any(c2, crt, qi) - r0 - r1) + r1;
     }
-    return wrap_any(t, p);
+    return wrap_any(t, crt, qi);
 }
 
 template <bool F64>
@@ -63,7 +64,7 @@ __global__ void epilogue_fp8_kernel(const float* __restrict__ c3,
     limbs_zero(lim);
     for (int q = 0; q < crt.nu; ++q) {
         const float* c = c3 + (size_t)(3 * q) * mn + idx;
-        limbs_mac(lim, reassemble_fp8(c[0], c[mn], c[2 * mn], crt.p[q],
+        limbs_mac(lim, reassemble_fp8(c[0], c[mn], c[2 * mn], crt, q,
                                       plan.sq[q]), crt, q);
     }
     fold_quotient(lim, crt);

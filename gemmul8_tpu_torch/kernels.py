@@ -40,6 +40,7 @@ import ctypes
 import hashlib
 import json
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -62,9 +63,9 @@ _CSRC = os.path.join(_HERE, "csrc")
 _BUILD = os.path.join(_HERE, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xcompiler", "-fPIC"]
-# sources whose registers, shared memory and spills the build reports
-# (nvcc -Xptxas -v) into BUILD_LOG[source]
-PTXAS_VERBOSE = ("matmul_i8_wgmma.cu",)
+# every source is compiled with -Xptxas -v: its registers, shared memory and
+# spills per kernel go into BUILD_LOG[source] (ptxas_report reads them)
+PTXAS_FLAGS = ["-Xptxas", "-v"]
 BUILD_LOG: dict[str, str] = {}
 _LIB: ctypes.CDLL | None = None
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -74,12 +75,14 @@ _ARGTYPES = {
     "encode_planes": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # x, sft, out, plan, is_f64, scale_axis, rows, cols, stream
     "encode_planes_fp8": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # c_hi, sft_a, sft_b, out, in_i8, out_f64, m, n, plan, stream
-    "fused_epilogue": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
+    # c_hi, sft_a, sft_b, out, in_i8, out_f64, m, n, vec, plan, stream
+    "fused_epilogue": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
     # c3, sft_a, sft_b, out, out_f64, m, n, plan, stream
     "fused_epilogue_fp8": [_P, _P, _P, _P, _I, _I, _I, _P, _P],
-    # c_hi3, sft_a, sft_b, out_re, out_im, stride, out_f64, m, n, plan, stream
-    "fused_epilogue_complex": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
+    # c_hi3, sft_a, sft_b, out_re, out_im, stride, out_f64, m, n, vec, plan,
+    # stream
+    "fused_epilogue_complex": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
+                               _P],
     # c_hi3, out_re, out_im, m, n, plan, stream
     "fused_recombine_3m": [_P, _P, _P, _I, _I, _P, _P],
     # a, b, c, nu, m, n, k, b_kcontig, astat, bk, a_vec, b_vec, stream
@@ -96,6 +99,11 @@ _MAX_NU = 20        # csrc/common.cuh: G8_MAX_NU
 _MAX_NL = 6         # G8_MAX_NL: 20-bit encode limbs
 _MAX_L = 7          # G8_MAX_L: 16-bit epilogue limbs
 REDUCE_RANGE = 2 ** 31 - 2 ** 11   # G8_REDUCE_RANGE: encode's exact |acc|
+# K2's and K4's tiling (csrc/crt.cuh: Tile): a block of _TILE_ROWS warps, a
+# warp on one row, each thread on EPILOGUE_COLS[kernel] consecutive columns
+# (csrc/epilogue.cu and csrc/complex.cu: kCols)
+_TILE_ROWS = 4      # G8_TILE_ROWS
+EPILOGUE_COLS = {"fused_epilogue": 4, "fused_epilogue_complex": 2}
 
 
 def reset_launches() -> None:
@@ -117,12 +125,11 @@ def _nvcc() -> str:
 def build() -> str:
     """Compile csrc/*.cu into one library unless it is built already (the
     name holds a hash of the sources and flags): one nvcc per source, all
-    started together, then one link. The ptxas reports of PTXAS_VERBOSE's
-    sources are kept beside the library (same name, .ptxas.json) and loaded
-    into BUILD_LOG, whether this call built it or found it. Returns its
-    path."""
+    started together, then one link. Each source's ptxas report is kept
+    beside the library (same name, .ptxas.json) and loaded into BUILD_LOG,
+    whether this call built it or found it. Returns its path."""
     sources = sorted(n for n in os.listdir(_CSRC) if n.endswith((".cu", ".cuh")))
-    h = hashlib.sha256(" ".join(NVCC_FLAGS + list(PTXAS_VERBOSE)).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + PTXAS_FLAGS).encode())
     for name in sources:
         with open(os.path.join(_CSRC, name), "rb") as f:
             h.update(name.encode() + f.read())
@@ -139,17 +146,16 @@ def build() -> str:
         for name in sources:
             if name.endswith(".cu"):
                 objs.append(os.path.join(tmp, name + ".o"))
-                verbose = ["-Xptxas", "-v"] if name in PTXAS_VERBOSE else []
                 procs.append((name, subprocess.Popen(
-                    [nvcc, *NVCC_FLAGS, *verbose, "-c", "-o", objs[-1],
+                    [nvcc, *NVCC_FLAGS, *PTXAS_FLAGS, "-c", "-o", objs[-1],
                      os.path.join(_CSRC, name)],
                     stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
-        errors = [(name, p.communicate()[1]) for name, p in procs]
-        reports = {name: err for name, err in errors if name in PTXAS_VERBOSE}
+        reports = {name: p.communicate()[1] for name, p in procs}
         BUILD_LOG.update(reports)
         if any(p.returncode for _, p in procs):
             raise RuntimeError("nvcc failed:\n" + "\n".join(
-                f"{name}: {err}" for name, err in errors if err))
+                f"{name}: {reports[name]}" for name, p in procs
+                if p.returncode))
         lib = os.path.join(tmp, "lib.so")
         proc = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs],
                               capture_output=True, text=True)
@@ -160,6 +166,27 @@ def build() -> str:
             json.dump(reports, f)
         os.replace(tmp_log, log)      # before the library, which marks a build
         os.replace(lib, out)          # atomic: a half-written .so never loads
+    return out
+
+
+def ptxas_report(text: str) -> list[tuple[str, int, int, int]]:
+    """(kernel, registers, spill store bytes, spill load bytes) of each
+    entry function in an `nvcc -Xptxas -v` report, in its order."""
+    out, name, spills = [], None, (0, 0)
+    for line in text.splitlines():
+        mo = re.search(r"Compiling entry function '([^']+)'", line)
+        if mo:
+            name, spills = mo.group(1), (0, 0)
+            continue
+        mo = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                       line)
+        if mo:
+            spills = (int(mo.group(1)), int(mo.group(2)))
+            continue
+        mo = re.search(r"Used (\d+) registers", line)
+        if mo and name is not None:
+            out.append((name, int(mo.group(1)), *spills))
+            name = None
     return out
 
 
@@ -364,11 +391,22 @@ class _EpiloguePlan(ctypes.Structure):        # csrc/common.cuh: EpiloguePlan
                 ("w16", (ctypes.c_int * _MAX_L) * _MAX_NU),
                 ("p16", ctypes.c_int * _MAX_L),
                 ("s1", ctypes.c_float * _MAX_L),
-                ("s2", ctypes.c_float * _MAX_L)]
+                ("s2", ctypes.c_float * _MAX_L),
+                ("magic", ctypes.c_uint * _MAX_NU),
+                ("wrap_off", ctypes.c_uint * _MAX_NU)]
+
+
+def wrap_constants(p: int) -> tuple[int, int]:
+    """The epilogues' division-free wrap constants of modulus p (csrc/crt.cuh,
+    wrap_any): magic = floor(2^32 / p) and wrap_off = (floor(p / 2) - 2^31)
+    mod p. (A power-of-two p is wrapped by a mask; its constants are exact
+    all the same.)"""
+    return 2 ** 32 // p, (p // 2 - 2 ** 31) % p
 
 
 def _epilogue_plan(num_moduli: int, backend: str, out_bits: int):
-    """The static plan of pallas_kernels._epilogue_plan, from ff.limb_plan."""
+    """The static plan of pallas_kernels._epilogue_plan, from ff.limb_plan,
+    with each modulus' wrap constants (wrap_constants)."""
     base, L, w16, p16, invp_top = ff.limb_plan(num_moduli, backend, out_bits)
     if L > _MAX_L:
         raise ValueError(f"epilogue: {L} limbs exceed the kernel's {_MAX_L}")
@@ -376,6 +414,7 @@ def _epilogue_plan(num_moduli: int, backend: str, out_bits: int):
     plan.nu, plan.L, plan.base, plan.invp_top = num_moduli, L, base, invp_top
     for i, p in enumerate(tables.moduli(backend)[:num_moduli]):
         plan.p[i] = p
+        plan.magic[i], plan.wrap_off[i] = wrap_constants(p)
         for li in range(L):
             plan.w16[i][li] = w16[i][li]
     for li in range(L):
@@ -405,6 +444,14 @@ def _check_epilogue(name, c_hi, n_planes, dtypes, sft_a, sft_b):
             raise ValueError(f"{name}: {sname} must be a contiguous int32 "
                              f"vector of length {size} on {c_hi.device}")
     return m, n
+
+
+def _epilogue_vec(n: int, cols: int, *tensors: torch.Tensor) -> bool:
+    """Whether K2 or K4 may load and store whole vectors of `cols` columns
+    (csrc/crt.cuh: load_cols): every row's columns whole vectors (n a
+    multiple of cols) and the tensors 16-byte aligned; else each thread
+    takes its columns one by one."""
+    return n % cols == 0 and all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
 def _check_nu(name, num_moduli):
@@ -451,9 +498,10 @@ def fused_epilogue(c_hi: torch.Tensor, sft_a: torch.Tensor,
     if out.numel():
         out_bits = 53 if out_dtype == torch.float64 else 24
         plan = _epilogue_plan(num_moduli, backend, out_bits)
+        vec = _epilogue_vec(n, EPILOGUE_COLS["fused_epilogue"], c_hi, out)
         _launch("fused_epilogue", c_hi.data_ptr(), sft_a.data_ptr(),
                 sft_b.data_ptr(), out.data_ptr(), int(c_hi.dtype == torch.int8),
-                int(out_bits == 53), m, n, ctypes.addressof(plan),
+                int(out_bits == 53), m, n, int(vec), ctypes.addressof(plan),
                 _stream(c_hi))
     return out
 
@@ -586,9 +634,11 @@ def fused_epilogue_complex(c_hi3: torch.Tensor, sft_a: torch.Tensor,
     if re.numel():
         out_bits = 53 if real_dt == torch.float64 else 24
         plan = _epilogue_plan(num_moduli, backend, out_bits)
+        vec = _epilogue_vec(n, EPILOGUE_COLS["fused_epilogue_complex"], c_hi3,
+                            *((re,) if stride == 2 else (re, im)))
         _launch("fused_epilogue_complex", c_hi3.data_ptr(), sft_a.data_ptr(),
                 sft_b.data_ptr(), re.data_ptr(), im.data_ptr(), stride,
-                int(out_bits == 53), m, n, ctypes.addressof(plan),
+                int(out_bits == 53), m, n, int(vec), ctypes.addressof(plan),
                 _stream(c_hi3))
     return out
 

@@ -5,7 +5,12 @@
   matmul3   tools/probe_matmul3.py   the same product on flat plane views
   epilogue  tools/probe_epilogue.py  the tensor-core CRT epilogue against K2
 
+and, with no tool behind it,
+
+  epilogue_tiles                     K2's and K4's design choices, each
+                                     undone in turn and timed
+
 Each runs as `python -m gemmul8_tpu_torch.probes.<name>` on a CUDA card and
-prints a table; chip_smoke.py drives their main() functions and reads the
-rows they return.
+prints a table; chip_smoke.py drives the first three's main() functions and
+reads the rows they return.
 """
