@@ -104,6 +104,9 @@ TRANSPOSE_KEY = "transpose_i8[4096^2 nu=16]"
 PRODUCT_COUNTS = ("matmul_i8_kloop", "matmul_i8_astat", "matmul_i8_wgmma_kloop",
                   "matmul_i8_wgmma_astat", "transpose_i8")
 MXU_KEY = "fused_epilogue_mxu[pair nu=16]"
+# the sources of the kernels redesigned last (K6, K8): phase 2 sums up their
+# registers and spills
+REDESIGNED = ("encode_fp8.cu", "epilogue_mxu.cu")
 PROBE_NU, PROBE_M = 16, 4096          # the product probes' own size
 T0 = time.perf_counter()
 
@@ -257,6 +260,12 @@ def log_build_report(kernels):
             for k, r, st, ld in rows))
     check("C7508" not in kernels.BUILD_LOG["matmul_i8_wgmma.cu"],
           "matmul_i8_wgmma.cu: setmaxnreg ignored (C7508)")
+    for name in REDESIGNED:
+        rows = kernels.ptxas_report(kernels.BUILD_LOG[name])
+        log(f"ptxas {name} (redesigned): {len(rows)} kernels, registers "
+            f"{min(r for _, r, _, _ in rows)}-{max(r for _, r, _, _ in rows)}, "
+            f"spill bytes stored/loaded {sum(st for *_, st, _ in rows)}/"
+            f"{sum(ld for *_, ld in rows)}")
 
 
 # ---------------------------------------------------------------------------
@@ -319,6 +328,16 @@ RAGGED = ((129, 263), (1, 263), (129, 1), (33, 20), (31, 9), (17, 264),
           (64, 256))
 
 
+def on_card(x, misalign=False):
+    """A numpy array on the card; misaligned: a contiguous view one element
+    into a larger buffer (off 16-byte alignment)."""
+    t = torch.from_numpy(x).cuda()
+    if not misalign:
+        return t
+    buf = torch.empty(t.numel() + 16, dtype=t.dtype, device=t.device)
+    return buf[1:1 + t.numel()].view(t.shape).copy_(t)
+
+
 def ragged_epilogue_cases(rng):
     """K2 (int32 input: f32 and f64 out; int8 input: f32 and f64) and K4
     (planar f32 and f64, interleaved c64 and c128) against their plain
@@ -329,15 +348,7 @@ def ragged_epilogue_cases(rng):
     column at a time (kernels._epilogue_vec)."""
     from gemmul8_tpu_torch import kernels
     routes = {}
-
-    def tensor(x, misalign):
-        """x on the card; misaligned: a contiguous view one element into a
-        larger buffer."""
-        t = torch.from_numpy(x).cuda()
-        if not misalign:
-            return t
-        buf = torch.empty(t.numel() + 16, dtype=t.dtype, device=t.device)
-        return buf[1:1 + t.numel()].view(t.shape).copy_(t)
+    tensor = on_card
 
     def route(key, n, cols, chi):
         routes.setdefault(key, set()).add(kernels._epilogue_vec(n, cols, chi))
@@ -861,6 +872,91 @@ def mxu_epilogue_cases(rng):
                     compare(MXU_KEY, got[0] + got[1], kernels.fused_epilogue(
                         chi, sa, sb, nu, "INT8", torch.float32),
                         f"{what} hi + lo vs K2 f32", count=False)
+
+
+# K6's ragged operands: (rows, cols) of A and of B, widths of the planes'
+# contiguous axis (A's cols, B's rows) off the 4-element word (1, 3, 5, 130,
+# 263) with odd counts across, and whole words (132, 256)
+FP8_RAGGED = {0: ((33, 1), (17, 3), (9, 5), (31, 130), (129, 263), (33, 132),
+                  (64, 256)),
+              1: ((1, 33), (3, 17), (5, 9), (130, 31), (263, 129), (132, 33),
+                  (256, 64))}
+
+
+def fp8_out_buffer(nu, rows, cols, axis):
+    """An empty e4m3 stack in encode_planes_fp8's layout that starts one
+    byte into a larger buffer (off 16-byte alignment)."""
+    numel = 3 * nu * rows * cols
+    buf = torch.empty(numel + 16, dtype=torch.float8_e4m3fn, device="cuda")
+    base = buf[1:1 + numel]
+    if axis == 0:
+        return base.view(3 * nu, rows, cols)
+    return base.view(3 * nu, cols, rows).transpose(-1, -2)
+
+
+def fp8_ragged_cases(rng):
+    """K6 against its plain version on FP8_RAGGED for both sides, f64 at nu
+    2, 6, 7, 13, 20 and f32 at nu 2, 7, 13, and on the edge corpus; once more
+    on the odd-width shapes with x and with out off 16-byte alignment.
+    Checks that each side took both its routes: whole words, and bytes
+    (kernels._encode_vec)."""
+    from gemmul8_tpu_torch import kernels, quantize
+    routes = {}
+    for dt, nus in ((np.float64, (2, 6, 7, 13, 20)), (np.float32, (2, 7, 13))):
+        for nu in nus:
+            for axis in (0, 1):
+                cases = [(shape, False, False) for shape in FP8_RAGGED[axis]]
+                cases += [(FP8_RAGGED[axis][4], True, False),
+                          (FP8_RAGGED[axis][5], False, True),
+                          (FP8_RAGGED[axis][6], True, True)]
+                xs = [(phi_matrix(rng, *shape, 2.0, dt), mx, mo)
+                      for shape, mx, mo in cases]
+                xs.append((edge_corpus(dt), False, False))
+                for x_np, mx, mo in xs:
+                    x = on_card(x_np, mx)
+                    sft = quantize.shift_fast(x, nu, "FP8", 1 - axis)
+                    out = (fp8_out_buffer(nu, *x.shape, axis) if mo else
+                           kernels.plane_buffer((3 * nu,), *x.shape, axis,
+                                                "cuda", torch.float8_e4m3fn))
+                    routes.setdefault(axis, set()).add(
+                        kernels._encode_vec(x, out, axis))
+                    compare(f"encode_planes_fp8[{TAG[x.dtype]}]",
+                            kernels.encode_planes_fp8(x, sft, axis, nu, out),
+                            kernels.encode_planes_fp8_plain(x, sft, axis, nu),
+                            f"fp8 encode {x.dtype} {tuple(x.shape)} nu={nu} "
+                            f"axis={axis} x misaligned={mx} out misaligned={mo}")
+    for axis, seen in routes.items():
+        check(seen == {True, False}, f"K6 axis {axis}: routes taken {seen}")
+    log(f"ragged K6 cases: both routes taken on sides {sorted(routes)}")
+
+
+def mxu_ragged_cases(rng):
+    """K8 against its plain version and K2's plain pair on RAGGED and on a
+    stack that starts off 16-byte alignment, nu 8, 16 and 20, out_bits 53
+    and 24, shifts in [-300, 300]. Checks that K8 took both its routes:
+    16-byte loads and one column at a time (kernels._epilogue_vec)."""
+    from gemmul8_tpu_torch import kernels
+    from gemmul8_tpu_torch.probes.epilogue import k2_pair_plain
+    routes = set()
+    for m, n, misalign in [(m, n, False) for m, n in RAGGED] + [
+            (64, 256, True)]:
+        sa, sb = (on_card(rng.integers(-300, 301, size).astype(np.int32))
+                  for size in (m, n))
+        for nu in (8, 16, 20):
+            chi = on_card(rng.integers(-2 ** 31, 2 ** 31, (nu, m, n))
+                          .astype(np.int32), misalign)
+            routes.add(kernels._epilogue_vec(n, kernels.MXU_GROUP, chi))
+            for out_bits in (53, 24):
+                what = (f"mxu epilogue {m}x{n}{' misaligned' if misalign else ''}"
+                        f" nu={nu} {out_bits}")
+                got = kernels.fused_epilogue_mxu(chi, sa, sb, nu, "INT8",
+                                                 out_bits)
+                compare(MXU_KEY, got, kernels.fused_epilogue_mxu_plain(
+                    chi, sa, sb, nu, "INT8", out_bits), what)
+                compare(MXU_KEY, got, k2_pair_plain(chi, sa, sb, nu, out_bits),
+                        f"{what} vs K2's plain pair", count=False)
+    check(routes == {True, False}, f"K8: routes taken {routes}")
+    log("ragged K8 cases: both routes taken")
 
 
 # rows 0-7 of A @ B per dtype of the real paths: (longdouble oracle, |A||B|,
@@ -1415,16 +1511,14 @@ def mxu_epilogue_bound(m, n, nu, out_bits):
     """Least time of one tensor-core CRT epilogue (K8) at (m, n). Bytes: nu
     int32 planes read once, the shifts, the f32 pair written once. 32-bit
     operations per element: nu loads, two shift loads, two stores; per
-    modulus the f32 wrap (the split of C_hi in two 16-bit halves 2, two
-    conversions, a multiply and an add, the multiply by 1/p, rint, a
-    multiply and a subtraction, two corrections of 2, the conversion and
-    packing of the byte 3: 17); the limbs from column pairs (2 per limb);
-    the CRT pipeline after the multiply-adds (_crt_ops less its nu L).
-    Tensor-core operations: the padded 16 x 32 column product, 2 x 16 x 32
-    per element, at the int8 rate."""
+    modulus the wrap of any int32 (6, as in epilogue_bound: the probe's f32
+    wrap gives the same integer) and the packing of its byte (2); the limbs
+    from column pairs (2 per limb); the CRT pipeline after the multiply-adds
+    (_crt_ops less its nu L). Tensor-core operations: the padded 16 x 32
+    column product, 2 x 16 x 32 per element, at the int8 rate."""
     from gemmul8_tpu_torch import ff
     L = ff.limb_plan(nu, "INT8", out_bits)[1]
-    ops32 = nu + 4 + 17 * nu + 2 * L + _crt_ops(nu, L, False) - nu * L
+    ops32 = nu + 4 + 8 * nu + 2 * L + _crt_ops(nu, L, False) - nu * L
     t_ops, by = bound(m * n * ops32, 0, m * n * (4 * nu + 8) + 4 * (m + n))
     t_mma = m * n * 2 * 16 * 32 / PEAK_INT8_OPS * 1e3
     return (t_mma, "operations") if t_mma > t_ops else (t_ops, by)
@@ -1481,6 +1575,9 @@ def fp8_times(dt, nu, a, b, card):
     check(t["k3_tbps"] * 1e12 <= PEAK_BYTES,
           f"fp8 epilogue at {t['k3_tbps']:.2f} TB/s exceeds peak")
     t["k6_bound"] = fp8_encode_bound(FULL, FULL, nu, a.element_size())
+    # B (k, n): one shift per column
+    t["k6_bound_b"] = fp8_encode_bound(b.shape[1], b.shape[0], nu,
+                                       b.element_size())
     t["k3_bound"] = fp8_epilogue_bound(FULL, FULL, nu, out_bits)
     log(f"times {card} | FP8 {dt} 8192^3 nu={nu}: " + ", ".join(
         f"{k_} {v:.4f}" if isinstance(v, float) else f"{k_} {v}"
@@ -1819,6 +1916,11 @@ def main():
     prng = np.random.default_rng(SEED + 4)
     product_cases(prng, np.random.default_rng(SEED + 6))
     mxu_epilogue_cases(prng)
+    # the ragged K6 and K8 cases added with their redesign, on a stream of
+    # their own
+    rrng = np.random.default_rng(SEED + 8)
+    fp8_ragged_cases(rrng)
+    mxu_ragged_cases(rrng)
     log(f"kernels vs plain, small shapes, all bit-equal: {CASES}")
     log_phase("phase 3 (kernels vs plain, FP8 product exactness)")
     if args.quick:
@@ -1975,7 +2077,8 @@ def main():
                  max_abs_err=MAX_ABS_ERR[f"encode_planes_fp8[{tag}]"],
                  cases=CASES[f"encode_planes_fp8[{tag}]"], ms=t["k6_a_ms"],
                  plain_ms=t["k6_plain_ms"], bound_ms=t["k6_bound"][0],
-                 bound_by=t["k6_bound"][1],
+                 bound_by=t["k6_bound"][1], ms_b=t["k6_b_ms"],
+                 bound_b_ms=t["k6_bound_b"][0],
                  shape=f"A 8192x8192 {tag} -> {3 * nu}x8192x8192 e4m3"),
             dict(fp8_entry, name=f"fused_epilogue_fp8[{tag}]",
                  source="gemmul8_tpu_torch/csrc/epilogue_fp8.cu",

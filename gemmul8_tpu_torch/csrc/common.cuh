@@ -33,12 +33,18 @@ struct EncodePlan {
 
 // the FP8 encoder's plan: the limb plan of the FP8 moduli, and per modulus
 // its split (q = sqrt(p) and the f32 1/q for a square modulus, q = 0 for a
-// Karatsuba one) and the slots of its three planes in this side's stack
+// Karatsuba one) and the planes of this side's stack that its values go to,
+// resolved on the host from the side's slot order (fp8.slot_order):
+// plane[i][0] takes x, plane[i][1] takes y, plane[i][2] takes z for a
+// Karatsuba modulus and y once more for a square one (whose z is 0 and is
+// not stacked). The first G8_NOT_KARATSUBA moduli are the square ones.
+#define G8_NOT_KARATSUBA 6
+
 struct EncodePlanFp8 {
     EncodePlan enc;
     int sq[G8_MAX_NU];
     float inv_sq[G8_MAX_NU];
-    int slot[3 * G8_MAX_NU];         // 0: x, 1: y, 2: z
+    int plane[G8_MAX_NU][3];
 };
 
 struct EpiloguePlan {
@@ -63,11 +69,14 @@ struct EpiloguePlanFp8 {
 };
 
 // the tensor-core CRT epilogue's plan: the CRT plan (its L, base, p16,
-// invp_top and descale pairs), the number of 8-bit columns, per modulus the
-// f32 wrap's constants (wrap(2^16 mod p) and the f32 of the double 1/p),
-// and the 8-bit columns of qPi >> base as the u8 operand of the column sum:
-// c8[j][i] = byte j of qP_i >> base, zero past n_cols and nu
-#define G8_MXU_COLS 16  // n_cols <= 14, padded to the mma's 16 rows
+// invp_top, descale pairs and wrap constants), the number of 8-bit columns,
+// per modulus the probe's f32 wrap constants (wrap(2^16 mod p) and the f32
+// of the double 1/p), and the 8-bit columns of qPi >> base as the u8
+// operand of the column sum in the kernel's depth order: c8[j][4t + u] =
+// byte j of qP_i >> base for modulus i = t + 4u (t, u < 4), c8[j][16 + 4t] =
+// that of modulus 16 + t; zero past n_cols and nu and at every other depth
+// (epilogue_mxu.cu: lane t of a quad holds the residues of moduli t + 4u)
+#define G8_MXU_COLS 16  // n_cols <= 14, padded to two of the mma's 8 columns
 #define G8_MXU_K 32     // nu <= 20, padded to the mma's depth of 32
 
 struct EpiloguePlanMxu {

@@ -8,10 +8,11 @@
 // Each helper follows its plain PyTorch twin op for op (core.mod_reduce,
 // complex_gemm._recombine_3m, ff.crt_limbs_matrix, ff.fold_quotient,
 // ff.reconstruct_scale_ff, ff.descale_pair). The tensor-core CRT epilogue
-// (epilogue_mxu.cu) shares the fold and the descale; the FP8 epilogue
-// (epilogue_fp8.cu) the wrap.
+// (epilogue_mxu.cu) shares the wrap, the fold and the descale; the FP8
+// epilogue (epilogue_fp8.cu) the wrap.
 //
-// Below them, the 2-D tiling and the column loads of K2 and K4.
+// Below them, the 2-D tiling and the column loads of K2 and K4 (K8 takes
+// the grid and the loads).
 #pragma once
 
 #include <cstring>
@@ -26,19 +27,28 @@
 // and one more min gives (v + floor(p/2)) mod p, whose less floor(p/2) is
 // the wrap. A power-of-two modulus (256; 1024 among the FP8 moduli) is
 // wrapped by a mask.
+// wrap_mulhi is that multiply-high wrap by a modulus given with its
+// constants; it is exact for a power of two too (magic * p = 2^32, so q is
+// floor(u / p) exactly), which the tensor-core epilogue uses to wrap
+// different moduli in the lanes of one warp without a branch.
+__device__ __forceinline__ int wrap_mulhi(int v, int p, unsigned magic,
+                                          unsigned wrap_off) {
+    const unsigned up = (unsigned)p;
+    const unsigned u = (unsigned)v ^ 0x80000000u;
+    unsigned r = u - __umulhi(u, magic) * up;
+    r = min(r, r - up);
+    r += wrap_off;
+    r = min(r, r - up);
+    return (int)r - (p >> 1);
+}
+
 __device__ __forceinline__ int wrap_any(int v, const EpiloguePlan& plan,
                                         int q) {
     const int p = plan.p[q];
     if ((p & (p - 1)) == 0)
         return (int)(((unsigned)v + (unsigned)(p >> 1)) & (unsigned)(p - 1))
             - (p >> 1);
-    const unsigned up = (unsigned)p;
-    const unsigned u = (unsigned)v ^ 0x80000000u;
-    unsigned r = u - __umulhi(u, plan.magic[q]) * up;
-    r = min(r, r - up);
-    r += plan.wrap_off[q];
-    r = min(r, r - up);
-    return (int)r - (p >> 1);
+    return wrap_mulhi(v, p, plan.magic[q], plan.wrap_off[q]);
 }
 
 // the wrap of v in [-3p/2, 3p/2): one balanced correction each way. It is
@@ -70,7 +80,7 @@ __device__ __forceinline__ void limbs_zero(int* lim) {
 }
 
 // The limb helpers take the limb count L last: the plan's L (an int), or a
-// LimbCount for kernels built for one L (K2, K4), in which every guard on L
+// LimbCount for kernels built for one L (K2, K4, K8), in which every guard on L
 // below folds away. The overloads without it take plan.L.
 template <int N>
 struct LimbCount {
@@ -233,13 +243,6 @@ __device__ __forceinline__ void emit_pair(const int* lim,
             }
         }
     }
-}
-
-__device__ __forceinline__ void emit_pair(const int* lim,
-                                          const EpiloguePlan& plan,
-                                          const Pow2x3& fa, const Pow2x3& fb,
-                                          float& hi, float& lo) {
-    emit_pair(lim, plan, fa, fb, hi, lo, plan.L);
 }
 
 // f32 out: the pair's sum (ff.descale_accel)

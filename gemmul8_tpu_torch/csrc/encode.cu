@@ -34,154 +34,62 @@
 //  - B (axis 1, planes stored (nu, n, k), k-contiguous as the int8 product
 //    reads B): a 128 (k) x 32 (n) tile of x is staged through shared memory
 //    with reads along x's rows (n), then each warp writes 128 consecutive k
-//    of one column per plane. The tile's k index is stored permuted
-//    ((k % 4) * 32 + k / 4, row pitch 129), so both the staging writes and
-//    the 4-consecutive-k reads meet no bank conflict.
+//    of one column per plane, bank-conflict free.
+//  Both frames are encode.cuh's (encode_rows_kernel, encode_cols_kernel),
+//  shared with the FP8 encoder; this file is their INT8 Emit policy.
 #include "encode.cuh"
 
 namespace {
 
-constexpr int kTileK = 128;      // axis 1: rows of x (k) per block
-constexpr int kTileN = 32;       // axis 1: columns of x (n) per block
-constexpr int kPitch = kTileK + 1;
-
-// the 4 residue bytes of modulus i for 4 elements, as one word (byte e of
-// element e), and that word's bytes as int8 residues in [-p/2, p/2)
-template <int NL>
-__device__ __forceinline__ unsigned residue_word(const int (&lim)[4][NL],
-                                                 const EncodePlan& plan,
-                                                 int i) {
-    const int p = plan.p[i];
-    unsigned r[4];
-    if (p == 256) {                      // wrap(v mod 256) = v's low byte
-#pragma unroll
-        for (int e = 0; e < 4; ++e) r[e] = (unsigned)lim[e][0];
-    } else {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) r[e] = reduce_biased<NL>(lim[e], plan, i);
+// the INT8 planes (encode.cuh's Emit policy): per modulus one residue byte
+// per element, one 32-bit word per plane for 4 elements where allowed
+struct Int8Residues {
+    using Plan = EncodePlan;
+    using Out = int8_t;
+    static constexpr bool kStageB = true;
+    __host__ __device__ static const EncodePlan& enc(const Plan& p) {
+        return p;
     }
-    const unsigned w = __byte_perm(__byte_perm(r[0], r[1], 0x0040),
-                                   __byte_perm(r[2], r[3], 0x0040), 0x5410);
-    // r in [0, p) with p < 256: byte(r - p/2) = byte(r) - byte(p/2)
-    return p == 256 ? w : __vsub4(w, (unsigned)(p >> 1) * 0x01010101u);
-}
 
-// the nu planes' words of 4 elements at offset pos of plane 0, of which the
-// first `valid` exist; one 32-bit store per plane where `word` allows
-template <int NL>
-__device__ __forceinline__ void store_residues(int8_t* out, size_t pos,
-                                               size_t plane, int valid,
-                                               bool word,
-                                               const int (&lim)[4][NL],
-                                               const EncodePlan& plan) {
-    for (int i = 0; i < plan.nu; ++i) {
-        const unsigned w = residue_word<NL>(lim, plan, i);
-        int8_t* dst = out + i * plane + pos;
-        if (word && valid == 4) {
-            *reinterpret_cast<unsigned*>(dst) = w;
+    // the 4 residue bytes of modulus i for 4 elements, as one word (byte e
+    // of element e), and that word's bytes as int8 residues in [-p/2, p/2)
+    template <int NL>
+    __device__ static unsigned residue_word(const int (&lim)[4][NL],
+                                            const EncodePlan& plan, int i) {
+        const int p = plan.p[i];
+        unsigned r[4];
+        if (p == 256) {                  // wrap(v mod 256) = v's low byte
+#pragma unroll
+            for (int e = 0; e < 4; ++e) r[e] = (unsigned)lim[e][0];
         } else {
 #pragma unroll
             for (int e = 0; e < 4; ++e)
-                if (e < valid) dst[e] = (int8_t)(w >> (8 * e));
+                r[e] = reduce_biased<NL>(lim[e], plan, i);
+        }
+        const unsigned w = __byte_perm(__byte_perm(r[0], r[1], 0x0040),
+                                       __byte_perm(r[2], r[3], 0x0040),
+                                       0x5410);
+        // r in [0, p) with p < 256: byte(r - p/2) = byte(r) - byte(p/2)
+        return p == 256 ? w : __vsub4(w, (unsigned)(p >> 1) * 0x01010101u);
+    }
+
+    template <int NL>
+    __device__ static void emit(int8_t* out, size_t pos, size_t plane,
+                                int valid, bool word, const int (&lim)[4][NL],
+                                const EncodePlan& plan) {
+        for (int i = 0; i < plan.nu; ++i) {
+            const unsigned w = residue_word<NL>(lim, plan, i);
+            int8_t* dst = out + i * plane + pos;
+            if (word && valid == 4) {
+                *reinterpret_cast<unsigned*>(dst) = w;
+            } else {
+#pragma unroll
+                for (int e = 0; e < 4; ++e)
+                    if (e < valid) dst[e] = (int8_t)(w >> (8 * e));
+            }
         }
     }
-}
-
-// A: thread (x, y) of a 32x8 block encodes elements c0 .. c0+3 of row r
-template <typename T, int NL>
-__global__ void __launch_bounds__(256)
-encode_rows_kernel(const T* __restrict__ x, const int* __restrict__ sft,
-                   int8_t* __restrict__ out,
-                   const __grid_constant__ EncodePlan plan, int rows,
-                   int cols, int vec) {
-    const int r = blockIdx.y * 8 + threadIdx.y;
-    const int c0 = (blockIdx.x * 32 + threadIdx.x) * 4;
-    if (r >= rows || c0 >= cols) return;
-    const int valid = min(cols - c0, 4);
-    const size_t pos = (size_t)r * cols + c0;
-    T v[4];
-    if (vec && valid == 4) {             // 16-byte loads: cols % 4 == 0
-        if (sizeof(T) == 4) {
-            const float4 q = *reinterpret_cast<const float4*>(x + pos);
-            v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
-        } else {
-            const double2 q0 = *reinterpret_cast<const double2*>(x + pos);
-            const double2 q1 = *reinterpret_cast<const double2*>(x + pos + 2);
-            v[0] = q0.x; v[1] = q0.y; v[2] = q1.x; v[3] = q1.y;
-        }
-    } else {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) v[e] = e < valid ? x[pos + e] : T(0);
-    }
-    const Pow2Split<T> scale(sft[r]);
-    int lim[4][NL];
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-        quantize_limbs<T, NL>(scale.apply(v[e]), plan.max_exp, lim[e]);
-    store_residues<NL>(out, pos, (size_t)rows * cols, valid, vec, lim, plan);
-}
-
-// B: a block of 256 threads encodes a kTileK x kTileN tile of x (rows r0..,
-// columns c0..); warp w takes columns w, w+8, w+16, w+24, lane l elements
-// r0+4l .. r0+4l+3 of each
-template <typename T, int NL>
-__global__ void __launch_bounds__(256)
-encode_cols_kernel(const T* __restrict__ x, const int* __restrict__ sft,
-                   int8_t* __restrict__ out,
-                   const __grid_constant__ EncodePlan plan, int rows,
-                   int cols, int vec) {
-    __shared__ T tile[kTileN * kPitch];
-    const int r0 = blockIdx.x * kTileK, c0 = blockIdx.y * kTileN;
-    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-#pragma unroll 4
-    for (int it = 0; it < kTileK * kTileN / 256; ++it) {
-        const int kr = it * (256 / kTileN) + tid / kTileN;
-        const int nc = tid % kTileN;
-        const int gr = r0 + kr, gc = c0 + nc;
-        tile[nc * kPitch + (kr & 3) * 32 + (kr >> 2)] =
-            gr < rows && gc < cols ? x[(size_t)gr * cols + gc] : T(0);
-    }
-    __syncthreads();
-    const int valid = min(rows - (r0 + 4 * lane), 4);
-    if (valid <= 0) return;
-    for (int j = 0; j < kTileN / 8; ++j) {
-        const int nc = warp + 8 * j;
-        const int gc = c0 + nc;
-        if (gc >= cols) break;
-        const Pow2Split<T> scale(sft[gc]);
-        int lim[4][NL];
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-            quantize_limbs<T, NL>(scale.apply(tile[nc * kPitch + e * 32 + lane]),
-                                  plan.max_exp, lim[e]);
-        store_residues<NL>(out, (size_t)gc * rows + r0 + 4 * lane,
-                           (size_t)rows * cols, valid, vec, lim, plan);
-    }
-}
-
-template <typename T>
-int launch(const void* x, const void* sft, void* out, const EncodePlan& plan,
-           int axis, int rows, int cols, int vec, cudaStream_t st) {
-    return dispatch_nl(plan.nl, [&](auto nl) {
-        constexpr int NL = decltype(nl)::value;
-        const T* xp = static_cast<const T*>(x);
-        const int* sp = static_cast<const int*>(sft);
-        int8_t* op = static_cast<int8_t*>(out);
-        if (axis == 0) {
-            const dim3 grid((cols + 127) / 128, (rows + 7) / 8);
-            if (grid.y > 65535) return (int)cudaErrorInvalidValue;
-            encode_rows_kernel<T, NL><<<grid, dim3(32, 8), 0, st>>>(
-                xp, sp, op, plan, rows, cols, vec);
-        } else {
-            const dim3 grid((rows + kTileK - 1) / kTileK,
-                            (cols + kTileN - 1) / kTileN);
-            if (grid.y > 65535) return (int)cudaErrorInvalidValue;
-            encode_cols_kernel<T, NL><<<grid, 256, 0, st>>>(
-                xp, sp, op, plan, rows, cols, vec);
-        }
-        return (int)cudaGetLastError();
-    });
-}
+};
 
 }  // namespace
 
@@ -194,13 +102,7 @@ extern "C" int g8_encode_planes(const void* x, const void* sft, void* out,
                                 const void* plan_ptr, int is_f64,
                                 int scale_axis, int rows, int cols, int vec,
                                 void* stream) {
-    const EncodePlan& plan = *static_cast<const EncodePlan*>(plan_ptr);
-    if (plan.nu < 1 || plan.nu > G8_MAX_NU || (scale_axis != 0
-                                               && scale_axis != 1))
-        return (int)cudaErrorInvalidValue;
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
-    return is_f64 ? launch<double>(x, sft, out, plan, scale_axis, rows, cols,
-                                   vec, st)
-                  : launch<float>(x, sft, out, plan, scale_axis, rows, cols,
-                                  vec, st);
+    return launch_encode<Int8Residues>(
+        x, sft, out, *static_cast<const EncodePlan*>(plan_ptr), is_f64,
+        scale_axis, rows, cols, vec, static_cast<cudaStream_t>(stream));
 }

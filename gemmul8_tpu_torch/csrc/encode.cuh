@@ -2,7 +2,8 @@
 // and the FP8 one (encode_fp8.cu), so that they run the same code: scale by
 // the row's or column's power of two, split into exact f32 components, place
 // the integer part in balanced 20-bit limbs with the fractions' joint carry,
-// and reduce the limbs modulo one modulus.
+// and reduce the limbs modulo one modulus. Below them, the two launch frames
+// both encoders share (4 elements a thread; B staged through shared memory).
 //
 // Each step follows quantize.residues_wrapped op for op: the input is scaled
 // in its own dtype before the split, the scale uses the floor split of
@@ -124,35 +125,6 @@ __device__ __forceinline__ int limb_residue(const int* lim,
     return (int)reduce_biased<NL>(lim, plan, i) - (p >> 1);
 }
 
-// Thread (fast, slow) of a 32x8 block grid -> the element (r, c) of a
-// (rows, cols) operand and its offset in a plane: AXIS 0 (A, one shift per
-// row) runs the warp along cols and stores planes row-major (rows, cols);
-// AXIS 1 (B, one shift per column) runs it along rows and stores planes
-// (cols, rows), k-contiguous as the tensor-core products read B. (The FP8
-// encoder's indexing; the INT8 encoder has its own, encode.cu.)
-template <int AXIS>
-struct EncodeIndex {
-    int r, c;
-    size_t pos;
-    __device__ EncodeIndex(int rows, int cols) {
-        const int fast = blockIdx.x * 32 + threadIdx.x;
-        const int slow = blockIdx.y * 8 + threadIdx.y;
-        r = AXIS == 0 ? slow : fast;
-        c = AXIS == 0 ? fast : slow;
-        pos = AXIS == 0 ? (size_t)r * cols + c : (size_t)c * rows + r;
-    }
-};
-
-// the launch grid of EncodeIndex; false if it exceeds the y-dimension limit
-inline bool encode_grid(int axis, int rows, int cols, dim3& grid,
-                        dim3& block) {
-    const int fast = axis == 0 ? cols : rows;
-    const int slow = axis == 0 ? rows : cols;
-    block = dim3(32, 8);
-    grid = dim3((fast + 31) / 32, (slow + 7) / 8);
-    return (slow + 7) / 8 <= 65535;
-}
-
 // F(std::integral_constant<int, NL>) for the run-time limb count nl in
 // [2, G8_MAX_NL]; returns cudaErrorInvalidValue for any other
 template <typename F>
@@ -165,4 +137,148 @@ inline int dispatch_nl(int nl, F&& f) {
         case 6: return f(std::integral_constant<int, 6>());
         default: return (int)cudaErrorInvalidValue;
     }
+}
+
+// The two frames of both encoders (K1, encode.cu; K6, encode_fp8.cu): each
+// thread quantizes 4 consecutive elements along the planes' contiguous axis
+// and hands their limbs to the encoder's Emit policy, which reduces them and
+// stores the planes. A policy provides
+//   Plan, Out                  the kernel's plan and plane element types,
+//   enc(plan)                  the limb plan (EncodePlan) inside Plan,
+//   kStageB                    whether B is staged through shared memory,
+//   emit<NL>(out, pos, plane, valid, word, lim, plan)
+//                              the planes of the 4 elements at offset pos
+//                              of plane 0 (planes `plane` bytes apart), of
+//                              which the first `valid` exist; `word`: the
+//                              wrapper's vec flag (whole aligned words).
+//
+// A (axis 0, planes (planes, m, k) row-major): thread (x, y) of a 32x8 block
+// takes elements c0 .. c0+3 of row r, read with 16-byte loads where vec
+// allows (cols % 4 == 0, x 16-byte aligned).
+// B (axis 1, planes stored (planes, n, k), k-contiguous as the tensor-core
+// products read B): a kTileK (k) x kTileN (n) tile of x is staged through
+// shared memory with reads along x's rows (n); warp w then takes columns w,
+// w+8, w+16, w+24 and lane l elements r0+4l .. r0+4l+3 of each, so that each
+// warp writes 128 consecutive k of one column per plane. The tile's k index
+// is stored permuted ((k % 4) * 32 + k / 4, row pitch kTileK + 1), so both
+// the staging writes and the 4-consecutive-k reads meet no bank conflict.
+// Without kStageB each lane reads its 4 elements from x directly (a
+// strided read: 32 rows a warp).
+constexpr int kTileK = 128;      // axis 1: rows of x (k) per block
+constexpr int kTileN = 32;       // axis 1: columns of x (n) per block
+constexpr int kPitch = kTileK + 1;
+
+template <typename Emit, typename T, int NL>
+__global__ void __launch_bounds__(256)
+encode_rows_kernel(const T* __restrict__ x, const int* __restrict__ sft,
+                   typename Emit::Out* __restrict__ out,
+                   const __grid_constant__ typename Emit::Plan plan, int rows,
+                   int cols, int vec) {
+    const int r = blockIdx.y * 8 + threadIdx.y;
+    const int c0 = (blockIdx.x * 32 + threadIdx.x) * 4;
+    if (r >= rows || c0 >= cols) return;
+    const int valid = min(cols - c0, 4);
+    const size_t pos = (size_t)r * cols + c0;
+    T v[4];
+    if (vec && valid == 4) {             // 16-byte loads: cols % 4 == 0
+        if (sizeof(T) == 4) {
+            const float4 q = *reinterpret_cast<const float4*>(x + pos);
+            v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+        } else {
+            const double2 q0 = *reinterpret_cast<const double2*>(x + pos);
+            const double2 q1 = *reinterpret_cast<const double2*>(x + pos + 2);
+            v[0] = q0.x; v[1] = q0.y; v[2] = q1.x; v[3] = q1.y;
+        }
+    } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) v[e] = e < valid ? x[pos + e] : T(0);
+    }
+    const EncodePlan& enc = Emit::enc(plan);
+    const Pow2Split<T> scale(sft[r]);
+    int lim[4][NL];
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+        quantize_limbs<T, NL>(scale.apply(v[e]), enc.max_exp, lim[e]);
+    Emit::template emit<NL>(out, pos, (size_t)rows * cols, valid, vec != 0,
+                            lim, plan);
+}
+
+template <typename Emit, typename T, int NL>
+__global__ void __launch_bounds__(256)
+encode_cols_kernel(const T* __restrict__ x, const int* __restrict__ sft,
+                   typename Emit::Out* __restrict__ out,
+                   const __grid_constant__ typename Emit::Plan plan, int rows,
+                   int cols, int vec) {
+    __shared__ T tile[Emit::kStageB ? kTileN * kPitch : 1];
+    const int r0 = blockIdx.x * kTileK, c0 = blockIdx.y * kTileN;
+    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    if constexpr (Emit::kStageB) {
+#pragma unroll 4
+        for (int it = 0; it < kTileK * kTileN / 256; ++it) {
+            const int kr = it * (256 / kTileN) + tid / kTileN;
+            const int nc = tid % kTileN;
+            const int gr = r0 + kr, gc = c0 + nc;
+            tile[nc * kPitch + (kr & 3) * 32 + (kr >> 2)] =
+                gr < rows && gc < cols ? x[(size_t)gr * cols + gc] : T(0);
+        }
+        __syncthreads();
+    }
+    const int valid = min(rows - (r0 + 4 * lane), 4);
+    if (valid <= 0) return;
+    const EncodePlan& enc = Emit::enc(plan);
+    for (int j = 0; j < kTileN / 8; ++j) {
+        const int nc = warp + 8 * j;
+        const int gc = c0 + nc;
+        if (gc >= cols) break;
+        const Pow2Split<T> scale(sft[gc]);
+        int lim[4][NL];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+            T v;
+            if constexpr (Emit::kStageB)
+                v = tile[nc * kPitch + e * 32 + lane];
+            else
+                v = e < valid ? x[(size_t)(r0 + 4 * lane + e) * cols + gc]
+                              : T(0);
+            quantize_limbs<T, NL>(scale.apply(v), enc.max_exp, lim[e]);
+        }
+        Emit::template emit<NL>(out, (size_t)gc * rows + r0 + 4 * lane,
+                                (size_t)rows * cols, valid, vec != 0, lim,
+                                plan);
+    }
+}
+
+// Both frames on x (rows, cols) f32 or f64, for the plan's limb count;
+// returns the launch's CUDA error, or cudaErrorInvalidValue for a bad axis,
+// limb count or grid.
+template <typename Emit>
+int launch_encode(const void* x, const void* sft, void* out,
+                  const typename Emit::Plan& plan, int is_f64, int axis,
+                  int rows, int cols, int vec, cudaStream_t st) {
+    const EncodePlan& enc = Emit::enc(plan);
+    if (enc.nu < 1 || enc.nu > G8_MAX_NU || (axis != 0 && axis != 1))
+        return (int)cudaErrorInvalidValue;
+    auto go = [&](auto tag, auto nl) -> int {
+        using T = decltype(tag);
+        constexpr int NL = decltype(nl)::value;
+        const T* xp = static_cast<const T*>(x);
+        const int* sp = static_cast<const int*>(sft);
+        auto* op = static_cast<typename Emit::Out*>(out);
+        if (axis == 0) {
+            const dim3 grid((cols + 127) / 128, (rows + 7) / 8);
+            if (grid.y > 65535) return (int)cudaErrorInvalidValue;
+            encode_rows_kernel<Emit, T, NL><<<grid, dim3(32, 8), 0, st>>>(
+                xp, sp, op, plan, rows, cols, vec);
+        } else {
+            const dim3 grid((rows + kTileK - 1) / kTileK,
+                            (cols + kTileN - 1) / kTileN);
+            if (grid.y > 65535) return (int)cudaErrorInvalidValue;
+            encode_cols_kernel<Emit, T, NL><<<grid, 256, 0, st>>>(
+                xp, sp, op, plan, rows, cols, vec);
+        }
+        return (int)cudaGetLastError();
+    };
+    return dispatch_nl(enc.nl, [&](auto nl) {
+        return is_f64 ? go(double(), nl) : go(float(), nl);
+    });
 }

@@ -37,6 +37,7 @@ interface.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import json
 import os
@@ -73,8 +74,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
     # x, sft, out, plan, is_f64, scale_axis, rows, cols, vec, stream
     "encode_planes": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # x, sft, out, plan, is_f64, scale_axis, rows, cols, stream
-    "encode_planes_fp8": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # x, sft, out, plan, is_f64, scale_axis, rows, cols, vec, stream
+    "encode_planes_fp8": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # c_hi, sft_a, sft_b, out, in_i8, out_f64, m, n, vec, plan, stream
     "fused_epilogue": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
     # c3, sft_a, sft_b, out, out_f64, m, n, plan, stream
@@ -91,8 +92,8 @@ _ARGTYPES = {
     "matmul_i8_wgmma": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     # src (nu, k, n), dst (nu, n, k), nu, k, n, stream
     "transpose_i8": [_P, _P, _I, _I, _I, _P],
-    # c_hi, sft_a, sft_b, hi, lo, m, n, plan, stream
-    "fused_epilogue_mxu": [_P, _P, _P, _P, _P, _I, _I, _P, _P],
+    # c_hi, sft_a, sft_b, hi, lo, m, n, vec, plan, stream
+    "fused_epilogue_mxu": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
 }
 
 _MAX_NU = 20        # csrc/common.cuh: G8_MAX_NU
@@ -303,10 +304,10 @@ def encode_planes(x: torch.Tensor, sft: torch.Tensor, scale_axis: int,
 
 
 def _encode_vec(x: torch.Tensor, out: torch.Tensor, scale_axis: int) -> bool:
-    """Whether csrc/encode.cu may store a word per plane and 4 elements (and,
-    for A, read x with 16-byte loads): the planes' contiguous axis (x's cols
-    for A, its rows for B) a multiple of 4, out (and, for A, x) 16-byte
-    aligned."""
+    """Whether csrc/encode.cu or csrc/encode_fp8.cu may store a word per
+    plane and 4 elements (and, for A, read x with 16-byte loads): the
+    planes' contiguous axis (x's cols for A, its rows for B) a multiple of
+    4, out (and, for A, x) 16-byte aligned."""
     width = x.shape[1 - scale_axis]
     return (width % 4 == 0 and out.data_ptr() % 16 == 0
             and (scale_axis == 1 or x.data_ptr() % 16 == 0))
@@ -335,17 +336,34 @@ class _EncodePlanFp8(ctypes.Structure):       # csrc/common.cuh: EncodePlanFp8
     _fields_ = [("enc", _EncodePlan),
                 ("sq", ctypes.c_int * _MAX_NU),
                 ("inv_sq", ctypes.c_float * _MAX_NU),
-                ("slot", ctypes.c_int * (3 * _MAX_NU))]
+                ("plane", (ctypes.c_int * 3) * _MAX_NU)]
 
 
+def fp8_plane_map(num_moduli: int, side: str) -> list[tuple[int, int, int]]:
+    """Per modulus i, the planes of this side's (3nu, ...) stack that take
+    its split values, from fp8.slot_order: x's plane, y's plane, and z's
+    plane (Karatsuba moduli) or y's second plane (square moduli, whose z is
+    not stacked): csrc/common.cuh, EncodePlanFp8.plane."""
+    planes = {}
+    for j, (i, s) in enumerate(fp8.slot_order(num_moduli, side)):
+        planes.setdefault(i, {}).setdefault(s, []).append(j)
+    out = []
+    for i in range(num_moduli):
+        x, y = planes[i][0], planes[i][1]
+        out.append((x[0], y[0], planes[i][2][0] if 2 in planes[i] else y[1]))
+    return out
+
+
+@functools.lru_cache(maxsize=None)
 def _encode_plan_fp8(num_moduli: int, side: str) -> _EncodePlanFp8:
+    """K6's plan, built once per (nu, side) and only read after that."""
     plan = _EncodePlanFp8()
     plan.enc = _encode_plan(num_moduli, _FP8)
     for i, q in enumerate(fp8._sqrt_moduli()[:num_moduli]):
         plan.sq[i] = q
         plan.inv_sq[i] = float(np.float32(1.0 / q))
-    for j, (_, s) in enumerate(fp8.slot_order(num_moduli, side)):
-        plan.slot[j] = s
+    for i, planes in enumerate(fp8_plane_map(num_moduli, side)):
+        plan.plane[i][:] = planes
     return plan
 
 
@@ -358,25 +376,38 @@ def encode_planes_fp8_plain(x, sft, scale_axis, num_moduli):
 
 
 def encode_planes_fp8(x: torch.Tensor, sft: torch.Tensor, scale_axis: int,
-                      num_moduli: int) -> torch.Tensor:
+                      num_moduli: int,
+                      out: torch.Tensor | None = None) -> torch.Tensor:
     """The FP8 backend's GEMM-ready (3nu, *x.shape) float8_e4m3fn plane stack
     of one operand, in its side's slot order (scale_axis 0: A, per-row
     shifts; 1: B, per-column shifts).
 
     On the card, B's stack is a (3nu, k, n) view of (3nu, n, k) storage: each
-    plane is the column-major operand torch._scaled_mm reads."""
+    plane is the column-major operand torch._scaled_mm reads. `out`, if
+    given, is written and returned instead: a float8_e4m3fn (3nu, *x.shape)
+    tensor in that same layout."""
     if x.device.type == "cpu":
-        return encode_planes_fp8_plain(x, sft, scale_axis, num_moduli)
+        planes = encode_planes_fp8_plain(x, sft, scale_axis, num_moduli)
+        return planes if out is None else out.copy_(planes)
     rows, cols = _check_encode("encode_planes_fp8", x, sft, scale_axis,
                                num_moduli)
-    out = plane_buffer((3 * num_moduli,), rows, cols, scale_axis, x.device,
-                       torch.float8_e4m3fn)
+    shape = (3 * num_moduli,)
+    if out is None:
+        out = plane_buffer(shape, rows, cols, scale_axis, x.device,
+                           torch.float8_e4m3fn)
+    elif (out.dtype != torch.float8_e4m3fn or out.device != x.device
+          or out.shape != (*shape, rows, cols)
+          or out.stride() != plane_buffer(shape, rows, cols, scale_axis,
+                                          "meta").stride()):
+        raise ValueError("encode_planes_fp8: out must be a float8_e4m3fn "
+                         f"({shape[0]}, {rows}, {cols}) tensor in the layout "
+                         "encode_planes_fp8 returns")
     if x.numel():
         plan = _encode_plan_fp8(num_moduli, "lhs" if scale_axis == 0 else "rhs")
         _launch("encode_planes_fp8", x.data_ptr(), sft.data_ptr(),
                 out.data_ptr(), ctypes.addressof(plan),
                 int(x.dtype == torch.float64), scale_axis, rows, cols,
-                _stream(x))
+                int(_encode_vec(x, out, scale_axis)), _stream(x))
     return out
 
 
@@ -827,9 +858,23 @@ def fused_epilogue_mxu_plain(c_hi, sft_a, sft_b, num_moduli, backend,
                            sft_a, sft_b)
 
 
+# K8's vector loads: 4 columns of a plane (csrc/epilogue_mxu.cu: kGroup)
+MXU_GROUP = 4
+
+
+def mxu_depth(i: int) -> int:
+    """The depth of the column product at which K8 puts modulus i (lane t of
+    a quad holds moduli t + 4u): 4t + u for i = t + 4u < 16, 16 + 4t for
+    i = 16 + t (csrc/common.cuh, EpiloguePlanMxu.c8)."""
+    return 4 * (i % 4) + i // 4 if i < 16 else 16 + 4 * (i - 16)
+
+
+@functools.lru_cache(maxsize=None)
 def _epilogue_plan_mxu(num_moduli: int, backend: str, out_bits: int):
+    """K8's plan, built once per (nu, backend, out_bits) and only read after
+    that."""
     base, n_cols, C, _, _ = ff._crt_matrix_plan(num_moduli, backend, out_bits)
-    if n_cols > _MXU_COLS or num_moduli > _MXU_K:
+    if n_cols > _MXU_COLS or num_moduli > _MAX_NU:
         raise ValueError(f"fused_epilogue_mxu: {n_cols} columns of "
                          f"{num_moduli} moduli exceed the kernel's tile")
     plan = _EpiloguePlanMxu()
@@ -839,7 +884,7 @@ def _epilogue_plan_mxu(num_moduli: int, backend: str, out_bits: int):
     for i in range(num_moduli):
         plan.w2[i], plan.inv_p[i] = w2[i], inv_p[i]
         for j in range(n_cols):
-            plan.c8[j][i] = int(C[i, j])
+            plan.c8[j][mxu_depth(i)] = int(C[i, j])
     return plan
 
 
@@ -866,5 +911,6 @@ def fused_epilogue_mxu(c_hi: torch.Tensor, sft_a: torch.Tensor,
         plan = _epilogue_plan_mxu(num_moduli, backend, out_bits)
         _launch("fused_epilogue_mxu", c_hi.data_ptr(), sft_a.data_ptr(),
                 sft_b.data_ptr(), hi.data_ptr(), lo.data_ptr(), m, n,
+                int(_epilogue_vec(n, MXU_GROUP, c_hi)),
                 ctypes.addressof(plan), _stream(c_hi))
     return hi, lo

@@ -7,8 +7,8 @@
 
 and, with no tool behind it,
 
-  epilogue_tiles                     K2's and K4's design choices, each
-                                     undone in turn and timed
+  epilogue_tiles                     the design choices of K2, K4, K6
+                                     and K8, each undone in turn and timed
 
 Each runs as `python -m gemmul8_tpu_torch.probes.<name>` on a CUDA card and
 prints a table; chip_smoke.py drives the first three's main() functions and

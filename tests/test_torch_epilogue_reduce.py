@@ -420,9 +420,19 @@ def test_tile_variants_edit_the_shipped_sources(variant, tmp_path):
 def test_tile_cases_name_shipped_kernels():
     """Each case's kernel is one the shipped sources instantiate: its input
     type, output and limb count are those of its plan."""
-    for kernel, nu, in_dtype, out_dtype, part in \
-            epilogue_tiles.CASES.values():
-        real = kernels.REAL_DTYPE[out_dtype]
+    from gemmul8_tpu_torch import quantize
+    for kernel, nu, in_dtype, arg, part in epilogue_tiles.CASES.values():
+        if kernel == "encode_planes_fp8":
+            frame = "rows" if arg == 0 else "cols"
+            t = "d" if in_dtype == torch.float64 else "f"
+            assert part == (f"encode_{frame}_kernel.*Fp8PlanesE{t}Li"
+                            f"{quantize.n_limbs(nu, 'FP8')}E")
+            continue
+        if kernel == "fused_epilogue_mxu":
+            L = kernels._epilogue_plan_mxu(nu, "INT8", arg).crt.L
+            assert part == f"epilogue_mxu_kernelILb1ELi{L}E"
+            continue
+        real = kernels.REAL_DTYPE[arg]
         L = kernels._epilogue_plan(nu, "INT8",
                                    53 if real == torch.float64 else 24).L
         f64 = int(real == torch.float64)
@@ -431,6 +441,23 @@ def test_tile_cases_name_shipped_kernels():
             assert part == f"epilogue_kernelI{t}Lb{f64}ELb1ELi{L}E"
         else:
             assert part == f"complex_kernelILb{f64}ELb1ELi2ELi{L}E"
+
+
+@pytest.mark.parametrize("variant", sorted(epilogue_tiles.VARIANTS))
+def test_tile_variants_rebuild_what_they_edit(variant):
+    """The shipped build takes every timed source; a variant rebuilds at
+    least one, and exactly those that include a file it edits."""
+    edits = epilogue_tiles.VARIANTS[variant]
+    built = epilogue_tiles.variant_builds(edits)
+    if not edits:
+        assert built == epilogue_tiles.SOURCES
+        return
+    assert built
+    for src in epilogue_tiles.SOURCES:
+        text = _read(src)
+        reached = any(name == src or f'#include "{name}"' in text
+                      for name, _, _ in edits)
+        assert (src in built) == reached, src
 
 
 def test_probe_epilogue_tiles_needs_the_card():

@@ -308,8 +308,11 @@ def test_fp8_plans_fit_the_kernels():
         assert [enc.sq[i] for i in range(nu)] == \
             [int(round(np.sqrt(p))) if i < jt.NOT_KARATSUBA else 0
              for i, p in enumerate(MODS[:nu])]
-        assert [enc.slot[j] for j in range(3 * nu)] == \
-            [s for _, s in tf.slot_order(nu, "rhs")]
+        order = tf.slot_order(nu, "rhs")
+        for i in range(nu):
+            x, y, z = enc.plane[i]
+            assert order[x] == (i, 0) and order[y] == (i, 1)
+            assert order[z] == (i, 2 if i >= jt.NOT_KARATSUBA else 1)
         for out_bits in (24, 53):
             plan = kernels._epilogue_plan(nu, "FP8", out_bits)
             assert 1 <= plan.L <= kernels._MAX_L
