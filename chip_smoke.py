@@ -1,7 +1,9 @@
 """On-card smoke test of gemmul8_tpu_torch: builds the CUDA kernels, holds each
 against its plain PyTorch version bit for bit, drives the main paths at 8192^3
--- real DGEMM/SGEMM and complex ZGEMM/CGEMM and herk (fast mode, INT8), and
-real DGEMM/SGEMM on the FP8 backend -- checks their launch counts, their
+-- real DGEMM/SGEMM and complex ZGEMM/CGEMM and herk (fast mode, INT8), real
+DGEMM/SGEMM on the FP8 backend, and accurate mode (fastmode=False) on real
+INT8 and FP8 DGEMM, SGEMM, ZGEMM, herk and syrk, with syrk's default robust
+mode and gemm_batched (8 x 2048^3) -- checks their launch counts, their
 accuracy against an extended-precision oracle and their bits against the
 package's own CPU path, checks that the FP8 tensor-core products are exact,
 and times the kernels, the int8 and FP8 products and the whole calls. It also
@@ -218,11 +220,13 @@ def assert_bits_equal(got, ref, what, extra=""):
 def run_counted(fn):
     """fn() with every launch count set to 0 just before and read just
     after; torch._int_mm and torch._scaled_mm calls (the library products)
-    are counted by wrappers around them."""
-    from gemmul8_tpu_torch import kernels
+    are counted by wrappers around them, and the _int_mm calls made inside
+    accurate mode's estimation products apart as "estimate_int_mm"."""
+    from gemmul8_tpu_torch import kernels, quantize
     names = ("_int_mm", "_scaled_mm")
     orig = {name: getattr(torch, name) for name in names}
-    calls = dict.fromkeys(names, 0)
+    orig_estimate = quantize.estimate_gemm
+    calls = dict.fromkeys(names + ("estimate_int_mm",), 0)
 
     def counted(name):
         def call(*a, **k):
@@ -230,15 +234,23 @@ def run_counted(fn):
             return orig[name](*a, **k)
         return call
 
+    def estimate(*a, **k):
+        before = calls["_int_mm"]
+        out = orig_estimate(*a, **k)
+        calls["estimate_int_mm"] += calls["_int_mm"] - before
+        return out
+
     kernels.reset_launches()
     for name in names:
         setattr(torch, name, counted(name))
+    quantize.estimate_gemm = estimate
     try:
         out = fn()
         torch.cuda.synchronize()
     finally:
         for name in names:
             setattr(torch, name, orig[name])
+        quantize.estimate_gemm = orig_estimate
     counts = dict(kernels.LAUNCHES)
     counts.update(calls)
     return out, counts
@@ -1026,20 +1038,21 @@ def small_accuracy_case(rng):
 # paths with their launch counts and their accuracy
 # ---------------------------------------------------------------------------
 
-def complex_stages(nu, entry, a, b):
+def complex_stages(nu, entry, a, b, fastmode=None):
     """The complex path's stages up to the lane products, as the entry runs
-    them: (shifts, lanes of A and of B, C_hi3)."""
+    them in the given mode (by default the entry's own: gemm's fast shifts,
+    herk's robust ones): (shifts, lanes of A and of B, C_hi3)."""
     from gemmul8_tpu_torch import complex_gemm as cg, core
+    if fastmode is None:
+        fastmode = "robust" if entry == "herk" else True
     ar, ai = a.real.contiguous(), a.imag.contiguous()
     if entry == "herk":          # one shift and one encode serve both sides
-        sa = cg._shift_complex_fast(ar, ai, nu, "INT8", 1, variant="invariant")
-        sb = sa
+        sa, sb = cg.shifts((ar, ai), None, nu, fastmode, "INT8")
         pa = cg._quantize_complex(ar, ai, sa, 0, nu, "INT8", False)
         pb = cg._herk_rhs_lanes(pa, nu, "INT8")
     else:
         br, bi = b.real.contiguous(), b.imag.contiguous()
-        sa = cg._shift_complex_fast(ar, ai, nu, "INT8", 1)
-        sb = cg._shift_complex_fast(br, bi, nu, "INT8", 0)
+        sa, sb = cg.shifts((ar, ai), (br, bi), nu, fastmode, "INT8")
         pa = cg._quantize_complex(ar, ai, sa, 0, nu, "INT8", False)
         pb = cg._quantize_complex(br, bi, sb, 1, nu, "INT8", False)
     c_hi3 = core.residue_matmul(pa.reshape(3 * nu, *pa.shape[2:]),
@@ -1062,20 +1075,29 @@ def compare_rows(key, got, plain, what, rows=1024):
     CASES[key] = CASES.get(key, 0) + 1
 
 
-def full_size_complex_cases(A, B):
+def full_size_complex_cases(A, B, paths=None):
     """Each kernel on the inputs each complex path gives it at 8192^2: the
     encodes of the Re and Im lanes of A (and B), then the complex epilogue
     (nu <= 16), or the recombine and the real epilogue on its int8 output
-    (nu = 20), on the path's own lane products."""
+    (nu = 20), on the path's own lane products. paths: (name, dtype, nu,
+    entry, fastmode), by default CPATHS in their entries' own modes."""
     from gemmul8_tpu_torch import kernels
-    for name, dt, nu, entry, _ in CPATHS:
+    if paths is None:
+        paths = [(name, dt, nu, entry, None)
+                 for name, dt, nu, entry, _ in CPATHS]
+    for name, dt, nu, entry, fastmode in paths:
         a = A.to(dt)
         b = B.to(dt) if entry == "gemm" else None
-        (sa, sb), (pa, pb), c_hi3 = complex_stages(nu, entry, a, b)
+        (sa, sb), (pa, pb), c_hi3 = complex_stages(nu, entry, a, b, fastmode)
         real = a.real.contiguous()
         compare(f"encode_planes[{TAG[real.dtype]}]", pa[0],
                 kernels.encode_planes_plain(real, sa, 0, nu, "INT8"),
                 f"encode full-size {name} Re(A)")
+        if fastmode is False:
+            compare(f"encode_planes[{TAG[real.dtype]}]", pa[1],
+                    kernels.encode_planes_plain(a.imag.contiguous(), sa, 0,
+                                                nu, "INT8"),
+                    f"encode full-size {name} Im(A)")
         if entry == "gemm":
             imag = b.imag.contiguous()
             compare(f"encode_planes[{TAG[real.dtype]}]", pb[1],
@@ -1110,17 +1132,20 @@ def full_size_complex_cases(A, B):
         torch.cuda.empty_cache()
 
 
+def _ld_matmul(x, y):
+    """x @ y in numpy longdouble, in column blocks on 8 threads (numpy's
+    longdouble matmul has no BLAS; it releases the GIL)."""
+    x, y = np.asarray(x, np.longdouble), np.asarray(y, np.longdouble)
+    blocks = range(0, y.shape[1], 512)
+    with ThreadPoolExecutor(8) as ex:
+        return np.concatenate(list(ex.map(
+            lambda j: x @ y[:, j:j + 512], blocks)), axis=1)
+
+
 def _ld_product_rows(ar, ai, br, bi):
     """(ar + i ai) @ (br + i bi) in numpy longdouble from the four real
-    products, each in column blocks on 8 threads (numpy's longdouble matmul
-    has no BLAS; it releases the GIL)."""
-    def prod(x, y):
-        blocks = range(0, y.shape[1], 512)
-        with ThreadPoolExecutor(8) as ex:
-            return np.concatenate(list(ex.map(
-                lambda j: x @ y[:, j:j + 512], blocks)), axis=1)
-    ld = lambda v: np.asarray(v, np.longdouble)  # noqa: E731
-    ar, ai, br, bi = map(ld, (ar, ai, br, bi))
+    products."""
+    prod = _ld_matmul
     return (prod(ar, br) - prod(ai, bi)) + 1j * (prod(ar, bi) + prod(ai, br))
 
 
@@ -1132,13 +1157,17 @@ def complex_relerr(c, ref):
     return float(np.max(err)), float(np.median(err))
 
 
+# rows 0-7 of each complex product, (entry, dtype) -> longdouble oracle
+COMPLEX_ORACLES: dict = {}
+
+
 def complex_main_paths(A, B):
     """The four complex paths through the entry points a user calls, each
     with its launch counts set to 0 just before and read just after; the
     output's shape, dtype and finiteness; accuracy on rows 0-7 against a
     longdouble oracle beside torch.matmul's (cuBLAS ZGEMM/CGEMM)."""
     import gemmul8_tpu_torch as gt
-    launches, oracles = {}, {}
+    launches, oracles = {}, COMPLEX_ORACLES
     for name, dt, nu, entry, want in CPATHS:
         a = A.to(dt)
         b = B.to(dt) if entry == "gemm" else a.mH
@@ -1175,6 +1204,392 @@ def complex_main_paths(A, B):
         del c, native
         torch.cuda.empty_cache()
     return launches
+
+
+# ---------------------------------------------------------------------------
+# accurate mode (fastmode=False), syrk and gemm_batched at full width: the
+# paths with their launch counts, accuracy, shift gain and times
+# ---------------------------------------------------------------------------
+
+# the launches one call makes: K1, _int_mm (products and estimates), K2, K6,
+# _scaled_mm, K3, K4, K5, and apart the _int_mm calls of the estimates
+ACCURATE_KEYS = ("encode_planes", "_int_mm", "fused_epilogue",
+                 "encode_planes_fp8", "_scaled_mm", "fused_epilogue_fp8",
+                 "fused_epilogue_complex", "fused_recombine_3m",
+                 "estimate_int_mm")
+BATCH = 8          # gemm_batched: 8 x (FULL/4)^3 = 8 x 2048^3
+# name, dtype, nu, backend, entry, fastmode, launches of one call
+APATHS = (
+    ("dgemm16 accurate", torch.float64, 16, "INT8", "gemm", False,
+     (2, 17, 1, 0, 0, 0, 0, 0, 1)),
+    ("sgemm8 accurate", torch.float32, 8, "INT8", "gemm", False,
+     (2, 9, 1, 0, 0, 0, 0, 0, 1)),
+    ("fp8 dgemm14 accurate", torch.float64, 14, "FP8", "gemm", False,
+     (0, 4, 0, 2, 42, 1, 0, 0, 4)),
+    ("zgemm16 accurate", torch.complex128, 16, "INT8", "gemm", False,
+     (4, 51, 0, 0, 0, 0, 1, 0, 3)),
+    ("herk16 accurate", torch.complex128, 16, "INT8", "herk", False,
+     (2, 51, 0, 0, 0, 0, 1, 0, 3)),
+    ("syrk16 robust", torch.float64, 16, "INT8", "syrk", "robust",
+     (1, 16, 1, 0, 0, 0, 0, 0, 0)),
+    ("syrk16 accurate", torch.float64, 16, "INT8", "syrk", False,
+     (1, 17, 1, 0, 0, 0, 0, 0, 1)),
+    ("fp8 syrk14 accurate", torch.float64, 14, "FP8", "syrk", False,
+     (0, 4, 0, 1, 42, 1, 0, 0, 4)),
+    ("batched 8x2048^3 nu=16 accurate", torch.float64, 16, "INT8", "batched",
+     False, (2 * BATCH, 17 * BATCH, BATCH, 0, 0, 0, 0, 0, BATCH)),
+)
+
+
+def accurate_operands(entry, dt, a64, b64, A, B):
+    """The operands of one accurate path: the phase-4 ones (complex: A and
+    B; herk and syrk: A alone; batched: the first 8 of their 2048^2 blocks)."""
+    if dt.is_complex:
+        return A.to(dt), (B.to(dt) if entry == "gemm" else None)
+    if entry == "batched":
+        n = FULL // 4
+        return (a64.reshape(-1, n, n)[:BATCH], b64.reshape(-1, n, n)[:BATCH])
+    return a64.to(dt), (b64.to(dt) if entry == "gemm" else None)
+
+
+def accurate_call(entry, a, b, nu, backend, fastmode):
+    import gemmul8_tpu_torch as gt
+    kw = dict(num_moduli=nu, fastmode=fastmode)
+    if entry == "gemm":
+        return lambda: gt.gemm(a, b, backend=backend, **kw)
+    if entry == "herk":
+        return lambda: gt.herk(a, **kw)
+    if entry == "syrk":
+        return lambda: gt.syrk(a, backend=backend, **kw)
+    return lambda: gt.gemm_batched(a, b, backend=backend, **kw)
+
+
+def library_call(entry, a, b):
+    """The one PyTorch call that computes the same product."""
+    rhs = {"herk": lambda: a.mH, "syrk": lambda: a.T}.get(entry, lambda: b)()
+    return lambda: torch.matmul(a, rhs)
+
+
+def accurate_stages(a, b, nu, backend):
+    """The shift function the entry calls (core's or, on complex operands,
+    complex_gemm's, given the mode) and the three stages of its accurate
+    shifts: extract(), estimate(extracted), combine(estimated, extracted).
+    b=None for syrk and herk, as the entries pass it."""
+    from gemmul8_tpu_torch import complex_gemm as cg, core
+    mod = core
+    if a.is_complex():
+        mod = cg
+        a = (a.real.contiguous(), a.imag.contiguous())
+        b = None if b is None else (b.real.contiguous(), b.imag.contiguous())
+    return (lambda mode: mod.shifts(a, b, nu, mode, backend),
+            lambda: mod.accurate_extract(a, b, backend),
+            lambda ext: mod.accurate_estimate(ext, backend),
+            lambda est, ext: mod.accurate_combine(est, ext, nu, backend))
+
+
+def fast_mode(entry):
+    """The mode the entry takes by default: syrk and herk the robust one."""
+    return "robust" if entry in ("syrk", "herk") else True
+
+
+def element_pairs(entry, a, b):
+    """The (a, b) pairs one call's shifts are taken on: each batch element
+    for gemm_batched."""
+    return list(zip(a, b)) if entry == "batched" else [(a, b)]
+
+
+def shift_gain(entry, a, b, nu, backend):
+    """The mean of sft_accu - sft_fast over rows and columns (over every
+    batch element for gemm_batched): the bits accurate mode buys here."""
+    diffs = []
+    for x, y in element_pairs(entry, a, b):
+        shifts = accurate_stages(x, y, nu, backend)[0]
+        diffs += [(s1 - s0).double() for s1, s0 in
+                  zip(shifts(False), shifts(fast_mode(entry)))]
+    return float(torch.cat(diffs).mean())
+
+
+def full_size_accurate_cases(a64, b64, A, B):
+    """Each kernel on the inputs each path of APATHS gives it, with the
+    shifts from the entry's own shift function on the phase-4 operands: K1
+    or K6 on A and B against their plain versions, then K2 or K3 on the
+    path's own products (syrk's from the transposed view of A's planes, on
+    FP8 in the rhs slot order; gemm_batched's first element, at 2048^2) in
+    row blocks; the complex paths through full_size_complex_cases."""
+    from gemmul8_tpu_torch import core, fp8, kernels
+    full_size_complex_cases(A, B, [
+        (name, dt, nu, entry, fastmode)
+        for name, dt, nu, _, entry, fastmode, _ in APATHS if dt.is_complex])
+    for name, dt, nu, backend, entry, fastmode, _ in APATHS:
+        if dt.is_complex:
+            continue
+        a, b = accurate_operands(entry, dt, a64, b64, A, B)
+        if entry == "batched":
+            a, b = a[0], b[0]
+        sa, sb = accurate_stages(a, b, nu, backend)[0](fastmode)
+        sides = [(a, sa, 0)] + ([] if b is None else [(b, sb, 1)])
+        planes = []
+        for x, s, axis in sides:
+            if backend == "FP8":
+                got = kernels.encode_planes_fp8(x, s, axis, nu)
+                plain = kernels.encode_planes_fp8_plain(x, s, axis, nu)
+            else:
+                got = kernels.encode_planes(x, s, axis, nu, backend)
+                plain = kernels.encode_planes_plain(x, s, axis, nu, backend)
+            compare(f"encode_planes{'_fp8' if backend == 'FP8' else ''}"
+                    f"[{TAG[dt]}]", got, plain,
+                    f"encode full-size {name} axis={axis}")
+            planes.append(got)
+            del plain
+            torch.cuda.empty_cache()
+        if b is None:            # syrk: the rhs planes are a transposed view
+            pa = planes[0]
+            planes.append((fp8.lhs_to_rhs_stack(pa, nu) if backend == "FP8"
+                           else pa).transpose(-1, -2))
+        if backend == "FP8":
+            c3 = fp8.residue_matmul_fp8(*planes)
+            del planes
+            compare_rows(f"fused_epilogue_fp8[{TAG[dt]}]",
+                         kernels.fused_epilogue_fp8(c3, sa, sb, nu, dt),
+                         lambda r0, r1: kernels.fused_epilogue_fp8_plain(
+                             c3[:, r0:r1].contiguous(), sa[r0:r1], sb, nu,
+                             dt),
+                         f"fp8 epilogue full-size {name}")
+            del c3
+        else:
+            c_hi = core.residue_matmul(*planes)
+            del planes
+            compare_rows(f"fused_epilogue[{TAG[dt]}]",
+                         kernels.fused_epilogue(c_hi, sa, sb, nu, backend,
+                                                dt),
+                         lambda r0, r1: kernels.fused_epilogue_plain(
+                             c_hi[:, r0:r1], sa[r0:r1], sb, nu, backend, dt),
+                         f"epilogue full-size {name}")
+            del c_hi
+        torch.cuda.empty_cache()
+
+
+def accurate_oracle(name, entry, dt, a, b):
+    """Rows 0-7 of the product against a longdouble oracle: (oracle, |A||B|
+    or None, the native product's rows). Shares the real and complex
+    oracles of phase 4 where the product is the same."""
+    if dt.is_complex:
+        rhs = b if entry == "gemm" else a.mH
+        ref = COMPLEX_ORACLES[(entry, dt)]
+        return ref, None, torch.matmul(a, rhs)[:8]
+    if entry == "gemm":
+        ref, scale, _ = ORACLES[dt]
+        return ref, scale, torch.matmul(a, b)[:8]
+    if entry == "syrk":
+        a8, a_np = a[:8].cpu().numpy(), a.cpu().numpy()
+        ref = _ld_matmul(a8, a_np.T)
+        scale = np.abs(a8) @ np.abs(a_np.T)
+        return ref, scale, torch.matmul(a, a.T)[:8]
+    a8, b_np = a[:, :8].cpu().numpy(), b.cpu().numpy()
+    ref = np.stack([_ld_matmul(x, y) for x, y in zip(a8, b_np)])
+    scale = np.abs(a8) @ np.abs(b_np)
+    return ref, scale, torch.matmul(a, b)[:, :8]
+
+
+def accurate_paths(a64, b64, A, B):
+    """Each accurate path (and syrk's default robust mode) at full width
+    through the entry point a user calls, with its launch counts set to 0
+    just before and read just after; the output's shape, dtype and
+    finiteness; accuracy on rows 0-7 against a longdouble oracle under the
+    fast path's limits; the mean shift gain over the entry's fast shifts.
+    Returns {name: (counts, gain)}."""
+    out = {}
+    for name, dt, nu, backend, entry, fastmode, want in APATHS:
+        a, b = accurate_operands(entry, dt, a64, b64, A, B)
+        c, counts = run_counted(accurate_call(entry, a, b, nu, backend,
+                                              fastmode))
+        got = tuple(counts[k] for k in ACCURATE_KEYS)
+        check(got == want, f"{name} launches {counts}, want "
+              f"{dict(zip(ACCURATE_KEYS, want))}")
+        shape = (BATCH, FULL // 4, FULL // 4) if entry == "batched" else \
+            (FULL, FULL)
+        fin = torch.view_as_real(c) if c.is_complex() else c
+        check(c.shape == shape and c.dtype == dt
+              and bool(torch.isfinite(fin).all()), f"{name} output")
+        ref, scale, native = accurate_oracle(name, entry, dt, a, b)
+        rows = c[:, :8] if entry == "batched" else c[:8]
+        rows, native = rows.cpu().numpy(), native.cpu().numpy()
+        if dt.is_complex:
+            (err, med), (nerr, _) = (complex_relerr(rows, ref),
+                                     complex_relerr(native, ref))
+            limit = 16 if entry == "herk" else 2
+            log(f"accuracy {name} rows 0-7: emulated max {err:.3e} median "
+                f"{med:.3e}; torch.matmul max {nerr:.3e}")
+            check(err <= limit * nerr, f"{name} error {err} vs cuBLAS {nerr}")
+        else:
+            (err, med), (nerr, _) = (max_median_relerr(rows, ref),
+                                     max_median_relerr(native, ref))
+            cw = float(np.max(np.abs(np.asarray(rows, np.longdouble) - ref)
+                              / scale))
+            log(f"accuracy {name} rows 0-7: emulated max {err:.3e} median "
+                f"{med:.3e} max/|A||B| {cw:.3e}; torch.matmul max "
+                f"{nerr:.3e}")
+            if dt == torch.float64:
+                check(err <= 2 * nerr and cw < 1e-13,
+                      f"{name} error {err} (|A||B|-relative {cw}) vs cuBLAS "
+                      f"{nerr}")
+            else:
+                check(err < nerr, f"{name} error {err} vs cuBLAS {nerr}")
+        gain = (shift_gain(entry, a, b, nu, backend) if fastmode is False
+                else None)
+        log(f"main path {name} launches: {counts}; shift gain over the fast "
+            f"shifts (mean sft_accu - sft_fast): {gain}")
+        out[name] = (counts, gain)
+        del c
+        torch.cuda.empty_cache()
+    return out
+
+
+def accurate_times(a64, b64, A, B, card):
+    """Phase 6 for each accurate path: the whole call, the entry's fast call
+    and torch.matmul (10 runs each, median; the call's quartiles), and the
+    accurate shifts' stages (extract, estimation products, combine; median
+    of 5); the rest of the call is the whole call less those."""
+    timing = {}
+    for name, dt, nu, backend, entry, fastmode, _ in APATHS:
+        a, b = accurate_operands(entry, dt, a64, b64, A, B)
+        runs = cuda_times(accurate_call(entry, a, b, nu, backend, fastmode),
+                          reps=10)
+        q1, q2, q3 = statistics.quantiles(runs, n=4)
+        t = dict(gemm_ms=q2, gemm_ms_q1=q1, gemm_ms_q3=q3)
+        if fastmode is False:
+            t["fast_ms"] = statistics.median(cuda_times(accurate_call(
+                entry, a, b, nu, backend, fast_mode(entry)), reps=10))
+            stages = [accurate_stages(x, y, nu, backend)
+                      for x, y in element_pairs(entry, a, b)]
+            ex = [s[1]() for s in stages]
+            est = [s[2](e) for s, e in zip(stages, ex)]
+            t["extract_ms"] = cuda_ms(lambda: [s[1]() for s in stages])
+            t["estimate_ms"] = cuda_ms(lambda: [s[2](e) for s, e in
+                                                zip(stages, ex)])
+            t["combine_ms"] = cuda_ms(lambda: [s[3](d, e) for s, d, e in
+                                               zip(stages, est, ex)])
+            t["fast_shifts_ms"] = cuda_ms(lambda: [s[0](fast_mode(entry))
+                                                   for s in stages])
+            t["rest_ms"] = t["gemm_ms"] - t["extract_ms"] - t["estimate_ms"] \
+                - t["combine_ms"]
+            del ex, est
+        t["library_ms"] = cuda_ms(library_call(entry, a, b))
+        flops = (8.0 if dt.is_complex else 2.0) * (
+            BATCH * (FULL // 4) ** 3 if entry == "batched" else FULL ** 3)
+        t["emulated_tflops"] = flops / (t["gemm_ms"] * 1e-3) / 1e12
+        timing[name] = t
+        log(f"times {card} | {name}: " + ", ".join(
+            f"{k_} {v:.4f}" for k_, v in t.items()))
+        torch.cuda.empty_cache()
+    return timing
+
+
+def accurate_card_vs_cpu(rng):
+    """Accurate mode, syrk (its three modes) and gemm_batched on the card
+    against the package's CPU path, bit for bit, at small shapes: real INT8
+    and FP8 (k = 520, past the 252 where the JAX package's FP8 estimate is
+    exact), complex nu = 16 and 20, gemm_planar, herk, syrk on INT8 and
+    FP8, the batched real, complex and planar entries; and an INT8
+    estimation product past its int32 range (64 x 600000 x 64)."""
+    import gemmul8_tpu_torch as gt
+    from gemmul8_tpu_torch import quantize
+    f64, f32, c128, c64 = np.float64, np.float32, np.complex128, np.complex64
+    ab = dict(alpha=-1.25, beta=0.75)
+    acc = dict(fastmode=False, epilogue="ff")
+    cases = [   # (entry, m, k, n, dtype, keywords)
+        ("gemm", 300, 520, 200, f64, dict(acc, num_moduli=16)),
+        ("gemm", 300, 520, 200, f64, dict(acc, num_moduli=16, epilogue="f64",
+                                          trans_a="T", **ab)),
+        ("gemm", 300, 520, 200, f32, dict(acc, num_moduli=8)),
+        ("gemm", 300, 520, 200, f64, dict(acc, num_moduli=14, backend="FP8")),
+        ("gemm", 300, 520, 200, f32, dict(acc, num_moduli=7, backend="FP8",
+                                          epilogue="f64", trans_b="T", **ab)),
+        ("gemm", 300, 520, 200, c128, dict(acc, num_moduli=16)),
+        ("gemm", 300, 520, 200, c128, dict(acc, num_moduli=20, trans_b="C")),
+        ("gemm", 300, 520, 200, c64, dict(acc, num_moduli=8, epilogue="f64",
+                                          alpha=-1.25 + 0.5j, beta=0.75)),
+        ("planar", 300, 520, 200, c128, dict(acc, num_moduli=16,
+                                             trans_a="C")),
+        ("herk", 300, 520, 300, c128, dict(acc, num_moduli=16, alpha=-0.5,
+                                           beta=2.0)),
+        ("herk", 520, 300, 520, c64, dict(acc, num_moduli=8, trans=True)),
+    ]
+    for backend, nu in (("INT8", 16), ("FP8", 14)):
+        for mode in (True, "robust", False):
+            cases.append(("syrk", 300, 520, 300, f64, dict(
+                num_moduli=nu, backend=backend, fastmode=mode, epilogue="ff",
+                **(ab if mode is False else {}))))
+    cases.append(("syrk", 520, 300, 520, f32, dict(num_moduli=8, trans=True,
+                                                   fastmode=False)))
+    cases += [("batched", 130, 260, 70, f64, dict(acc, num_moduli=16)),
+              ("batched", 130, 260, 70, c128, dict(num_moduli=16,
+                                                   epilogue="ff")),
+              ("batched_planar", 130, 260, 70, c128, dict(acc,
+                                                          num_moduli=16))]
+    n = 0
+    for entry, m, k, n_, dt, kw in cases:
+        kw = dict({"epilogue": "ff"}, **kw)
+        cplx = np.dtype(dt).kind == "c"
+        mk = (lambda *s: cphi(rng, *s, dt)) if cplx else \
+            (lambda *s: phi_matrix(rng, *s, 0.5, dt))
+        if entry in ("herk", "syrk"):
+            a = mk(m, k)
+            mdim = k if kw.get("trans") else m
+            if "beta" in kw:
+                kw = dict(kw, c=mk(mdim, mdim))
+            fn = (lambda d: gt.herk(a, device=d, **kw)) if entry == "herk" \
+                else (lambda d: gt.syrk(a, device=d, **kw))
+        elif entry.startswith("batched"):
+            a = np.stack([mk(m, k) for _ in range(3)])
+            b = np.stack([mk(k, n_) for _ in range(3)])
+            if entry == "batched":
+                fn = lambda d: gt.gemm_batched(  # noqa: E731
+                    a, b, device=d, **kw)
+            else:
+                planes = [np.ascontiguousarray(x)
+                          for x in (a.real, a.imag, b.real, b.imag)]
+                fn = lambda d: torch.complex(  # noqa: E731
+                    *gt.gemm_batched_planar(*planes, device=d, **kw))
+        else:
+            ta, tb = kw.get("trans_a", "N"), kw.get("trans_b", "N")
+            a = mk(*((m, k) if ta == "N" else (k, m)))
+            b = mk(*((k, n_) if tb == "N" else (n_, k)))
+            if "beta" in kw:
+                kw = dict(kw, c=mk(m, n_))
+            if entry == "gemm":
+                fn = lambda d: gt.gemm(a, b, device=d, **kw)  # noqa: E731
+            else:
+                planes = [np.ascontiguousarray(x)
+                          for x in (a.real, a.imag, b.real, b.imag)]
+                fn = lambda d: torch.complex(  # noqa: E731
+                    *gt.gemm_planar(*planes, device=d, **kw))
+        t0 = time.perf_counter()
+        got = fn("cuda")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        ref = fn("cpu")
+        t2 = time.perf_counter()
+        label = (f"card vs cpu {entry} {np.dtype(dt).name} {m}x{k}x{n_} "
+                 f"{ {x: y for x, y in kw.items() if x != 'c'} }")
+        assert_bits_equal(got, ref, label)
+        log(f"  ok  {label}  card {t1 - t0:.2f}s cpu {t2 - t1:.2f}s")
+        n += 1
+    # the INT8 estimation product past K_SAFE_INT8: f64 sums of 2^18-chunk
+    # int32 products, worst-case planes in the first row and column
+    k = 600_000
+    ua = rng.integers(0, 66, (64, k)).astype(np.int8)
+    ub = rng.integers(-65, 66, (k, 64)).astype(np.int8)
+    ua[0], ub[:, 0] = 65, 65
+    got = quantize.estimate_gemm(torch.from_numpy(ua).cuda(),
+                                 torch.from_numpy(ub).cuda(), "INT8")
+    ref = quantize.estimate_gemm(torch.from_numpy(ua), torch.from_numpy(ub),
+                                 "INT8")
+    assert_bits_equal(got, ref, "card vs cpu estimate_gemm INT8 64x600000x64")
+    check(float(got[0, 0]) == 65 * 65 * k, "estimate past K_SAFE_INT8")
+    log(f"  ok  card vs cpu estimate_gemm INT8 64x{k}x64 (f64, "
+        f"C[0,0] = 65^2 k = {float(got[0, 0]):.0f})")
+    return n + 1
 
 
 # ---------------------------------------------------------------------------
@@ -1955,11 +2370,20 @@ def main():
     log(f"kernels vs plain, all bit-equal, complex full size included: {CASES}")
     complex_launches = complex_main_paths(A, B)
     log_phase("phase 4 (complex paths)")
+    # accurate mode, syrk and gemm_batched on the same operands: each kernel
+    # at their inputs, then the paths
+    full_size_accurate_cases(a64, b64, A, B)
+    log(f"kernels vs plain, all bit-equal, accurate full size included: "
+        f"{CASES}")
+    accurate_runs = accurate_paths(a64, b64, A, B)
+    log_phase("phase 4 (accurate paths, syrk, gemm_batched)")
 
     # phase 5: the card against the CPU path, bit for bit
     n_cpu = card_vs_cpu(rng)
     n_cpu += complex_card_vs_cpu(crng)
     n_cpu += fp8_card_vs_cpu(frng)
+    # the accurate-mode cases added with it, on a stream of their own
+    n_cpu += accurate_card_vs_cpu(np.random.default_rng(SEED + 9))
     log(f"card vs cpu: {n_cpu} cases bit-equal")
     log_phase("phase 5 (card vs cpu)")
 
@@ -2014,6 +2438,17 @@ def main():
     ftiming = {dt: fp8_times(dt, nu, a64.to(dt), b64.to(dt), card)
                for dt, nu in FP8_PATHS}
     ctiming = {p[0]: complex_times(*p[:4], A, B, card) for p in CPATHS}
+    atiming = accurate_times(a64, b64, A, B, card)
+    for name, *_, fastmode, _ in APATHS:
+        t, gain = atiming[name], accurate_runs[name][1]
+        log(f"headline {card}: {name} {t['gemm_ms']:.3f} ms "
+            f"({t['emulated_tflops']:.3f} TF/s)"
+            + (f", fast call {t['fast_ms']:.3f} ms, shifts: extract "
+               f"{t['extract_ms']:.3f} + estimate {t['estimate_ms']:.3f} + "
+               f"combine {t['combine_ms']:.3f} ms against the fast shifts' "
+               f"{t['fast_shifts_ms']:.3f}, shift gain {gain:.3f} bits"
+               if fastmode is False else "")
+            + f", torch.matmul {t['library_ms']:.3f} ms")
     for name, *_ in CPATHS:
         t = ctiming[name]
         log(f"headline {card}: {name} 8192^3 {t['emulated_tflops']:.3f} TF/s "
@@ -2124,6 +2559,16 @@ def main():
              shape="20x8192x8192 int8 -> f64"),
     ]
     kern += probe_entries(probe_runs, ptiming)
+    # each kernel entry's launches in the accurate paths (and syrk's robust
+    # one) of its dtype that run it
+    for entry in kern:
+        key, _, tag = entry["name"].partition("[")
+        runs = {name: accurate_runs[name][0][key]
+                for name, dt, *_ in APATHS
+                if TAG[dt] == tag.rstrip("]")
+                and accurate_runs[name][0].get(key)}
+        if runs:
+            entry["accurate_launches"] = runs
     log(card)
     log(json.dumps({"kernels": kern}))
     print(json.dumps({"ok": True, "device": {

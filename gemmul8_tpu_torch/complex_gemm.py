@@ -1,5 +1,5 @@
-"""Complex GEMM (CGEMM/ZGEMM) and herk via the 3M scheme in residue space,
-fast (and robust) mode, INT8, in PyTorch.
+"""Complex GEMM (CGEMM/ZGEMM), herk and batched complex GEMM via the 3M scheme
+in residue space, fast, robust and accurate mode, INT8, in PyTorch.
 
 The counterpart of gemmul8_tpu/complex_gemm.py:
 
@@ -14,7 +14,10 @@ The counterpart of gemmul8_tpu/complex_gemm.py:
     CRT + descale pipelines (nu <= 16), or into a recombine kernel and two
     passes of the real epilogue kernel (nu > 16). On the CPU the wrappers run
     their plain versions. The "f64" epilogue runs the unfused chain;
-  * conjugation ('C' op) negates the imaginary lane before the encode.
+  * conjugation ('C' op) negates the imaginary lane before the encode;
+  * accurate mode bounds both parts of the product with three estimation
+    products of the lanes' upper-bound planes, combined through the 3M
+    identity in f32 with fixed inflations.
 
 Results are bit-equal to the JAX package on the CPU. XLA:CPU computes a
 complex product x*y under jit as re = fma(xr, yr, -(xi*yi)) and
@@ -22,6 +25,8 @@ im = fma(xi, yr, xr*yi); the alpha/beta epilogue here does the same with
 torch.addcmul (pinned by tests/test_torch_complex_gemm.py).
 """
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -39,9 +44,6 @@ def _check_mode(fastmode, backend) -> None:
         raise NotImplementedError(
             "backend='FP8' on complex operands is not ported yet (ROADMAP "
             "queue 8: it needs a lane-emitting FP8 encoder)")
-    if not fastmode:
-        raise NotImplementedError(
-            "accurate mode (fastmode=False) is not ported yet (ROADMAP queue 5)")
 
 
 def _check_nu(dtype, num_moduli) -> None:
@@ -73,6 +75,78 @@ def _shift_complex_fast(re, im, num_moduli, backend, reduce_axis,
     stacked = torch.cat([re, im], dim=reduce_axis)
     return quantize.shift_fast(stacked, num_moduli, backend, reduce_axis,
                                variant=variant)
+
+
+def _extract_ub_lanes(re, im, scale_axis, backend):
+    """Upper-bound planes of the three 3M estimation lanes with one pre-shift
+    per row/column from max(|Re|, |Im|): ub|Re|, ub|Im| and their signed
+    difference (scaling_accu_complex.hpp:6-50, 100-126), so that the 3M
+    identity holds exactly on the extracted integers."""
+    reduce_axis = 1 - scale_axis
+    ar_, ai_ = torch.abs(re), torch.abs(im)
+    amax = torch.amax(torch.maximum(ar_, ai_), dim=reduce_axis)
+    E = quantize.ilogb(torch.where(amax > 0, amax, torch.ones_like(amax)))
+    pre = quantize.MAX_UFP[backend] - E
+    ub_r = quantize.extract_ub_with_pre(ar_, pre, reduce_axis, backend)
+    ub_i = quantize.extract_ub_with_pre(ai_, pre, reduce_axis, backend)
+    return ub_r, ub_i, ub_r - ub_i, pre    # |ub_r - ub_i| <= 65: int8
+
+
+def _combine_3m_bound(d):
+    """max(|Re|, |Im|) product bound from the three estimation products
+    d = (C0, uAr@uBi, uAi@uBr): C0 + C1 bounds |Re|, C1 = d[1] + d[2] bounds
+    |Im|. In f32 with inflations that keep it an upper bound for any k (the
+    lane sums exceed int32 from k ~ 2.5e5, hence each lane in f32 first).
+    Plain f32 adds and multiplies: XLA contracts none of them here."""
+    one_ulp = quantize._f32(1.0 + 2.0 ** -22, d[0])
+    c0 = d[0].to(torch.float32)
+    c1 = (d[1].to(torch.float32) + d[2].to(torch.float32)) * one_ulp
+    return (torch.maximum(c0 + c1, c1)
+            * quantize._f32(1.0 + 2.0 ** -20, d[0]))
+
+
+# Accurate mode's shifts in core's three stages, on the 3M lanes. Each side's
+# entry is (ub|Re|, ub|Im|, their difference, pre); b=None stands for A^H, as
+# in herk: its bound planes are A's transposed and one shift serves both
+# sides.
+
+def accurate_extract(a, b, backend):
+    """The bound lanes of A's rows and B's columns, a and b (Re, Im) pairs;
+    (A's, None) for b=None."""
+    ext_a = _extract_ub_lanes(*a, 0, backend)
+    return ext_a, None if b is None else _extract_ub_lanes(*b, 1, backend)
+
+
+def accurate_estimate(ext, backend):
+    """The three estimation products of the lanes (uAr-uAi, uAr, uAi) x
+    (uBr-uBi, uBi, uBr)."""
+    ua_r, ua_i, ua_ri, _ = ext[0]
+    ub_r, ub_i, ub_ri = ((ua_r.T, ua_i.T, ua_ri.T) if ext[1] is None
+                         else ext[1][:3])
+    return [quantize.estimate_gemm(x, y, backend)
+            for x, y in zip((ua_ri, ua_r, ua_i), (ub_ri, ub_i, ub_r))]
+
+
+def accurate_combine(d, ext, num_moduli, backend):
+    """The shifts from the 3M bound of the products d
+    (scaling_accu_complex.hpp:128-226, find_max.hpp:99-251)."""
+    return core.accurate_combine(_combine_3m_bound(d), ext, num_moduli,
+                                 backend)
+
+
+def shifts(a, b, num_moduli, fastmode, backend):
+    """(sft_a, sft_b) of A's rows and B's columns from the (Re, Im) pairs a
+    and b, in the given mode as core.shifts; b=None stands for A^H."""
+    if not fastmode:
+        ext = accurate_extract(a, b, backend)
+        return accurate_combine(accurate_estimate(ext, backend), ext,
+                                num_moduli, backend)
+    var = "invariant" if fastmode == "robust" else "reference"
+    sft_a = _shift_complex_fast(*a, num_moduli, backend, 1, variant=var)
+    if b is None:
+        return sft_a, sft_a
+    return sft_a, _shift_complex_fast(*b, num_moduli, backend, 0,
+                                      variant=var)
 
 
 def _quantize_complex(re, im, sft, scale_axis, num_moduli, backend, conj):
@@ -160,11 +234,7 @@ def _emulate(ar, ai, br, bi, num_moduli, fastmode, backend, conj_a, conj_b,
     if ar.device.type != "cpu":
         ar, ai, br, bi = (core._pad128(x, (0, 1)) for x in (ar, ai, br, bi))
     ar, ai, br, bi = (x.contiguous() for x in (ar, ai, br, bi))
-    var = "invariant" if fastmode == "robust" else "reference"
-    sft_a = _shift_complex_fast(ar, ai, num_moduli, backend, reduce_axis=1,
-                                variant=var)
-    sft_b = _shift_complex_fast(br, bi, num_moduli, backend, reduce_axis=0,
-                                variant=var)
+    sft_a, sft_b = shifts((ar, ai), (br, bi), num_moduli, fastmode, backend)
     pa = _quantize_complex(ar, ai, sft_a, 0, num_moduli, backend, conj_a)
     pb = _quantize_complex(br, bi, sft_b, 1, num_moduli, backend, conj_b)
     out = _complex_product(pa, pb, sft_a, sft_b, num_moduli, backend,
@@ -340,9 +410,7 @@ def _herk(ar, ai, *, num_moduli, fastmode, backend, trans, epilogue,
     ar, ai = ar.contiguous(), ai.contiguous()
     # one shift serves both sides: rows of A and columns of A^H carry the
     # same (|Re|, |Im|) populations
-    var = "invariant" if fastmode == "robust" else "reference"
-    sft = _shift_complex_fast(ar, ai, num_moduli, backend, reduce_axis=1,
-                              variant=var)
+    sft, _ = shifts((ar, ai), None, num_moduli, fastmode, backend)
     pa = _quantize_complex(ar, ai, sft, 0, num_moduli, backend, conj=False)
     pb = _herk_rhs_lanes(pa, num_moduli, backend)
     out = _complex_product(pa, pb, sft, sft, num_moduli, backend, out_dtype,
@@ -406,3 +474,59 @@ def herk_planar(ar, ai, *, trans: bool = False, num_moduli: int = 8,
     return _herk(ar, ai, num_moduli=num_moduli, fastmode=fastmode,
                  backend=backend, trans=bool(trans), epilogue=epilogue,
                  out_dtype=ar.dtype)
+
+
+# ---------------------------------------------------------------------------
+# batched: (B, m, k) @ (B, k, n)
+# ---------------------------------------------------------------------------
+
+def gemm_batched_complex(a, b, *, num_moduli: int = 8, fastmode=True,
+                         backend: str = tables.Backend.INT8,
+                         epilogue: str = "auto"):
+    """Emulated batched complex GEMM: (B, m, k) @ (B, k, n) -> (B, m, n) on
+    complex64 or complex128 tensors; each batch element runs the 3M
+    pipeline. The complex branch of core.gemm_batched, which places the
+    operands and checks their shapes. Bit-equal to gemmul8_tpu's (a vmap)
+    on the CPU."""
+    if a.dtype not in (torch.complex64, torch.complex128):
+        raise TypeError(f"gemm_batched_complex expects complex64 or "
+                        f"complex128, got {a.dtype}")
+    _check_nu(a.dtype, num_moduli)
+    _check_mode(fastmode, backend)
+    if a.shape[0] == 0:
+        return core.empty_batch(a, b)
+    # a conjugate or negative view is materialized first, as in _operand
+    a, b = (x.resolve_conj().resolve_neg() for x in (a, b))
+    return core.batched(functools.partial(
+        emulate_matmul_complex, num_moduli=num_moduli, fastmode=fastmode,
+        backend=backend, epilogue=epilogue), a, b)
+
+
+def gemm_batched_planar(ar, ai, br, bi, *, num_moduli: int = 8,
+                        fastmode=True, backend: str = tables.Backend.INT8,
+                        epilogue: str = "auto", device="cuda"):
+    """Batched planar complex GEMM: (B,m,k) + (B,m,k) x (B,k,n) + (B,k,n) ->
+    ((B,m,n), (B,m,n)); bit-equal to gemm_batched on complex views of the
+    same data."""
+    device = core._device(device)
+    ar, ai, br, bi = (core._as_tensor(x, device) for x in (ar, ai, br, bi))
+    if ar.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"gemm_batched_planar expects float32 or float64 "
+                        f"planes, got {ar.dtype}")
+    if any(x.dtype != ar.dtype for x in (ai, br, bi)):
+        raise TypeError("gemm_batched_planar: all four planes must share "
+                        "one dtype")
+    if (ar.dim() != 3 or ai.shape != ar.shape or bi.shape != br.shape
+            or br.dim() != 3 or br.shape[0] != ar.shape[0]
+            or br.shape[1] != ar.shape[2]):
+        raise ValueError(
+            f"gemm_batched_planar expects (B, m, k) and (B, k, n) planes; got "
+            f"{tuple(ar.shape)} and {tuple(br.shape)}")
+    _check_nu(ar.dtype, num_moduli)
+    _check_mode(fastmode, backend)
+    if ar.shape[0] == 0:
+        return core.empty_batch(ar, br), core.empty_batch(ai, bi)
+    return core.batched(functools.partial(
+        emulate_matmul_complex_planar, num_moduli=num_moduli,
+        fastmode=fastmode, backend=backend, epilogue=epilogue),
+        ar, ai, br, bi)

@@ -1,6 +1,7 @@
-"""Ozaki-scheme-II GEMM emulation, fast mode, in PyTorch: shifts -> residue
-planes -> exact low-precision products -> mod + CRT + descale -> alpha/beta
-epilogue. Complex operands go to complex_gemm (the 3M scheme).
+"""Ozaki-scheme-II GEMM emulation in PyTorch: shifts (fast, robust or
+accurate mode) -> residue planes -> exact low-precision products -> mod + CRT
++ descale -> alpha/beta epilogue; with syrk (one encode serves both sides)
+and gemm_batched. Complex operands go to complex_gemm (the 3M scheme).
 
 The counterpart of gemmul8_tpu/core.py. INT8 backend: one int8 plane and one
 exact int8 product per modulus. FP8 backend (fp8.py): three e4m3 planes per
@@ -18,6 +19,7 @@ alpha/beta epilogue match JAX bit for bit. XLA fuses the first product of
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import numpy as np
@@ -40,7 +42,7 @@ def residue_matmul(a_planes: torch.Tensor, b_planes: torch.Tensor
     n = b_planes.shape[2]
     c_hi = torch.empty((nu, m, n), dtype=torch.int32, device=a_planes.device)
     for i in range(nu):
-        torch._int_mm(a_planes[i], b_planes[i], out=c_hi[i])
+        quantize.int_mm(a_planes[i], b_planes[i], out=c_hi[i])
     return c_hi
 
 
@@ -140,27 +142,73 @@ def inverse_scale(t: torch.Tensor, sft_a: torch.Tensor, sft_b: torch.Tensor,
 # the gemm pipeline
 # ---------------------------------------------------------------------------
 
-def _quantize_operands(a, b, num_moduli, fastmode, backend):
-    """Fast mode: independent norm-based shifts (scaling_fast_real.hpp);
-    fastmode="robust" takes the scale-invariant shift."""
+# Accurate mode's shifts (scaling_accu_real.hpp) come in three stages, each
+# a function of its own so that they can be timed apart: the upper-bound
+# planes, their estimation product, and the shifts from its maxima. Each
+# side's entry from accurate_extract holds its planes first and its pre-shift
+# last (complex_gemm's lanes keep that layout). b=None stands for A.T, as in
+# syrk: its planes are A's transposed and one shift serves both sides.
+
+def accurate_extract(a, b, backend):
+    """((ub_a, pre_a), (ub_b, pre_b)): the bound planes and pre-shifts of A's
+    rows and B's columns; ((ub_a, pre_a), None) for b=None."""
+    ext_a = quantize.extract_ub_plane(a, backend, scale_axis=0)
+    if b is None:
+        return ext_a, None
+    return ext_a, quantize.extract_ub_plane(b, backend, scale_axis=1)
+
+
+def accurate_estimate(ext, backend):
+    """The estimation product of the bound planes: it bounds |A||B| per
+    element."""
+    ub_a = ext[0][0]
+    ub_b = ub_a.T if ext[1] is None else ext[1][0]
+    return quantize.estimate_gemm(ub_a, ub_b, backend)
+
+
+def accurate_combine(bound, ext, num_moduli, backend):
+    """Each row's (column's) maximum of the bound sets A's (B's) shift; for
+    b=None the bound is symmetric and its row maxima serve both sides."""
+    sft_a = quantize.shift_accu_from_chi(torch.amax(bound, dim=1), ext[0][-1],
+                                         num_moduli, backend)
+    if ext[1] is None:
+        return sft_a, sft_a
+    return sft_a, quantize.shift_accu_from_chi(torch.amax(bound, dim=0),
+                                               ext[1][-1], num_moduli, backend)
+
+
+def shifts(a, b, num_moduli, fastmode, backend):
+    """(sft_a, sft_b) of A's rows and B's columns. Fast mode: independent
+    norm-based shifts (scaling_fast_real.hpp); fastmode="robust" takes the
+    scale-invariant shift; accurate mode (fastmode=False) the estimation
+    product's. b=None stands for A.T: one shift serves both sides."""
     if not fastmode:
-        raise NotImplementedError(
-            "accurate mode (fastmode=False) is not ported yet (ROADMAP queue 5)")
+        ext = accurate_extract(a, b, backend)
+        return accurate_combine(accurate_estimate(ext, backend), ext,
+                                num_moduli, backend)
     var = "invariant" if fastmode == "robust" else "reference"
     sft_a = quantize.shift_fast(a, num_moduli, backend, reduce_axis=1,
                                 variant=var)
-    sft_b = quantize.shift_fast(b, num_moduli, backend, reduce_axis=0,
-                                variant=var)
-    # on the card B's planes come back as a (planes, k, n) view of
-    # k-contiguous storage, the layout the tensor-core products read
+    if b is None:
+        return sft_a, sft_a
+    return sft_a, quantize.shift_fast(b, num_moduli, backend, reduce_axis=0,
+                                      variant=var)
+
+
+def encode_side(x, sft, scale_axis, num_moduli, backend):
+    """One operand's planes: K1's int8 planes, or K6's (3nu, ...) e4m3 stack
+    in the side's slot order. On the card B's (scale_axis=1) come back as a
+    (planes, k, n) view of k-contiguous storage, the layout the tensor-core
+    products read."""
     if backend == tables.Backend.FP8:
-        # the (3nu, ...) e4m3 stacks in each side's slot order
-        a_planes = kernels.encode_planes_fp8(a, sft_a, 0, num_moduli)
-        b_planes = kernels.encode_planes_fp8(b, sft_b, 1, num_moduli)
-    else:
-        a_planes = kernels.encode_planes(a, sft_a, 0, num_moduli, backend)
-        b_planes = kernels.encode_planes(b, sft_b, 1, num_moduli, backend)
-    return a_planes, sft_a, b_planes, sft_b
+        return kernels.encode_planes_fp8(x, sft, scale_axis, num_moduli)
+    return kernels.encode_planes(x, sft, scale_axis, num_moduli, backend)
+
+
+def _quantize_operands(a, b, num_moduli, fastmode, backend):
+    sft_a, sft_b = shifts(a, b, num_moduli, fastmode, backend)
+    return (encode_side(a, sft_a, 0, num_moduli, backend), sft_a,
+            encode_side(b, sft_b, 1, num_moduli, backend), sft_b)
 
 
 def _norm_trans(t, name: str) -> bool:
@@ -316,6 +364,13 @@ def _real_scalar(v) -> float:
     return float(np.asarray(v.cpu() if isinstance(v, torch.Tensor) else v))
 
 
+def _check_nu(dtype, num_moduli) -> None:
+    lo, hi = tables.VALID_RANGE[_DTYPE_NAMES[dtype]]
+    if not lo <= num_moduli <= hi:
+        raise ValueError(
+            f"num_moduli={num_moduli} out of range [{lo},{hi}] for {dtype}")
+
+
 def gemm(a, b, *, num_moduli: int = 8, fastmode=True,
          backend: str = tables.Backend.INT8, alpha=1.0, beta=0.0, c=None,
          trans_a=False, trans_b=False, epilogue: str = "auto",
@@ -350,10 +405,7 @@ def gemm(a, b, *, num_moduli: int = 8, fastmode=True,
             epilogue=epilogue, device=device)
     if a.dtype not in _DTYPE_NAMES:
         raise TypeError(f"gemm supports float32 and float64, got {a.dtype}")
-    lo, hi = tables.VALID_RANGE[_DTYPE_NAMES[a.dtype]]
-    if not lo <= num_moduli <= hi:
-        raise ValueError(
-            f"num_moduli={num_moduli} out of range [{lo},{hi}] for {a.dtype}")
+    _check_nu(a.dtype, num_moduli)
     if m_block is not None or n_block is not None:
         raise NotImplementedError(
             "m_block/n_block striping is not ported yet (ROADMAP queue 6)")
@@ -378,3 +430,119 @@ def gemm(a, b, *, num_moduli: int = 8, fastmode=True,
 def matmul(a, b, **kw) -> torch.Tensor:
     """NumPy-style convenience wrapper around :func:`gemm`."""
     return gemm(a, b, **kw)
+
+
+def batched(fn, *xs):
+    """fn(x0[i], x1[i], ...) stacked over a batch of one element or more; fn
+    returns a tensor or a tuple of them."""
+    outs = [fn(*item) for item in zip(*xs)]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.stack(x) for x in zip(*outs))
+    return torch.stack(outs)
+
+
+def empty_batch(a, b):
+    """The (0, m, n) result of an empty batch of (0, m, k) @ (0, k, n)."""
+    return torch.empty((0, a.shape[1], b.shape[2]), dtype=a.dtype,
+                       device=a.device)
+
+
+def gemm_batched(a, b, *, num_moduli: int = 8, fastmode=True,
+                 backend: str = tables.Backend.INT8, epilogue: str = "auto",
+                 device="cuda") -> torch.Tensor:
+    """Emulated batched GEMM: (B, m, k) @ (B, k, n) -> (B, m, n), real or
+    complex, on `device`. Each batch element runs the full pipeline of
+    :func:`gemm` (no alpha/beta); bit-equal to gemmul8_tpu.gemm_batched (a
+    vmap of its emulate_matmul) on the CPU."""
+    device = _device(device)
+    a = _as_tensor(a, device)
+    b = _as_tensor(b, device)
+    if (a.dim() != 3 or b.dim() != 3 or a.shape[0] != b.shape[0]
+            or a.shape[2] != b.shape[1]):
+        raise ValueError(
+            f"gemm_batched expects (B, m, k) and (B, k, n); got "
+            f"{tuple(a.shape)} and {tuple(b.shape)}")
+    if a.dtype != b.dtype:
+        raise TypeError(f"dtype mismatch: {a.dtype} vs {b.dtype}")
+    if backend not in (tables.Backend.INT8, tables.Backend.FP8):
+        raise ValueError(f"backend must be 'INT8' or 'FP8', got {backend!r}")
+    if a.dtype.is_complex:
+        from . import complex_gemm
+        return complex_gemm.gemm_batched_complex(
+            a, b, num_moduli=num_moduli, fastmode=fastmode, backend=backend,
+            epilogue=epilogue)
+    if a.dtype not in _DTYPE_NAMES:
+        raise TypeError(f"gemm_batched supports float32 and float64, got "
+                        f"{a.dtype}")
+    _check_nu(a.dtype, num_moduli)
+    if a.shape[0] == 0:
+        return empty_batch(a, b)
+    return batched(functools.partial(
+        emulate_matmul, num_moduli=num_moduli, fastmode=fastmode,
+        backend=backend, epilogue=epilogue), a, b)
+
+
+def _syrk(a, *, num_moduli, fastmode, backend, trans, epilogue):
+    if trans:
+        a = a.T
+    out_dtype = a.dtype
+    mdim = a.shape[0]
+    if a.shape[1] == 0:
+        return torch.zeros((mdim, mdim), dtype=out_dtype, device=a.device)
+    if a.device.type != "cpu":
+        a = _pad128(a, (0, 1))
+    a = a.contiguous()
+    # one encode serves both sides: rows of A and columns of A.T carry the
+    # same shifts and the same quantized integers, so the rhs planes are a
+    # transposed view of the lhs planes (k-contiguous, as the products read B)
+    sft, _ = shifts(a, None, num_moduli, fastmode, backend)
+    pa = encode_side(a, sft, 0, num_moduli, backend)
+    if backend == tables.Backend.FP8:
+        # the rhs takes the cross-slot order for the square moduli
+        pb = fp8.lhs_to_rhs_stack(pa, num_moduli).transpose(-1, -2)
+    else:
+        pb = pa.transpose(-1, -2)
+    out = _emulated_product(pa, sft, pb, sft, num_moduli, backend, out_dtype,
+                            epilogue)
+    return out if out.shape == (mdim, mdim) else out[:mdim, :mdim]
+
+
+def syrk(a, *, trans: bool = False, num_moduli: int = 8, fastmode="robust",
+         backend: str = tables.Backend.INT8, alpha=1.0, beta=0.0, c=None,
+         epilogue: str = "auto", device="cuda") -> torch.Tensor:
+    """Emulated symmetric rank-k update: C = alpha * A @ A.T + beta * C
+    (trans=True: alpha * A.T @ A + beta * C) on `device`. A is encoded once:
+    the rhs planes are a transposed view of the lhs planes. fastmode
+    defaults to "robust" (a Gram product's diagonal meets the
+    Cauchy-Schwarz bound with equality). Bit-equal to gemmul8_tpu.syrk on
+    the CPU."""
+    device = _device(device)
+    a = _as_tensor(a, device)
+    if a.dim() != 2:
+        raise ValueError(f"syrk expects a 2-D operand, got ndim={a.dim()}")
+    if a.dtype.is_complex:
+        raise NotImplementedError(
+            "syrk is real-only; use herk (A @ A^H) or gemm for complex")
+    if a.dtype not in _DTYPE_NAMES:
+        raise TypeError(f"syrk supports float32 and float64, got {a.dtype}")
+    if backend not in (tables.Backend.INT8, tables.Backend.FP8):
+        raise ValueError(f"backend must be 'INT8' or 'FP8', got {backend!r}")
+    _check_nu(a.dtype, num_moduli)
+    out = _syrk(a, num_moduli=num_moduli, fastmode=fastmode, backend=backend,
+                trans=bool(trans), epilogue=epilogue)
+    def scalar(v):
+        return torch.tensor(_real_scalar(v), dtype=torch.float64,
+                            device=device).to(out.dtype)
+
+    # alpha and beta as the JAX twin applies them, outside its jit: two
+    # roundings, no fused multiply-add
+    if not (isinstance(alpha, (int, float)) and alpha == 1):
+        out = scalar(alpha) * out
+    if c is not None and not (isinstance(beta, (int, float)) and beta == 0):
+        c = _as_tensor(c, device)
+        if c.dtype != out.dtype:
+            raise TypeError(
+                f"dtype mismatch: C is {c.dtype}, A is {out.dtype}")
+        out = out + (c if isinstance(beta, (int, float)) and beta == 1
+                     else scalar(beta) * c)
+    return out

@@ -1,6 +1,8 @@
 """Power-of-two scaling + exact modular residue encoding (Ozaki scheme II).
 
-The PyTorch counterpart of gemmul8_tpu/quantize.py, fast mode. Every function
+The PyTorch counterpart of gemmul8_tpu/quantize.py: the fast (and robust)
+shifts, accurate mode's upper-bound extraction, estimation product and
+shifts, and the residue encoder. Every function
 keeps the order of operations of its JAX twin so that, fed the same inputs,
 the results are bit-equal on the CPU:
 
@@ -24,6 +26,16 @@ from . import tables
 LOG2_HALF_RU = float.fromhex("0x1.000006p-1")
 # deterministic safety margin replacing CUDA directed roundings in shift formulas
 SFT_MARGIN = 2.0 ** -14
+# upper-bound extraction bit budget for accurate mode (reference
+# template_type.hpp:147)
+MAX_UFP = {"INT8": 5, "FP8": 7}
+# the INT8 estimation product is exact in int32 while 65^2 * k < 2^31, and is
+# summed in f64 over chunks of 2^18 past that
+K_SAFE_INT8 = (2 ** 31 - 1) // (65 * 65)
+K_CHUNK_EST = 1 << 18
+# the FP8 bound's split ub = 128*h + l (l <= 127): each int8 product is exact
+# in int32 while 127^2 * k < 2^31
+K_CHUNK_EST_FP8 = 1 << 17
 
 
 def _f32(v: float, like: torch.Tensor) -> torch.Tensor:
@@ -149,6 +161,125 @@ def shift_fast(x: torch.Tensor, num_moduli: int, backend: str, reduce_axis: int,
                 - _f32(SFT_MARGIN, s2))
         sft = torch.floor(exp1).to(torch.int32) - E
     return torch.where(amax0 > 0, sft, torch.zeros_like(sft))
+
+
+# ---------------------------------------------------------------------------
+# accurate mode: upper-bound extraction + estimation product + shifts
+# [reference: scaling_accu_real.hpp]
+# ---------------------------------------------------------------------------
+
+def extract_ub_with_pre(ax: torch.Tensor, sft_pre: torch.Tensor,
+                        reduce_axis: int, backend: str) -> torch.Tensor:
+    """ceil(ax * 2^sft_pre) plus one where the f64 tail is positive: an
+    upper-bound plane with a given pre-shift (shared across complex lanes).
+    INT8: int8 (values <= 65). FP8: bf16 rounded up past bf16's integer grid
+    (values <= 258): the RNE cast, then one ulp more where it rounded down."""
+    y = pow2_scale(ax, sft_pre.unsqueeze(reduce_axis))
+    c1 = y.to(torch.float32)
+    ub = torch.ceil(c1)
+    if y.dtype != torch.float32:
+        ub = ub + ((y - c1.to(y.dtype)).to(torch.float32) > 0)
+    ub = torch.where(ax > 0, torch.clamp(ub, min=1.0), 0.0)
+    if backend == tables.Backend.INT8:
+        return ub.to(torch.int8)
+    b = ub.to(torch.bfloat16)
+    # values are >= 0, so one more on the int16 view is the next bf16 up
+    bumped = (b.view(torch.int16) + 1).view(torch.bfloat16)
+    return torch.where(b.to(torch.float32) < ub, bumped, b)
+
+
+def extract_ub_plane(x: torch.Tensor, backend: str, scale_axis: int):
+    """(upper-bound plane of |x|, int32 pre-shift MAX_UFP - ilogb(amax)) per
+    row (scale_axis=0) or column (scale_axis=1): amax scales into
+    [2^MAX_UFP, 2^(MAX_UFP+1)) (reference: scaling_accu_real.hpp:46-74)."""
+    reduce_axis = 1 - scale_axis
+    ax = torch.abs(x)
+    amax = torch.amax(ax, dim=reduce_axis)
+    E = ilogb(torch.where(amax > 0, amax, torch.ones_like(amax)))
+    sft_pre = MAX_UFP[backend] - E
+    return extract_ub_with_pre(ax, sft_pre, reduce_axis, backend), sft_pre
+
+
+def _k_contiguous(b: torch.Tensor) -> torch.Tensor:
+    """b (k, n) with k the contiguous axis, the layout torch._int_mm reads
+    fastest on the card (a transposed view of row-major storage already is)."""
+    if b.device.type == "cpu" or b.stride(0) == 1:
+        return b
+    return b.T.contiguous().T
+
+
+def int_mm(a: torch.Tensor, b: torch.Tensor,
+           out: torch.Tensor | None = None) -> torch.Tensor:
+    """torch._int_mm (int8 x int8 -> int32, exact). An operand of one row
+    whose row stride is below its row's length (a k = 1 plane in B's
+    k-contiguous layout, or its transpose) is copied to row-major first:
+    torch's CPU kernel takes that stride for the leading dimension and reads
+    garbage."""
+    a, b = (torch.empty(x.shape, dtype=x.dtype, device=x.device).copy_(x)
+            if x.shape[0] == 1 and x.stride(0) < x.shape[1] else x
+            for x in (a, b))
+    return torch._int_mm(a, b, out=out)
+
+
+def _int_mm_f64(a: torch.Tensor, b: torch.Tensor, chunk: int) -> torch.Tensor:
+    """Exact a @ b of int8 planes as f64: int32 products over K chunks
+    (each exact), summed in f64 (exact: every sum stays far below 2^53)."""
+    k = a.shape[1]
+    tot = None
+    for lo in range(0, k, chunk):
+        part = int_mm(a[:, lo:lo + chunk], b[lo:lo + chunk])
+        tot = part.double() if tot is None else tot + part
+    return tot
+
+
+def estimate_gemm(ub_a: torch.Tensor, ub_b: torch.Tensor,
+                  backend: str) -> torch.Tensor:
+    """Upper-bound magnitude estimation product for accurate mode
+    (reference: scaling_accu_real.hpp:415-432).
+
+    INT8: the exact product of the int8 planes, int32 while k <= K_SAFE_INT8,
+    past that f64 sums of int32 chunk products, as the JAX twin chunks it.
+    FP8: the exact integer product rounded once to f32, inflated by
+    (1 + (k+1)*2^-24) as the twin inflates its f32-accumulated dot. The twin's
+    dot is exact while k*258^2 < 2^24 (k <= 252), where the two agree bit for
+    bit; past that its last bits follow XLA's summation order, and this one
+    stays an upper bound that is the same on the CPU and the card. The exact
+    sum comes from four int8 products of the split ub = 128*h + l.
+
+    Shapes follow torch._int_mm's rules on the card (the callers pad to 128).
+    """
+    k = ub_a.shape[1]
+    ub_b = _k_contiguous(ub_b)
+    if backend == tables.Backend.INT8:
+        if k <= K_SAFE_INT8:
+            return int_mm(ub_a, ub_b)
+        return _int_mm_f64(ub_a, ub_b, K_CHUNK_EST)
+
+    def split(x):   # ub = 128*h + l, h in {0, 1, 2}, l in [0, 127]
+        x = x.to(torch.int16)
+        return (x >> 7).to(torch.int8), (x & 127).to(torch.int8)
+
+    (ha, la), (hb, lb) = split(ub_a), split(ub_b)
+    tot = _int_mm_f64(ha, hb, K_CHUNK_EST_FP8) * 16384.0
+    tot += (_int_mm_f64(ha, lb, K_CHUNK_EST_FP8)
+            + _int_mm_f64(la, hb, K_CHUNK_EST_FP8)) * 128.0
+    tot += _int_mm_f64(la, lb, K_CHUNK_EST_FP8)
+    return tot.to(torch.float32) * _f32(1.0 + (k + 1) * 2.0 ** -24, ub_a)
+
+
+def shift_accu_from_chi(c_hi_max: torch.Tensor, sft_pre: torch.Tensor,
+                        num_moduli: int, backend: str) -> torch.Tensor:
+    """sft = sft_pre + floor(log2P - ~0.5*log2(max C_hi) - margin) from the
+    row or column maximum of the estimation product (reference:
+    scaling_accu_real.hpp:6-11, 142-226; the sign is the quantization
+    shift's). As in shift_fast, the f32 log2 may differ from XLA's in the
+    last bit (under jit XLA takes log(x)/log(2) with its own log), so a value
+    within about an ulp of an integer can floor the other way."""
+    safe = torch.clamp(c_hi_max, min=1).to(torch.float32)
+    log2p = _f32(tables.log2P(num_moduli, backend), safe)
+    add = torch.floor((log2p - _f32(LOG2_HALF_RU, safe) * torch.log2(safe))
+                      - _f32(SFT_MARGIN, safe)).to(torch.int32)
+    return sft_pre + add
 
 
 # ---------------------------------------------------------------------------

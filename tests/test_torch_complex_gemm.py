@@ -136,10 +136,11 @@ def test_complex_error_surface():
     b = np.ones((8, 3), C128)
     with pytest.raises(NotImplementedError, match="queue 8"):
         gt.gemm(a, b, backend="FP8", device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 5"):
-        gt.gemm(a, b, fastmode=False, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 5"):
-        gt.herk(a, fastmode=False, device="cpu")
+    # accurate mode, refused until it was ported, gives gemmul8_tpu's bits
+    _bits_equal(gt.gemm(a, b, fastmode=False, device="cpu"),
+                g8.gemm(jnp.asarray(a), jnp.asarray(b), fastmode=False))
+    _bits_equal(gt.herk(a, fastmode=False, device="cpu"),
+                g8.herk(jnp.asarray(a), fastmode=False))
     with pytest.raises(NotImplementedError, match="queue 8"):
         gt.herk(a, backend="FP8", device="cpu")
     with pytest.raises(ValueError, match="bad op"):

@@ -2,8 +2,8 @@
 CPU: transposes (bools and "N"/"T"/"C") and the alpha/beta classes, bit for
 bit (XLA contracts alpha*ab + beta*c to an FMA whose operand depends on the
 output dtype and epilogue; the port follows it). Plus the argument errors,
-the NotImplementedError of each part not yet ported, the device rule and the
-package's isolation from JAX."""
+the NotImplementedError of each part not yet ported (and accurate mode, which
+is), the device rule and the package's isolation from JAX."""
 import os
 import re
 import subprocess
@@ -85,17 +85,21 @@ def test_argument_errors():
 
 
 def test_unported_parts_raise_not_implemented():
+    """What is not ported raises, naming its ROADMAP queue; accurate mode
+    (queue 5), once refused here, now returns gemmul8_tpu's bits."""
     a = np.ones((4, 8))
     b = np.ones((8, 3))
     ca, cb = a.astype(np.complex128), b.astype(np.complex128)
-    with pytest.raises(NotImplementedError, match="queue 5"):
-        gt.gemm(ca, cb, fastmode=False, device="cpu")
+    ref = np.asarray(g8.gemm(jnp.asarray(ca), jnp.asarray(cb), fastmode=False))
+    got = gt.gemm(ca, cb, fastmode=False, device="cpu").numpy()
+    np.testing.assert_array_equal(got.view(np.uint8), ref.view(np.uint8))
     with pytest.raises(NotImplementedError, match="queue 8"):
         gt.gemm(ca, cb, backend="FP8", device="cpu")
     # real operands take the FP8 backend
     assert float(gt.gemm(a, b, backend="FP8", device="cpu")[0, 0]) == 8.0
-    with pytest.raises(NotImplementedError, match="queue 5"):
-        gt.gemm(a, b, fastmode=False, device="cpu")
+    ref = np.asarray(g8.gemm(jnp.asarray(a), jnp.asarray(b), fastmode=False))
+    got = gt.gemm(a, b, fastmode=False, device="cpu").numpy()
+    np.testing.assert_array_equal(got.view(np.uint8), ref.view(np.uint8))
     for kw in ({"m_block": 2}, {"n_block": 2}):
         with pytest.raises(NotImplementedError, match="queue 6"):
             gt.gemm(a, b, device="cpu", **kw)
