@@ -106,9 +106,9 @@ TRANSPOSE_KEY = "transpose_i8[4096^2 nu=16]"
 PRODUCT_COUNTS = ("matmul_i8_kloop", "matmul_i8_astat", "matmul_i8_wgmma_kloop",
                   "matmul_i8_wgmma_astat", "transpose_i8")
 MXU_KEY = "fused_epilogue_mxu[pair nu=16]"
-# the sources of the kernels redesigned last (K6, K8): phase 2 sums up their
-# registers and spills
-REDESIGNED = ("encode_fp8.cu", "epilogue_mxu.cu")
+# the sources of the kernels redesigned last (K6, K8, K3): phase 2 sums up
+# their registers and spills
+REDESIGNED = ("encode_fp8.cu", "epilogue_mxu.cu", "epilogue_fp8.cu")
 PROBE_NU, PROBE_M = 16, 4096          # the product probes' own size
 T0 = time.perf_counter()
 
@@ -334,8 +334,9 @@ def epilogue_cases(rng):
                         f"epilogue nu={nu} chunked={chunked} out={out}")
 
 
-# ragged shapes of K2 and K4: m*n odd, one row, one column, n not a multiple
-# of the columns a thread takes (4 in K2, 2 in K4), and whole ones
+# ragged shapes of K2, K3 and K4: m*n odd, one row, one column, n not a
+# multiple of the columns a thread takes (4 in K2 and K3, 2 in K4), and whole
+# ones
 RAGGED = ((129, 263), (1, 263), (129, 1), (33, 20), (31, 9), (17, 264),
           (64, 256))
 
@@ -350,14 +351,16 @@ def on_card(x, misalign=False):
     return buf[1:1 + t.numel()].view(t.shape).copy_(t)
 
 
-def ragged_epilogue_cases(rng):
-    """K2 (int32 input: f32 and f64 out; int8 input: f32 and f64) and K4
-    (planar f32 and f64, interleaved c64 and c128) against their plain
-    versions on RAGGED, once on a stack that starts off 16-byte alignment,
-    and twice with shifts up to +-600, whose sums take some elements' limb
-    exponents outside the one-multiply f64 range (crt.cuh: emit_f64_direct).
-    Checks that each kernel took both its routes: whole vectors and one
-    column at a time (kernels._epilogue_vec)."""
+def ragged_epilogue_cases(rng, krng):
+    """K2 (int32 input: f32 and f64 out; int8 input: f32 and f64), K3 (f32
+    and f64 out, nu 2, 7, 14 and 20, on integer lane products spanning
+    [-2^24, 2^24], drawn from krng) and K4 (planar f32 and f64, interleaved
+    c64 and c128) against their plain versions on RAGGED, once on a stack
+    that starts off 16-byte alignment, and twice with shifts up to +-600,
+    whose sums take some elements' limb exponents outside the one-multiply
+    f64 range (crt.cuh: emit_f64_direct). Checks that each kernel took both
+    its routes: whole vectors and one column at a time
+    (kernels._epilogue_vec)."""
     from gemmul8_tpu_torch import kernels
     routes = {}
     tensor = on_card
@@ -393,6 +396,15 @@ def ragged_epilogue_cases(rng):
                         kernels.fused_epilogue_plain(mid, sa, sb, nu, "INT8",
                                                      out),
                         f"epilogue int8 {shape} nu={nu} out={out}")
+        for nu in (2, 7, 14, 20):
+            c3 = tensor(krng.integers(-2 ** 24, 2 ** 24 + 1, (3 * nu, m, n))
+                        .astype(np.float32), misalign)
+            route("K3", n, kernels.EPILOGUE_COLS["fused_epilogue_fp8"], c3)
+            for out in (torch.float32, torch.float64):
+                compare(f"fused_epilogue_fp8[{TAG[out]}]",
+                        kernels.fused_epilogue_fp8(c3, sa, sb, nu, out),
+                        kernels.fused_epilogue_fp8_plain(c3, sa, sb, nu, out),
+                        f"fp8 epilogue {shape} nu={nu} out={out}")
         for nu in (8, 13, 16):
             chi = tensor(rng.integers(-2 ** 31, 2 ** 31, (3 * nu, m, n))
                          .astype(np.int32), misalign)
@@ -411,7 +423,8 @@ def ragged_epilogue_cases(rng):
                         f"complex epilogue {shape} nu={nu} out={out}")
     for key, seen in routes.items():
         check(seen == {True, False}, f"{key}: routes taken {seen}")
-    log(f"ragged K2/K4 cases: both routes taken by {sorted(routes)}")
+    check(len(routes) == 4, f"ragged cases: routes of {sorted(routes)} only")
+    log(f"ragged K2/K3/K4 cases: both routes taken by {sorted(routes)}")
 
 
 def lane_products(rng, nu, m, n, chunked):
@@ -1882,19 +1895,19 @@ def fp8_encode_bound(m, k, nu, itemsize):
 
 
 def _fp8_reassemble_ops(nu):
-    """32-bit operations per element of the FP8 epilogue's reassembly: per
-    modulus three conversions of an f32 product to int32, then for a square
-    modulus an add, two reductions of any int32 with their wraps, a
-    multiply-add and a final reduction and wrap; for a Karatsuba one three
-    reductions with wraps, the recombine (two shifts, two subtractions, two
-    adds) and the final reduction and wrap. A reduction with its wrap is 6,
-    or a 3-op mask for p = 1024."""
+    """32-bit operations per element of the FP8 epilogue's reassembly, in
+    exact f32 steps (csrc/epilogue_fp8.cu): per modulus each of the three
+    lane products brought near its wrap (a multiply-add, a subtraction, a
+    multiply-add: 3); the recombine (square: an add and a multiply-add, 2;
+    Karatsuba: a multiply and two multiply-adds, 3); the final wrap (the
+    bias add, a multiply-add, a subtraction, a multiply-add: 4), or for
+    p = 1024 the bias add and a 2-op mask (3). No conversion: the wrapped
+    residue's f32 bits go into the limbs."""
     from gemmul8_tpu_torch import tables
     ops = 0
     for i, p in enumerate(tables.moduli("FP8")[:nu]):
-        red = 3 if p & (p - 1) == 0 else 6
-        ops += 3 + (1 + 3 * red + 2 if i < tables.NOT_KARATSUBA
-                    else 4 * red + 6)
+        final = 3 if p & (p - 1) == 0 else 4
+        ops += 9 + (2 if i < tables.NOT_KARATSUBA else 3) + final
     return ops
 
 
@@ -2322,8 +2335,9 @@ def main():
     epilogue_cases(rng)
     complex_cases(crng)
     # the ragged K2 and K4 cases added with their redesign, on a stream of
-    # their own
-    ragged_epilogue_cases(np.random.default_rng(SEED + 7))
+    # their own, and K3's added with its redesign on another
+    ragged_epilogue_cases(np.random.default_rng(SEED + 7),
+                          np.random.default_rng(SEED + 10))
     fp8_encode_cases(frng)
     fp8_epilogue_cases(frng)
     fp8_exact = fp8_exactness_cases()

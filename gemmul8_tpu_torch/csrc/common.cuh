@@ -62,10 +62,18 @@ struct EpiloguePlan {
 
 // the FP8 epilogue's plan: the CRT plan of the FP8 moduli and, per modulus,
 // q = sqrt(p) for a square modulus (its three products recombine as
-// q*(C0 + C1) + C2) or 0 for a Karatsuba one (256*C0 + 16*(C2-C0-C1) + C1)
+// q*(C0 + C1) + C2) or 0 for a Karatsuba one (256*C0 + 16*(C2-C0-C1) + C1),
+// p, 1/p rounded to f32 and q as f32 for the f32 reassembly, and the limbs'
+// start: -sum over the moduli of offset_i * w16[i][li] modulo 2^32, where
+// offset_i is what modulus i's residue carries into the limbs (0x4B400000,
+// the f32 bits of 1.5 * 2^23, or 512 for p = 1024: epilogue_fp8.cu)
 struct EpiloguePlanFp8 {
     EpiloguePlan crt;
     int sq[G8_MAX_NU];
+    float p_f[G8_MAX_NU];
+    float inv_p[G8_MAX_NU];
+    float sq_f[G8_MAX_NU];
+    unsigned lim0[G8_MAX_L];
 };
 
 // the tensor-core CRT epilogue's plan: the CRT plan (its L, base, p16,

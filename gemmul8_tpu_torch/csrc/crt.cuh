@@ -3,16 +3,19 @@
 // code: the wrap of any int32 into [-p/2, p/2), the 3M lane recombine, the
 // multiply-add into 16-bit int32 limbs, the balanced carry, the fold of
 // P * rint(t / P) and the two descales. Limb arrays stay in registers: every
-// loop over limbs is unrolled to G8_MAX_L with a guard on the plan's L.
+// loop over limbs is unrolled to G8_MAX_L with a guard on L, which each
+// kernel fixes at compile time (LimbCount).
 //
 // Each helper follows its plain PyTorch twin op for op (core.mod_reduce,
 // complex_gemm._recombine_3m, ff.crt_limbs_matrix, ff.fold_quotient,
 // ff.reconstruct_scale_ff, ff.descale_pair). The tensor-core CRT epilogue
 // (epilogue_mxu.cu) shares the wrap, the fold and the descale; the FP8
-// epilogue (epilogue_fp8.cu) the wrap.
+// epilogue (epilogue_fp8.cu) the fold, the descales, the tiling and the
+// column loads (its reassembly wraps in f32 steps of its own; wrap_any only
+// on its int32 route, a switch of the ablation probe).
 //
-// Below them, the 2-D tiling and the column loads of K2 and K4 (K8 takes
-// the grid and the loads).
+// Below them, the 2-D tiling and the column loads of K2, K3 and K4 (K8
+// takes the grid and the loads).
 #pragma once
 
 #include <cstring>
@@ -79,9 +82,9 @@ __device__ __forceinline__ void limbs_zero(int* lim) {
     for (int li = 0; li < G8_MAX_L; ++li) lim[li] = 0;
 }
 
-// The limb helpers take the limb count L last: the plan's L (an int), or a
-// LimbCount for kernels built for one L (K2, K4, K8), in which every guard on L
-// below folds away. The overloads without it take plan.L.
+// The limb helpers take the limb count L last: a LimbCount for kernels built
+// for one L (K2, K3, K4, K8), in which every guard on L below folds away, or
+// the plan's L as an int (the ablation probe's run-time limb count).
 template <int N>
 struct LimbCount {
     static constexpr int value = N;
@@ -97,11 +100,6 @@ __device__ __forceinline__ void limbs_mac(int* lim, int r,
 #pragma unroll
     for (int li = 0; li < G8_MAX_L; ++li)
         if (li < L) lim[li] += r * plan.w16[q][li];
-}
-
-__device__ __forceinline__ void limbs_mac(int* lim, int r,
-                                          const EpiloguePlan& plan, int q) {
-    limbs_mac(lim, r, plan, q, plan.L);
 }
 
 // balanced carry pass: every limb but the top into [-2^15, 2^15)
@@ -140,11 +138,6 @@ __device__ __forceinline__ void fold_quotient(int* lim,
     carry16(lim, L);
 }
 
-__device__ __forceinline__ void fold_quotient(int* lim,
-                                              const EpiloguePlan& plan) {
-    fold_quotient(lim, plan, plan.L);
-}
-
 // f64 out: each limb scaled by 2^(base + 16*li - ss) in f64 over the full
 // exponent range (pow2_scale's floor split), summed highest first
 template <typename LN>
@@ -163,11 +156,6 @@ __device__ __forceinline__ double emit_f64(const int* lim,
         }
     }
     return acc;
-}
-
-__device__ __forceinline__ double emit_f64(const int* lim,
-                                           const EpiloguePlan& plan, int ss) {
-    return emit_f64(lim, plan, ss, plan.L);
 }
 
 // emit_f64's value with one multiply a limb where every limb's exponent
@@ -256,12 +244,6 @@ __device__ __forceinline__ float emit_f32(const int* lim,
     return hi + lo;
 }
 
-__device__ __forceinline__ float emit_f32(const int* lim,
-                                          const EpiloguePlan& plan,
-                                          const Pow2x3& fa, const Pow2x3& fb) {
-    return emit_f32(lim, plan, fa, fb, plan.L);
-}
-
 // F(LimbCount<L>()) for the run-time limb count L in [2, G8_MAX_L];
 // returns cudaErrorInvalidValue for any other
 template <typename F>
@@ -277,7 +259,7 @@ inline int dispatch_l(int L, F&& f) {
     }
 }
 
-// The 2-D tiling of K2 and K4: a block of G8_TILE_ROWS warps; warp y takes
+// The 2-D tiling of K2, K3 and K4: a block of G8_TILE_ROWS warps; warp y takes
 // row blockIdx.y * G8_TILE_ROWS + y (and every gridDim.y * G8_TILE_ROWS-th
 // row after it, past the grid's y limit), lane x the V consecutive columns
 // from (blockIdx.x * 32 + x) * V. Each thread loads its row's shift once per

@@ -78,8 +78,8 @@ _ARGTYPES = {
     "encode_planes_fp8": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # c_hi, sft_a, sft_b, out, in_i8, out_f64, m, n, vec, plan, stream
     "fused_epilogue": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
-    # c3, sft_a, sft_b, out, out_f64, m, n, plan, stream
-    "fused_epilogue_fp8": [_P, _P, _P, _P, _I, _I, _I, _P, _P],
+    # c3, sft_a, sft_b, out, out_f64, m, n, vec, plan, stream
+    "fused_epilogue_fp8": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
     # c_hi3, sft_a, sft_b, out_re, out_im, stride, out_f64, m, n, vec, plan,
     # stream
     "fused_epilogue_complex": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
@@ -100,11 +100,12 @@ _MAX_NU = 20        # csrc/common.cuh: G8_MAX_NU
 _MAX_NL = 6         # G8_MAX_NL: 20-bit encode limbs
 _MAX_L = 7          # G8_MAX_L: 16-bit epilogue limbs
 REDUCE_RANGE = 2 ** 31 - 2 ** 11   # G8_REDUCE_RANGE: encode's exact |acc|
-# K2's and K4's tiling (csrc/crt.cuh: Tile): a block of _TILE_ROWS warps, a
-# warp on one row, each thread on EPILOGUE_COLS[kernel] consecutive columns
-# (csrc/epilogue.cu and csrc/complex.cu: kCols)
+# K2's, K3's and K4's tiling (csrc/crt.cuh: Tile): a block of _TILE_ROWS
+# warps, a warp on one row, each thread on EPILOGUE_COLS[kernel] consecutive
+# columns (csrc/epilogue.cu, csrc/epilogue_fp8.cu and csrc/complex.cu: kCols)
 _TILE_ROWS = 4      # G8_TILE_ROWS
-EPILOGUE_COLS = {"fused_epilogue": 4, "fused_epilogue_complex": 2}
+EPILOGUE_COLS = {"fused_epilogue": 4, "fused_epilogue_fp8": 4,
+                 "fused_epilogue_complex": 2}
 
 
 def reset_launches() -> None:
@@ -478,7 +479,7 @@ def _check_epilogue(name, c_hi, n_planes, dtypes, sft_a, sft_b):
 
 
 def _epilogue_vec(n: int, cols: int, *tensors: torch.Tensor) -> bool:
-    """Whether K2 or K4 may load and store whole vectors of `cols` columns
+    """Whether K2, K3 or K4 may load and store whole vectors of `cols` columns
     (csrc/crt.cuh: load_cols): every row's columns whole vectors (n a
     multiple of cols) and the tensors 16-byte aligned; else each thread
     takes its columns one by one."""
@@ -543,7 +544,47 @@ def fused_epilogue(c_hi: torch.Tensor, sft_a: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 class _EpiloguePlanFp8(ctypes.Structure):     # csrc/common.cuh: EpiloguePlanFp8
-    _fields_ = [("crt", _EpiloguePlan), ("sq", ctypes.c_int * _MAX_NU)]
+    _fields_ = [("crt", _EpiloguePlan), ("sq", ctypes.c_int * _MAX_NU),
+                ("p_f", ctypes.c_float * _MAX_NU),
+                ("inv_p", ctypes.c_float * _MAX_NU),
+                ("sq_f", ctypes.c_float * _MAX_NU),
+                ("lim0", ctypes.c_uint * _MAX_L)]
+
+
+# what each FP8 modulus' residue r carries into K3's limbs (csrc/
+# epilogue_fp8.cu): r + 0x4B400000, the f32 bits of 1.5 * 2^23 + r, or r + 512
+# for p = 1024, wrapped by its mask
+FP8_MAGIC_BITS = 0x4B400000
+FP8_MASK_OFFSET = 512
+
+
+def fp8_residue_offset(p: int) -> int:
+    """The offset of modulus p's residue in K3's limbs."""
+    return FP8_MASK_OFFSET if p == 1024 else FP8_MAGIC_BITS
+
+
+@functools.lru_cache(maxsize=None)
+def _epilogue_plan_fp8(num_moduli: int, out_bits: int) -> _EpiloguePlanFp8:
+    """K3's plan: the CRT plan of the FP8 moduli, each modulus' split (q, or
+    0 for a Karatsuba one), p and q in f32 and 1/p rounded to f32, and the
+    limbs' start, which takes every residue's offset out of the limb sums
+    modulo 2^32. The kernel wraps modulus 1 by the mask of 1024 and every
+    other modulus in f32 steps that need it odd (tests/
+    test_torch_fp8_epilogue_redesign.py pins both). Built once for each
+    (num_moduli, out_bits) and shared: callers only read it."""
+    mods = tables.moduli(_FP8)[:num_moduli]
+    plan = _EpiloguePlanFp8()
+    plan.crt = _epilogue_plan(num_moduli, _FP8, out_bits)
+    for i, q in enumerate(fp8._sqrt_moduli()[:num_moduli]):
+        plan.sq[i] = q
+        plan.sq_f[i] = q
+    for i, p in enumerate(mods):
+        plan.p_f[i] = p
+        plan.inv_p[i] = float(np.float32(1.0 / p))
+    for li in range(plan.crt.L):
+        plan.lim0[li] = -sum(fp8_residue_offset(p) * plan.crt.w16[i][li]
+                             for i, p in enumerate(mods)) % 2 ** 32
+    return plan
 
 
 def fused_epilogue_fp8_plain(c3, sft_a, sft_b, num_moduli, out_dtype):
@@ -571,13 +612,11 @@ def fused_epilogue_fp8(c3: torch.Tensor, sft_a: torch.Tensor,
     out = torch.empty((m, n), dtype=out_dtype, device=c3.device)
     if out.numel():
         out_bits = 53 if out_dtype == torch.float64 else 24
-        plan = _EpiloguePlanFp8()
-        plan.crt = _epilogue_plan(num_moduli, _FP8, out_bits)
-        for i, q in enumerate(fp8._sqrt_moduli()[:num_moduli]):
-            plan.sq[i] = q
+        plan = _epilogue_plan_fp8(num_moduli, out_bits)
+        vec = _epilogue_vec(n, EPILOGUE_COLS["fused_epilogue_fp8"], c3, out)
         _launch("fused_epilogue_fp8", c3.data_ptr(), sft_a.data_ptr(),
                 sft_b.data_ptr(), out.data_ptr(), int(out_bits == 53), m, n,
-                ctypes.addressof(plan), _stream(c3))
+                int(vec), ctypes.addressof(plan), _stream(c3))
     return out
 
 

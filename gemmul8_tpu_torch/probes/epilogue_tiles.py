@@ -1,15 +1,18 @@
 """The design choices of the redesigned kernels on the card, each undone in
-turn: K2 (csrc/epilogue.cu) and K4 (csrc/complex.cu), K6 (csrc/encode_fp8.cu)
-and K8 (csrc/epilogue_mxu.cu).
+turn: K2 (csrc/epilogue.cu), K3 (csrc/epilogue_fp8.cu) and K4
+(csrc/complex.cu), K6 (csrc/encode_fp8.cu) and K8 (csrc/epilogue_mxu.cu).
 
 Each variant rebuilds, from a copy of csrc/ with one edit (VARIANTS), the
 sources of SOURCES that the edit reaches (a header reaches every source that
 includes it): more warps a block, fewer or more columns a thread (K4),
 another number of planes loaded at a time, K4 without its register cap or
-K2 with one, the plan's limb count read at run time (K2, K4, K8), the
-three-factor f64 descale; K6 with byte stores, with B staged, with a
-run-time select per plane, with scalar conversions; K8 with the probe's f32
-wrap, with the descale triples built per element.
+K2 with one, the plan's limb count read at run time (K2, K3, K4, K8), the
+three-factor f64 descale; K3 with one column a thread, one modulus loaded
+at a time, one loop over the moduli with per-modulus selects of their
+kind, the int32 reassembly (conversions and wrap_any); K6 with byte
+stores, with B staged, with a run-time select per plane, with scalar
+conversions; K8 with the probe's f32 wrap, with the descale triples built
+per element.
 Every case (CASES: a kernel at m x m on random inputs) is timed with the
 shipped build and, in turns, with each variant that rebuilt its source, and
 each output is held bit for bit against the shipped kernel's. Also printed:
@@ -56,8 +59,18 @@ VARIANTS = {
     "run-time limb count": [
         (src, "constexpr LimbCount<L> nl{};", "const int nl = plan.L;")
         for src in ("epilogue.cu", "complex.cu")] + [
-        ("epilogue_mxu.cu", "constexpr LimbCount<L> nl{};",
-         "const int nl = plan.crt.L;")],
+        (src, "constexpr LimbCount<L> nl{};", "const int nl = plan.crt.L;")
+        for src in ("epilogue_fp8.cu", "epilogue_mxu.cu")],
+    "K3 1 column": [("epilogue_fp8.cu", "constexpr int kCols = 4;",
+                     "constexpr int kCols = 1;")],
+    "K3 1 modulus a batch": [("epilogue_fp8.cu", "constexpr int kMods = 2;",
+                              "constexpr int kMods = 1;")],
+    "K3 one loop, per-modulus selects": [
+        ("epilogue_fp8.cu", "constexpr bool kTwoLoops = true;",
+         "constexpr bool kTwoLoops = false;")],
+    "K3 int32 reassembly": [("epilogue_fp8.cu",
+                             "constexpr bool kF32Wrap = true;",
+                             "constexpr bool kF32Wrap = false;")],
     "three-factor f64 descale": [
         ("crt.cuh", "    if (plan.base - ss < G8_DIRECT_LO",
          "    if (true || plan.base - ss < G8_DIRECT_LO")],
@@ -88,9 +101,9 @@ VARIANTS = {
 
 class Case(NamedTuple):
     """A kernel timed at m x m: its wrapper in kernels, nu, the input dtype,
-    `arg` (the output dtype of K2 and K4, the side's scale axis of K6, the
-    out_bits of K8) and a regular expression of its mangled name in the
-    build log: input type, f64 out, vec, [stride,] limb count."""
+    `arg` (the output dtype of K2, K3 and K4, the side's scale axis of K6,
+    the out_bits of K8) and a regular expression of its mangled name in the
+    build log: [input type,] f64 out, vec, [stride,] limb count."""
     kernel: str
     nu: int
     dtype: torch.dtype
@@ -108,6 +121,10 @@ CASES = {
     "K2 int8 -> f64, nu=20": Case("fused_epilogue", 20, torch.int8,
                                   torch.float64,
                                   "epilogue_kernelIaLb1ELb1ELi7E"),
+    "K3 f64 nu=14": Case("fused_epilogue_fp8", 14, torch.float32,
+                         torch.float64, "epilogue_fp8_kernelILb1ELb1ELi7E"),
+    "K3 f32 nu=7": Case("fused_epilogue_fp8", 7, torch.float32, torch.float32,
+                        "epilogue_fp8_kernelILb0ELb1ELi5E"),
     "K4 -> c128, nu=16": Case("fused_epilogue_complex", 16, torch.int32,
                               torch.complex128,
                               "complex_kernelILb1ELb1ELi2ELi7E"),
@@ -127,6 +144,7 @@ CASES = {
 }
 # each kernel's source
 SOURCE_OF = {"fused_epilogue": "epilogue.cu",
+             "fused_epilogue_fp8": "epilogue_fp8.cu",
              "fused_epilogue_complex": "complex.cu",
              "encode_planes_fp8": "encode_fp8.cu",
              "fused_epilogue_mxu": "epilogue_mxu.cu"}
@@ -197,12 +215,17 @@ def _build(root: str) -> dict:
 
 def _inputs(case: Case, m: int, g: torch.Generator):
     """The case's random inputs at m x m: (x, sft) for K6, (stack, sft_a,
-    sft_b) for the epilogues."""
+    sft_b) for the epilogues; K3's stack holds integer lane products of
+    |C| <= 2^24 in f32."""
     if case.kernel == "encode_planes_fp8":
         x = torch.randn((m, m), dtype=case.dtype, device="cuda", generator=g)
         return x, quantize.shift_fast(x, case.nu, "FP8", 1 - case.arg)
     sa, sb = (torch.randint(-40, 90, (m,), dtype=torch.int32, device="cuda",
                             generator=g) for _ in range(2))
+    if case.kernel == "fused_epilogue_fp8":
+        x = torch.randint(-2 ** 24, 2 ** 24 + 1, (3 * case.nu, m, m),
+                          dtype=torch.float32, device="cuda", generator=g)
+        return x, sa, sb
     planes = 3 * case.nu if case.kernel == "fused_epilogue_complex" \
         else case.nu
     lo, hi = (-128, 128) if case.dtype == torch.int8 else (-2**31, 2**31)
@@ -216,6 +239,8 @@ def _shipped(case: Case, inputs):
     wrapper = getattr(kernels, case.kernel)
     if case.kernel == "encode_planes_fp8":
         return wrapper(*inputs, case.arg, case.nu)
+    if case.kernel == "fused_epilogue_fp8":
+        return wrapper(*inputs, case.nu, case.arg)
     return wrapper(*inputs, case.nu, "INT8", case.arg)
 
 
@@ -248,6 +273,18 @@ def _launcher(lib, case: Case, inputs):
             return (hi, lo), lib.g8_fused_epilogue_mxu(
                 c.data_ptr(), sa.data_ptr(), sb.data_ptr(), hi.data_ptr(),
                 lo.data_ptr(), m, n, 1, ctypes.addressof(plan), stream)
+    elif kernel == "fused_epilogue_fp8":
+        _, sa, sb = inputs
+        m, n = c.shape[1:]
+        out_dtype = case.arg
+        f64 = out_dtype == torch.float64
+        plan = kernels._epilogue_plan_fp8(nu, 53 if f64 else 24)
+
+        def fn():
+            out = torch.empty((m, n), dtype=out_dtype, device=c.device)
+            return out, lib.g8_fused_epilogue_fp8(
+                c.data_ptr(), sa.data_ptr(), sb.data_ptr(), out.data_ptr(),
+                int(f64), m, n, 1, ctypes.addressof(plan), stream)
     else:
         _, sa, sb = inputs
         m, n = c.shape[1:]

@@ -432,6 +432,11 @@ def test_tile_cases_name_shipped_kernels():
             L = kernels._epilogue_plan_mxu(nu, "INT8", arg).crt.L
             assert part == f"epilogue_mxu_kernelILb1ELi{L}E"
             continue
+        if kernel == "fused_epilogue_fp8":
+            f64 = int(arg == torch.float64)
+            L = kernels._epilogue_plan_fp8(nu, 53 if f64 else 24).crt.L
+            assert part == f"epilogue_fp8_kernelILb{f64}ELb1ELi{L}E"
+            continue
         real = kernels.REAL_DTYPE[arg]
         L = kernels._epilogue_plan(nu, "INT8",
                                    53 if real == torch.float64 else 24).L
