@@ -3,10 +3,15 @@ against its plain PyTorch version bit for bit, drives the main paths at 8192^3
 -- real DGEMM/SGEMM and complex ZGEMM/CGEMM and herk (fast mode, INT8), real
 DGEMM/SGEMM on the FP8 backend, and accurate mode (fastmode=False) on real
 INT8 and FP8 DGEMM, SGEMM, ZGEMM, herk and syrk, with syrk's default robust
-mode and gemm_batched (8 x 2048^3) -- checks their launch counts, their
-accuracy against an extended-precision oracle and their bits against the
-package's own CPU path, checks that the FP8 tensor-core products are exact,
-and times the kernels, the int8 and FP8 products and the whole calls. It also
+mode and gemm_batched (8 x 2048^3) -- and the entry points built on them
+at the same width: precomputed operands (precompute, gemm_quantized), the
+striped path on a 32768 x 32768 x 8192 DGEMM that does not fit
+unstriped, gemm_with_phases, the compat layer on column-major CUDA
+buffers, and the interposer (a @ b, ZGEMM, an MLP's forward and backward,
+a worker thread) -- checks their launch counts, their accuracy against an
+extended-precision oracle and their bits against gemm's and the package's
+own CPU path, checks that the FP8 tensor-core products are exact, and
+times the kernels, the int8 and FP8 products and the whole calls. It also
 holds the probe tools' kernels (the hand-written int8 product, both
 schedules, and the tensor-core CRT epilogue) against their plain versions and
 the DGEMM path's own products and epilogue, and runs the probes' tables
@@ -21,6 +26,7 @@ exits non-zero. Without CUDA it exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import statistics
 import subprocess
@@ -31,7 +37,10 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from gemmul8_tpu_torch.probes.timing import cuda_ms, cuda_times
+from torch.utils._python_dispatch import TorchDispatchMode
+
+from gemmul8_tpu_torch.probes import budget_query
+from gemmul8_tpu_torch.probes.timing import cuda_ms, cuda_times, in_turns
 
 SEED = 20261016
 FULL = 8192
@@ -220,13 +229,15 @@ def assert_bits_equal(got, ref, what, extra=""):
 def run_counted(fn):
     """fn() with every launch count set to 0 just before and read just
     after; torch._int_mm and torch._scaled_mm calls (the library products)
-    are counted by wrappers around them, and the _int_mm calls made inside
-    accurate mode's estimation products apart as "estimate_int_mm"."""
+    are counted by wrappers around them, the _int_mm calls made inside
+    accurate mode's estimation products apart as "estimate_int_mm", and the
+    fast shifts' calls (quantize.shift_fast, plain torch) as "shift_fast"."""
     from gemmul8_tpu_torch import kernels, quantize
     names = ("_int_mm", "_scaled_mm")
     orig = {name: getattr(torch, name) for name in names}
     orig_estimate = quantize.estimate_gemm
-    calls = dict.fromkeys(names + ("estimate_int_mm",), 0)
+    orig_shift = quantize.shift_fast
+    calls = dict.fromkeys(names + ("estimate_int_mm", "shift_fast"), 0)
 
     def counted(name):
         def call(*a, **k):
@@ -240,10 +251,15 @@ def run_counted(fn):
         calls["estimate_int_mm"] += calls["_int_mm"] - before
         return out
 
+    def shift(*a, **k):
+        calls["shift_fast"] += 1
+        return orig_shift(*a, **k)
+
     kernels.reset_launches()
     for name in names:
         setattr(torch, name, counted(name))
     quantize.estimate_gemm = estimate
+    quantize.shift_fast = shift
     try:
         out = fn()
         torch.cuda.synchronize()
@@ -251,6 +267,7 @@ def run_counted(fn):
         for name in names:
             setattr(torch, name, orig[name])
         quantize.estimate_gemm = orig_estimate
+        quantize.shift_fast = orig_shift
     counts = dict(kernels.LAUNCHES)
     counts.update(calls)
     return out, counts
@@ -1606,6 +1623,529 @@ def accurate_card_vs_cpu(rng):
 
 
 # ---------------------------------------------------------------------------
+# phase 4, the entry points over the main path's kernels: precomputed
+# operands, the striped path, phase timing, the compat layer and the
+# interposer, each through the call a user makes, with its launch counts
+# ---------------------------------------------------------------------------
+
+# each entry-point run's dtype tag and launch counts, for the kernels line
+ENTRY_RUNS: dict = {}
+# the launches that tell the entry-point paths apart: shifts (the fast
+# shifts' calls, counted by run_counted), K1, K6, the products, K2, K3, K4
+ENTRY_KEYS = ("shift_fast", "encode_planes", "encode_planes_fp8", "_int_mm",
+              "_scaled_mm", "fused_epilogue", "fused_epilogue_fp8",
+              "fused_epilogue_complex")
+LD = FULL + 64                        # the compat buffers' leading dimension
+
+
+def entry_counted(name, tag, fn, want):
+    """fn() through run_counted; its ENTRY_KEYS counts must equal want (a
+    dict, missing keys 0). Records the run for the kernels line."""
+    out, counts = run_counted(fn)
+    got = {k: counts.get(k, 0) for k in ENTRY_KEYS}
+    exp = {k: want.get(k, 0) for k in ENTRY_KEYS}
+    check(got == exp, f"{name} launches {got}, want {exp}")
+    ENTRY_RUNS[name] = (tag, counts)
+    log(f"entry path {name} launches: "
+        f"{ {k: v for k, v in got.items() if v} }")
+    return out
+
+
+def int8_call(nu, sides=2, tiles=1):
+    """The launches of one INT8 product from `sides` raw operands."""
+    return {"shift_fast": sides, "encode_planes": sides,
+            "_int_mm": nu * tiles, "fused_epilogue": tiles}
+
+
+def precomputed_paths(a64, b64, card):
+    """(a) precompute + gemm_quantized at 8192^3, INT8 nu=16 and FP8 nu=14:
+    two-sided and one-sided reuse bit-equal to gt.gemm on the same operands;
+    the two-sided call runs no shift and no encode. Times beside gemm's."""
+    import gemmul8_tpu_torch as gt
+    for backend, nu in (("INT8", 16), ("FP8", 14)):
+        fp8 = backend == "FP8"
+        enc = "encode_planes_fp8" if fp8 else "encode_planes"
+        product = ({"_scaled_mm": 3 * nu, "fused_epilogue_fp8": 1} if fp8
+                   else {"_int_mm": nu, "fused_epilogue": 1})
+        ref = gt.gemm(a64, b64, num_moduli=nu, backend=backend)
+        pre = {"shift_fast": 1, enc: 1}
+        qa = entry_counted(f"precompute A {backend} nu={nu}", "f64",
+                           lambda: gt.precompute(a64, "A", num_moduli=nu,
+                                                 backend=backend), pre)
+        qb = entry_counted(f"precompute B {backend} nu={nu}", "f64",
+                           lambda: gt.precompute(b64, "B", num_moduli=nu,
+                                                 backend=backend), pre)
+        both = entry_counted(f"gemm_quantized both {backend} nu={nu}", "f64",
+                             lambda: gt.gemm_quantized(qa, qb), product)
+        assert_bits_equal(both, ref, f"gemm_quantized both {backend}")
+        one = entry_counted(f"gemm_quantized one {backend} nu={nu}", "f64",
+                            lambda: gt.gemm_quantized(qa, b64),
+                            dict(product, **pre))
+        assert_bits_equal(one, ref, f"gemm_quantized A precomputed {backend}")
+        assert_bits_equal(gt.gemm_quantized(a64, qb), ref,
+                          f"gemm_quantized B precomputed {backend}")
+        del both, one
+        t = dict(
+            precompute_a_ms=cuda_ms(lambda: gt.precompute(
+                a64, "A", num_moduli=nu, backend=backend)),
+            precompute_b_ms=cuda_ms(lambda: gt.precompute(
+                b64, "B", num_moduli=nu, backend=backend)),
+            both_ms=cuda_ms(lambda: gt.gemm_quantized(qa, qb), reps=10),
+            one_ms=cuda_ms(lambda: gt.gemm_quantized(qa, b64), reps=10),
+            gemm_ms=cuda_ms(lambda: gt.gemm(a64, b64, num_moduli=nu,
+                                            backend=backend), reps=10))
+        log(f"times {card} | precomputed f64 8192^3 {backend} nu={nu}: "
+            + ", ".join(f"{k} {v:.3f}" for k, v in t.items()))
+        del qa, qb, ref
+        torch.cuda.empty_cache()
+
+
+def _device_phi(gen, m, n):
+    """(U - 0.5) * exp(0.5 N) made on the card from a seeded generator."""
+    u = torch.rand((m, n), generator=gen, dtype=torch.float64, device="cuda")
+    z = torch.randn((m, n), generator=gen, dtype=torch.float64, device="cuda")
+    return (u - 0.5) * torch.exp(0.5 * z)
+
+
+def blocked_paths(a64, b64, card):
+    """(b) The budget query's host time, and headline DGEMM calls with and
+    without it, in rotated turns (probes.budget_query). f64 32768 x 32768 x
+    8192 nu=16 through gt.gemm with no block arguments: pick_blocking's
+    stripes, work_bytes per stripe, the peak memory; the first and the last
+    stripe each bit-equal to the unstriped call on its columns, rows 0-7 of
+    the first 8192 columns within the DGEMM limits of a longdouble oracle;
+    timed beside torch.matmul. Then accurate mode forced into 4096 x 4096
+    tiles at 8192^3, bit-equal to the unstriped call."""
+    import gemmul8_tpu_torch as gt
+    from gemmul8_tpu_torch import core
+    nu, m, n, k = 16, 4 * FULL, 4 * FULL, FULL
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    a, b = _device_phi(gen, m, k), _device_phi(gen, k, n)
+    budget = core.device_budget_bytes(a.device)
+    # the host time of the budget query every real gemm on the card makes
+    # and of the free-memory rule it replaced; headline DGEMM calls under
+    # each and under a constant budget, in rotated turns
+    q = budget_query.compare(a64, b64, nu, rounds=10)
+    log(f"budget query {card}: device_budget_bytes {q['query_us']:.1f} us "
+        f"a call, the free-memory rule {q['free_rule_us']:.1f} us; gemm f64 "
+        f"8192^3 nu={nu} (median, q1, q3 of 10 rotated rounds): " + "; ".join(
+            f"{name} " + ", ".join(f"{v:.3f}" for v in q[name]) + " ms"
+            for name in ("query", "constant", "free_rule")))
+    mb, nb = core.pick_blocking(m, n, k, nu, torch.float64, device="cuda")
+    check(nb is not None, f"32768^2 x 8192 did not stripe (budget {budget})")
+    tiles = -(-n // nb) * (1 if mb is None else -(-m // mb))
+    stripe = core.work_bytes(mb or m, nb, k, nu)
+    log(f"blocked f64 {m}x{n}x{k} nu={nu}: work_bytes "
+        f"{core.work_bytes(m, n, k, nu)} > budget {budget}; stripes m_block "
+        f"{mb} n_block {nb} ({tiles} tiles), work_bytes per stripe {stripe}")
+    torch.cuda.reset_peak_memory_stats()
+    c = entry_counted(f"gemm striped f64 {m}x{n}x{k} nu={nu}", "f64",
+                      lambda: gt.gemm(a, b, num_moduli=nu),
+                      {"shift_fast": 1 + tiles, "encode_planes": 1 + tiles,
+                       "_int_mm": nu * tiles, "fused_epilogue": tiles})
+    peak = torch.cuda.max_memory_allocated()
+    check(c.shape == (m, n) and bool(torch.isfinite(c).all()),
+          "striped output")
+    log(f"blocked {card}: max_memory_allocated {peak} bytes "
+        f"({peak / 2 ** 30:.2f} GiB) in the call, operands and output "
+        f"included")
+    check(core.pick_blocking(m, nb, k, nu, torch.float64,
+                             device="cuda") == (None, None),
+          "the first stripe's columns would stripe again")
+    first = gt.gemm(a, b[:, :nb], num_moduli=nu)
+    assert_bits_equal(c[:, :nb], first, "first stripe vs unstriped")
+    del first
+    lo = (n - 1) // nb * nb
+    last = gt.gemm(a, b[:, lo:], num_moduli=nu)
+    assert_bits_equal(c[:, lo:], last, "last stripe vs unstriped")
+    del last
+    a8 = a[:8].cpu().numpy()
+    b_np = b[:, :FULL].cpu().numpy()
+    ref = a8.astype(np.longdouble) @ b_np.astype(np.longdouble)
+    scale = np.abs(a8) @ np.abs(b_np)
+    err, med = max_median_relerr(c[:8, :FULL].cpu().numpy(), ref)
+    nerr, _ = max_median_relerr(
+        torch.matmul(a[:8], b[:, :FULL]).cpu().numpy(), ref)
+    cw = float(np.max(np.abs(np.asarray(c[:8, :FULL].cpu().numpy(),
+                                        np.longdouble) - ref) / scale))
+    log(f"accuracy striped rows 0-7, columns 0-8191: emulated max {err:.3e} "
+        f"median {med:.3e} max/|A||B| {cw:.3e}; torch.matmul max {nerr:.3e}")
+    check(err <= 2 * nerr and cw < 1e-13, f"striped error {err} vs {nerr}")
+    del c
+    torch.cuda.empty_cache()
+    t = dict(striped_ms=cuda_ms(lambda: gt.gemm(a, b, num_moduli=nu), reps=3),
+             library_ms=cuda_ms(lambda: torch.matmul(a, b), reps=3))
+    t["emulated_tflops"] = 2.0 * m * n * k / (t["striped_ms"] * 1e-3) / 1e12
+    t["library_tflops"] = 2.0 * m * n * k / (t["library_ms"] * 1e-3) / 1e12
+    log(f"times {card} | striped f64 {m}x{n}x{k} nu={nu}: "
+        + ", ".join(f"{k_} {v:.3f}" for k_, v in t.items()))
+    del a, b
+    torch.cuda.empty_cache()
+    # accurate mode's two phases over a 2 x 2 tile grid at 8192^3
+    want = gt.gemm(a64, b64, num_moduli=nu, fastmode=False)
+    got = entry_counted(
+        "gemm accurate 4096x4096 tiles f64 8192^3 nu=16", "f64",
+        lambda: gt.gemm(a64, b64, num_moduli=nu, fastmode=False,
+                        m_block=FULL // 2, n_block=FULL // 2),
+        {"encode_planes": 2 + 4, "_int_mm": 4 + 4 * nu,
+         "fused_epilogue": 4})
+    assert_bits_equal(got, want, "accurate tiles vs unstriped")
+    del got, want
+    torch.cuda.empty_cache()
+
+
+def phases_paths(a64, b64, card):
+    """(c) gemm_with_phases at 8192^3: DGEMM nu=16 (K2 on the int8
+    residues) and FP8 DGEMM nu=14 (K2 on the widened int16 residues, where
+    gemm runs K3): C bit-equal to gemm's; the four phases and their sum
+    beside the call. One warm-up and one timed run: each launch twice."""
+    import gemmul8_tpu_torch as gt
+    for backend, nu, want in (
+            ("INT8", 16, {"shift_fast": 4, "encode_planes": 4, "_int_mm": 32,
+                          "fused_epilogue": 2}),
+            ("FP8", 14, {"shift_fast": 4, "encode_planes_fp8": 4,
+                         "_scaled_mm": 6 * 14, "fused_epilogue": 2})):
+        c, phases = entry_counted(
+            f"gemm_with_phases {backend} f64 8192^3 nu={nu}", "f64",
+            lambda: gt.gemm_with_phases(a64, b64, num_moduli=nu,
+                                        backend=backend), want)
+        assert_bits_equal(c, gt.gemm(a64, b64, num_moduli=nu,
+                                     backend=backend),
+                          f"gemm_with_phases {backend} vs gemm")
+        check(all(v >= 0 for v in phases.values()), f"phases {phases}")
+        gemm_ms = cuda_ms(lambda: gt.gemm(a64, b64, num_moduli=nu,
+                                          backend=backend), reps=10)
+        log(f"times {card} | gemm_with_phases f64 8192^3 {backend} nu={nu}: "
+            + ", ".join(f"{k}_ms {v * 1e3:.3f}" for k, v in phases.items())
+            + f", sum_ms {sum(phases.values()) * 1e3:.3f}, gemm_ms "
+              f"{gemm_ms:.3f}")
+        del c
+        torch.cuda.empty_cache()
+
+
+def colmajor(mat, ld):
+    """A 1-D column-major buffer on the card with leading dimension ld
+    holding mat, its padding rows set to 7777."""
+    rows, cols = mat.shape
+    buf = torch.full((ld * cols,), 7777.0, dtype=mat.dtype, device="cuda")
+    buf.as_strided((rows, cols), (1, ld)).copy_(mat)
+    return buf
+
+
+def compat_paths(a64, b64, card):
+    """(d) compat.gemmLt and compat.gemm at 8192^3 f64 nu=16 on 1-D
+    column-major CUDA buffers with ld = 8256, ops T/N, alpha 0.7, beta
+    -1.3: C bit-equal to gt.gemm on the logical matrices, its padding
+    untouched; an enable_skip_scalB call then a skip_scalB call, both
+    bit-equal, the second timed; gemmLt on FP8 nu=14; gemm refusing FP8."""
+    import gemmul8_tpu_torch as gt
+    from gemmul8_tpu_torch import compat
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    c0 = _device_phi(gen, FULL, FULL)
+    abuf, bbuf = colmajor(a64.T, LD), colmajor(b64, LD)
+    cbuf = colmajor(c0, LD)
+    cview = cbuf.as_strided((FULL, FULL), (1, LD))
+    args = ("T", "N", FULL, FULL, FULL, 0.7, abuf, LD, bbuf, LD, -1.3,
+            cbuf, LD)
+    for nu, backend in ((16, "INT8"), (14, "FP8")):
+        want = gt.gemm(a64, b64, num_moduli=nu, backend=backend, alpha=0.7,
+                       beta=-1.3, c=c0)
+        entries = (("gemmLt", compat.gemmLt), ("gemm", compat.gemm))
+        for name, fn in entries[:1 if backend == "FP8" else 2]:
+            cview.copy_(c0)
+            call = {"shift_fast": 2, "_int_mm": nu, "fused_epilogue": 1,
+                    "encode_planes": 2} if backend == "INT8" else {
+                "shift_fast": 2, "encode_planes_fp8": 2,
+                "_scaled_mm": 3 * nu, "fused_epilogue_fp8": 1}
+            entry_counted(f"compat.{name} {backend} TN f64 8192^3 nu={nu}",
+                          "f64", lambda: fn(None, *args, nu, True,
+                                            backend=backend), call)
+            assert_bits_equal(cview, want, f"compat.{name} {backend}")
+        check(bool((cbuf.view(FULL, LD)[:, FULL:] == 7777.0).all()),
+              "compat wrote into C's padding")
+    try:
+        compat.gemm(None, *args, 16, True, backend="FP8")
+    except ValueError as e:
+        log(f"compat.gemm refuses FP8: {e}")
+    else:
+        raise AssertionError("compat.gemm took the FP8 backend")
+    want = gt.gemm(a64, b64, num_moduli=16, alpha=0.7, beta=-1.3, c=c0)
+    h = compat.create()
+    cview.copy_(c0)
+    entry_counted("compat.gemm enable_skip_scalB f64 8192^3 nu=16", "f64",
+                  lambda: compat.gemm(h, *args, 16, True,
+                                      enable_skip_scalB=True),
+                  int8_call(16))
+    assert_bits_equal(cview, want, "compat.gemm enable_skip_scalB")
+    cview.copy_(c0)
+    entry_counted("compat.gemm skip_scalB f64 8192^3 nu=16", "f64",
+                  lambda: compat.gemm(h, *args, 16, True, skip_scalB=True),
+                  dict(int8_call(16), shift_fast=1, encode_planes=1))
+    assert_bits_equal(cview, want, "compat.gemm skip_scalB")
+    t = dict(
+        gemmLt_ms=cuda_ms(lambda: compat.gemmLt(None, *args, 16, True),
+                          reps=5),
+        skip_scalB_ms=cuda_ms(lambda: compat.gemm(h, *args, 16, True,
+                                                  skip_scalB=True), reps=5),
+        gemm_ms=cuda_ms(lambda: gt.gemm(a64, b64, num_moduli=16, alpha=0.7,
+                                        beta=-1.3, c=c0), reps=5))
+    log(f"times {card} | compat f64 8192^3 nu=16 TN ld={LD}: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in t.items()))
+    compat.destroy(h)
+    del abuf, bbuf, cbuf, cview, c0, want
+    torch.cuda.empty_cache()
+
+
+class NativeMatmuls(TorchDispatchMode):
+    """Counts the native matrix products that reach ATen (forward, and the
+    backward's on autograd's threads, which carry the dispatch mode)."""
+    OPS = ("mm", "addmm", "bmm", "baddbmm", "matmul", "dot", "mv")
+
+    def __init__(self):
+        super().__init__()
+        self.count = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func.overloadpacket.__name__ in self.OPS:
+            self.count += 1
+        return func(*args, **(kwargs or {}))
+
+
+def interposer_paths(a64, b64, A, B, card):
+    """(e) the interposer: `a @ b` under gt.emulate on the 8192^2 f64
+    operands, bits and launches equal to gt.gemm's; ZGEMM nu=16 through the
+    hook bit-equal to gt.gemm; an f32 MLP (8192-8192-8192, batch 8192)
+    forward and backward under install(num_moduli=8), every GEMM emulated
+    and no native product, logits and grads bit-identical over two runs;
+    one matmul on a worker thread emulated."""
+    import threading
+    import gemmul8_tpu_torch as gt
+    from gemmul8_tpu_torch import hook
+    from gemmul8_tpu_torch.models import mlp
+    ref = gt.gemm(a64, b64, num_moduli=16)
+    with gt.emulate(num_moduli=16) as mode:
+        c = entry_counted("hook a @ b f64 8192^3 nu=16", "f64",
+                          lambda: a64 @ b64, int8_call(16))
+    check(mode.intercepted == 1, f"hook intercepted {mode.intercepted}")
+    assert_bits_equal(c, ref, "hook a @ b vs gt.gemm")
+    del c
+
+    def hooked():
+        with gt.emulate(num_moduli=16):
+            return a64 @ b64
+    t = in_turns({"gemm": lambda: gt.gemm(a64, b64, num_moduli=16),
+                  "hook": hooked}, reps=5)
+    log(f"times {card} | hook a @ b f64 8192^3 nu=16: gemm_ms "
+        f"{t['gemm'][0]:.3f} (passes {t['gemm'][1]:.3f}, {t['gemm'][2]:.3f})"
+        f", hook_ms {t['hook'][0]:.3f} (passes {t['hook'][1]:.3f}, "
+        f"{t['hook'][2]:.3f}), hook - gemm {t['hook'][0] - t['gemm'][0]:.3f}")
+    zref = gt.gemm(A, B, num_moduli=16)
+    with gt.emulate(num_moduli=16):
+        z = entry_counted("hook A @ B c128 8192^3 nu=16", "c128",
+                          lambda: A @ B,
+                          {"shift_fast": 2, "encode_planes": 4,
+                           "_int_mm": 48, "fused_epilogue_complex": 1})
+    assert_bits_equal(z, zref, "hook ZGEMM vs gt.gemm")
+    del z, zref, ref
+    torch.cuda.empty_cache()
+
+    model = mlp.MLP([FULL, FULL, FULL], seed=SEED, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    x = torch.randn((FULL, FULL), generator=gen, device="cuda")
+
+    def step():
+        model.zero_grad()
+        with NativeMatmuls() as native:
+            logits = model(x)
+            logits.square().mean().backward()
+            torch.cuda.synchronize()
+        return native.count, logits.detach(), [p.grad.clone()
+                                               for p in model.parameters()]
+
+    # the native step shows what the counter sees: 2 forward products, and
+    # the backward's 3 where the dispatch mode reaches autograd's threads
+    n_native, _, _ = step()
+    check(n_native in (2, 5), f"native MLP step: {n_native} native "
+          "products counted, want 2 forward (+ 3 backward)")
+    gt.install(num_moduli=8)
+    try:
+        before = hook.COUNTS["emulated"]
+        n1, l1, g1 = entry_counted(
+            "hook MLP f32 8192-8192-8192 batch 8192 nu=8 forward+backward",
+            "f32", step, int8_call(8, tiles=5) | {"shift_fast": 10,
+                                                  "encode_planes": 10})
+        emulated = hook.COUNTS["emulated"] - before
+        n2, l2, g2 = step()
+        t_step = cuda_ms(step, reps=3)
+        res = {}
+        a32, b32 = a64.float(), b64.float()
+        worker = threading.Thread(target=lambda: res.update(c=a32 @ b32))
+        before_t = hook.COUNTS["emulated"]
+        worker.start()
+        worker.join(timeout=600)
+        check(not worker.is_alive(), "worker thread did not finish")
+        on_thread = hook.COUNTS["emulated"] - before_t
+    finally:
+        gt.uninstall()
+    check(emulated == 5 and n1 == 0 and n2 == 0,
+          f"MLP step: {emulated} emulated GEMMs (want 5), native products "
+          f"{n1}, {n2} (want 0)")
+    assert_bits_equal(l1, l2, "MLP logits rerun")
+    for p, q in zip(g1, g2):
+        assert_bits_equal(p, q, "MLP grads rerun")
+    check(on_thread == 1, f"worker thread: {on_thread} emulated")
+    assert_bits_equal(res["c"], gt.gemm(a32, b32, num_moduli=8),
+                      "worker-thread matmul vs gt.gemm")
+    log(f"hook MLP: {emulated} GEMMs emulated (2 forward, 3 backward), 0 "
+        f"native products (native step: {n_native}); logits and 4 grads "
+        f"bit-identical over two runs; worker-thread matmul emulated")
+    log(f"times {card} | hook MLP f32 8192-8192-8192 batch 8192 nu=8 "
+        f"forward+backward: step_ms {t_step:.3f}")
+    del model, x, l1, l2, g1, g2, res
+    torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def cpu_epilogue_ff():
+    """Inside the block "auto" resolves to "ff" on the CPU as on the card,
+    so that a CPU call of an entry with no epilogue argument (compat, the
+    interposer) takes the card's route, the one its bits are held to."""
+    from gemmul8_tpu_torch import core
+    orig = core.resolve_epilogue
+    core.resolve_epilogue = lambda epilogue="auto", device="cpu": orig(
+        "ff" if epilogue == "auto" else epilogue, device)
+    try:
+        yield
+    finally:
+        core.resolve_epilogue = orig
+
+
+def entry_card_vs_cpu(rng):
+    """Each new entry on the card against the package's CPU path, bit for
+    bit, at small shapes: precomputed operands (INT8 and FP8, one- and
+    two-sided), striped gemm (fast, robust, accurate, alpha/beta, trans,
+    FP8), gemm_with_phases' C, compat (ld-strided, ops, alpha/beta, skip),
+    the interposer's outputs and gradients (real, complex, batched, two
+    nn.Linear layers)."""
+    import gemmul8_tpu_torch as gt
+    from gemmul8_tpu_torch import compat, core
+    from gemmul8_tpu_torch.models import mlp
+    f32 = np.float32
+    m, k, n_ = 300, 520, 200
+    a, b = phi_matrix(rng, m, k, 0.5), phi_matrix(rng, k, n_, 0.5)
+    c = phi_matrix(rng, m, n_, 0.5)
+    a32, b32 = a.astype(f32), b.astype(f32)
+    ca = a + 1j * phi_matrix(rng, m, k, 0.5)
+    cb = b + 1j * phi_matrix(rng, k, n_, 0.5)
+    g = phi_matrix(rng, m, n_, 0.5)
+    cg = g + 1j * phi_matrix(rng, m, n_, 0.5)
+
+    def quantized(d, backend, nu, sides, x=a, y=b, **kw):
+        qa = gt.precompute(x, "A", num_moduli=nu, backend=backend, device=d)
+        qb = gt.precompute(y, "B", num_moduli=nu, backend=backend, device=d)
+        yt = torch.from_numpy(y).to(d)
+        return gt.gemm_quantized(qa, qb if sides == 2 else yt, **kw)
+
+    def from_numpy(d):
+        qs = [gt.precompute(x, side, num_moduli=16, device="cpu")
+              for x, side in ((a, "A"), (b, "B"))]
+        return gt.gemm_quantized(*(core.quantized_from_numpy(
+            q.planes.numpy(), q.sft.numpy(), q.side, 16, "INT8", q.dims,
+            device=d) for q in qs))
+
+    def compat_call(d, skip):
+        cbuf = np.full(LD * n_, 7777.0)
+        np.copyto(cbuf.reshape(n_, LD).T[:m], c)
+        abuf = torch.from_numpy(a.T.copy()).to(d)      # op T: stored k x m
+        h = compat.create()
+        for flags in ((dict(enable_skip_scalB=True), dict(skip_scalB=True))
+                      if skip else ({},)):
+            out = cbuf.copy()
+            compat.gemm(h, "T", "N", m, n_, k, 0.7, abuf, k, b, k, -1.3, out,
+                        LD, 16, True, device=d, **flags)
+        return torch.from_numpy(out)
+
+    def hooked(d, x, y, nu, grad=None):
+        tx = torch.from_numpy(x).to(d).requires_grad_(grad is not None)
+        ty = torch.from_numpy(y).to(d).requires_grad_(grad is not None)
+        with gt.emulate(num_moduli=nu):
+            out = tx @ ty
+        if grad is None:
+            return out
+        out.backward(torch.from_numpy(grad).to(d))
+        return torch.cat([out.detach().flatten(), tx.grad.flatten(),
+                          ty.grad.flatten()])
+
+    def linear_step(d):
+        # the MLP's two nn.Linear layers without the GELU between them and
+        # with a given output gradient: the GELU's tanh and the bias
+        # gradients' sums round differently on the two devices
+        model = mlp.MLP([96, 128, 40], seed=5, device=d)
+        x = torch.from_numpy(a32[:64, :96]).to(d).requires_grad_(True)
+        with gt.emulate(num_moduli=8):
+            out = model.layers[1](model.layers[0](x))
+            out.backward(torch.from_numpy(g[:64, :40].astype(f32)).to(d))
+        return torch.cat([out.detach().flatten(), x.grad.flatten()]
+                         + [layer.weight.grad.flatten()
+                            for layer in model.layers])
+
+    cases = [
+        ("precompute both INT8 f64 nu=16",
+         lambda d: quantized(d, "INT8", 16, 2)),
+        ("precompute one INT8 f64 nu=16",
+         lambda d: quantized(d, "INT8", 16, 1)),
+        ("precompute both FP8 f32 nu=7",
+         lambda d: quantized(d, "FP8", 7, 2, a32, b32,
+                             out_dtype=torch.float32)),
+        ("quantized_from_numpy INT8 f64 nu=16", from_numpy),
+        ("striped fast f64 nu=16 128x96",
+         lambda d: gt.gemm(a, b, num_moduli=16, m_block=128, n_block=96,
+                           device=d)),
+        ("striped robust f32 nu=8 alpha/beta trans_b",
+         lambda d: gt.gemm(a32, b32.T.copy(), num_moduli=8, fastmode="robust",
+                           trans_b="T", alpha=-1.25, beta=0.75,
+                           c=c.astype(f32), n_block=64, device=d)),
+        ("striped accurate f64 nu=16",
+         lambda d: gt.gemm(a, b, num_moduli=16, fastmode=False, m_block=128,
+                           n_block=64, device=d)),
+        ("striped FP8 f64 nu=14",
+         lambda d: gt.gemm(a, b, num_moduli=14, backend="FP8", n_block=64,
+                           device=d)),
+        ("gemm_with_phases INT8 f64 nu=16",
+         lambda d: gt.gemm_with_phases(a, b, num_moduli=16, epilogue="ff",
+                                       device=d)[0]),
+        ("gemm_with_phases FP8 f64 nu=14",
+         lambda d: gt.gemm_with_phases(a, b, num_moduli=14, backend="FP8",
+                                       epilogue="ff", device=d)[0]),
+        ("compat.gemm TN ld-strided alpha/beta", lambda d: compat_call(d, 0)),
+        ("compat.gemm skip_scalB", lambda d: compat_call(d, 1)),
+        ("hook a @ b f32 nu=8", lambda d: hooked(d, a32, b32, 8)),
+        ("hook grads f64 nu=16", lambda d: hooked(d, a, b, 16, g)),
+        ("hook grads c128 nu=16", lambda d: hooked(d, ca, cb, 16, cg)),
+        ("hook a @ b c128 nu=20 (K5 + 2 K2)",
+         lambda d: hooked(d, ca, cb, 20)),
+        ("hook bmm f64 nu=16",
+         lambda d: hooked(d, np.stack([a[:96], a[96:192]]),
+                          np.stack([b[:, :64], b[:, 64:128]]), 16)),
+        ("hook nn.Linear x2 f32 nu=8 forward+backward", linear_step),
+    ]
+    for label, fn in cases:
+        # "auto" picks "f64" on the CPU and "ff" on the card: each CPU call
+        # here runs "ff" as the card does
+        t0 = time.perf_counter()
+        got = fn("cuda")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with cpu_epilogue_ff():
+            ref = fn("cpu")
+        t2 = time.perf_counter()
+        assert_bits_equal(got, ref, f"card vs cpu {label}")
+        log(f"  ok  card vs cpu {label}  card {t1 - t0:.2f}s cpu "
+            f"{t2 - t1:.2f}s")
+    return len(cases)
+
+
+# ---------------------------------------------------------------------------
 # phase 5: the card against the package's own CPU path
 # ---------------------------------------------------------------------------
 
@@ -2391,6 +2931,17 @@ def main():
         f"{CASES}")
     accurate_runs = accurate_paths(a64, b64, A, B)
     log_phase("phase 4 (accurate paths, syrk, gemm_batched)")
+    # the entry points over those kernels, each through the call a user makes
+    precomputed_paths(a64, b64, card)
+    log_phase("phase 4 (precomputed operands)")
+    blocked_paths(a64, b64, card)
+    log_phase("phase 4 (striped path)")
+    phases_paths(a64, b64, card)
+    log_phase("phase 4 (gemm_with_phases)")
+    compat_paths(a64, b64, card)
+    log_phase("phase 4 (compat)")
+    interposer_paths(a64, b64, A, B, card)
+    log_phase("phase 4 (interposer)")
 
     # phase 5: the card against the CPU path, bit for bit
     n_cpu = card_vs_cpu(rng)
@@ -2398,6 +2949,8 @@ def main():
     n_cpu += fp8_card_vs_cpu(frng)
     # the accurate-mode cases added with it, on a stream of their own
     n_cpu += accurate_card_vs_cpu(np.random.default_rng(SEED + 9))
+    # and the entry points', on another (SEED + 10 seeds K3's ragged cases)
+    n_cpu += entry_card_vs_cpu(np.random.default_rng(SEED + 11))
     log(f"card vs cpu: {n_cpu} cases bit-equal")
     log_phase("phase 5 (card vs cpu)")
 
@@ -2583,6 +3136,12 @@ def main():
                 and accurate_runs[name][0].get(key)}
         if runs:
             entry["accurate_launches"] = runs
+        # and in the entry-point paths of its dtype that run it
+        runs = {name: counts[key] for name, (dtag, counts) in
+                ENTRY_RUNS.items() if dtag == tag.rstrip("]")
+                and counts.get(key)}
+        if runs:
+            entry["entry_point_launches"] = runs
     log(card)
     log(json.dumps({"kernels": kern}))
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,9 @@
 """Ozaki-scheme-II GEMM emulation in PyTorch: shifts (fast, robust or
 accurate mode) -> residue planes -> exact low-precision products -> mod + CRT
-+ descale -> alpha/beta epilogue; with syrk (one encode serves both sides)
-and gemm_batched. Complex operands go to complex_gemm (the 3M scheme).
++ descale -> alpha/beta epilogue; with syrk (one encode serves both sides),
+gemm_batched, precomputed operands (precompute, gemm_quantized), the
+memory-bounded striped path behind gemm, and gemm_with_phases. Complex
+operands go to complex_gemm (the 3M scheme).
 
 The counterpart of gemmul8_tpu/core.py. INT8 backend: one int8 plane and one
 exact int8 product per modulus. FP8 backend (fp8.py): three e4m3 planes per
@@ -15,7 +17,7 @@ the CPU.
 Each `x + y*z` that XLA:CPU contracts to an FMA under jit is written as
 torch.addcmul, which computes the fused result, so the "f64" epilogue and the
 alpha/beta epilogue match JAX bit for bit. XLA fuses the first product of
-`p + q` when both are products, which _dot_fma and _gemm_real follow.
+`p + q` when both are products, which _dot_fma and ab_epilogue follow.
 """
 from __future__ import annotations
 
@@ -177,6 +179,15 @@ def accurate_combine(bound, ext, num_moduli, backend):
                                                ext[1][-1], num_moduli, backend)
 
 
+def fast_shift(x, num_moduli, fastmode, backend, reduce_axis):
+    """Fast mode's shifts of x's rows (reduce_axis=1) or columns (0):
+    norm-based (scaling_fast_real.hpp), or scale-invariant for
+    fastmode="robust"."""
+    var = "invariant" if fastmode == "robust" else "reference"
+    return quantize.shift_fast(x, num_moduli, backend,
+                               reduce_axis=reduce_axis, variant=var)
+
+
 def shifts(a, b, num_moduli, fastmode, backend):
     """(sft_a, sft_b) of A's rows and B's columns. Fast mode: independent
     norm-based shifts (scaling_fast_real.hpp); fastmode="robust" takes the
@@ -186,13 +197,10 @@ def shifts(a, b, num_moduli, fastmode, backend):
         ext = accurate_extract(a, b, backend)
         return accurate_combine(accurate_estimate(ext, backend), ext,
                                 num_moduli, backend)
-    var = "invariant" if fastmode == "robust" else "reference"
-    sft_a = quantize.shift_fast(a, num_moduli, backend, reduce_axis=1,
-                                variant=var)
+    sft_a = fast_shift(a, num_moduli, fastmode, backend, 1)
     if b is None:
         return sft_a, sft_a
-    return sft_a, quantize.shift_fast(b, num_moduli, backend, reduce_axis=0,
-                                      variant=var)
+    return sft_a, fast_shift(b, num_moduli, fastmode, backend, 0)
 
 
 def encode_side(x, sft, scale_axis, num_moduli, backend):
@@ -313,15 +321,13 @@ def emulate_matmul(a: torch.Tensor, b: torch.Tensor, *, num_moduli: int,
     return out
 
 
-def _gemm_real(a, b, c, alpha, beta, *, num_moduli, fastmode, backend,
-               trans_a, trans_b, has_c, epilogue, trivial_alpha, beta_kind):
-    if trans_a:
-        a = a.T
-    if trans_b:
-        b = b.T
-    out_dtype = a.dtype
-    ab = emulate_matmul(a, b, num_moduli=num_moduli, fastmode=fastmode,
-                        backend=backend, epilogue=epilogue)
+def ab_epilogue(ab, c, alpha, beta, *, has_c, epilogue, trivial_alpha,
+                beta_kind):
+    """alpha * ab + beta * c as the JAX package's jitted _gemm_real computes
+    it (core.py:330-350), for every real entry with an emulated product ab
+    (gemm, striped or not; compat's reuse of precomputed operands), so that
+    no route changes the bits."""
+    out_dtype = ab.dtype
     # alpha == 1 / beta in {0, 1} special cases keep the common paths free of
     # extra multiplies; beta == 0 never reads C
     scalar = lambda v: torch.tensor(v, dtype=torch.float64,  # noqa: E731
@@ -344,6 +350,16 @@ def _gemm_real(a, b, c, alpha, beta, *, num_moduli, fastmode, backend,
     if out_dtype == torch.float64:
         return torch.addcmul(beta_t * c, scalar(alpha), ab)
     return torch.addcmul(scalar(alpha) * ab, beta_t, c)
+
+
+def scalar_kinds(alpha, beta) -> tuple[bool, str]:
+    """(trivial_alpha, beta_kind): python-number alpha == 1 and beta in
+    {0, 1} take the special cases of ab_epilogue; beta == 0 never reads C."""
+    trivial_alpha = isinstance(alpha, (int, float)) and alpha == 1
+    beta_kind = ("zero" if isinstance(beta, (int, float)) and beta == 0
+                 else "one" if isinstance(beta, (int, float)) and beta == 1
+                 else "general")
+    return trivial_alpha, beta_kind
 
 
 def _device(device) -> torch.device:
@@ -385,6 +401,10 @@ def gemm(a, b, *, num_moduli: int = 8, fastmode=True,
     tensor cores, three products per modulus; real operands only).
     Complex operands take ops "N"/"T"/"C" and complex alpha/beta
     (complex_gemm.gemm_complex). Bit-equal to gemmul8_tpu.gemm on the CPU.
+
+    Real shapes whose workspace (work_bytes) exceeds the card's budget are
+    striped over N (and M) by pick_blocking, bit-equal to the unstriped
+    call; m_block/n_block force stripe widths (on the CPU too).
     """
     device = _device(device)
     a = _as_tensor(a, device)
@@ -406,25 +426,32 @@ def gemm(a, b, *, num_moduli: int = 8, fastmode=True,
     if a.dtype not in _DTYPE_NAMES:
         raise TypeError(f"gemm supports float32 and float64, got {a.dtype}")
     _check_nu(a.dtype, num_moduli)
-    if m_block is not None or n_block is not None:
-        raise NotImplementedError(
-            "m_block/n_block striping is not ported yet (ROADMAP queue 6)")
     trans_a = _norm_trans(trans_a, "trans_a")
     trans_b = _norm_trans(trans_b, "trans_b")
     has_c = c is not None
-    trivial_alpha = isinstance(alpha, (int, float)) and alpha == 1
-    beta_kind = ("zero" if isinstance(beta, (int, float)) and beta == 0
-                 else "one" if isinstance(beta, (int, float)) and beta == 1
-                 else "general")
+    trivial_alpha, beta_kind = scalar_kinds(alpha, beta)
     if has_c and beta_kind != "zero":
         c = _as_tensor(c, device)
         if c.dtype != a.dtype:
             raise TypeError(f"dtype mismatch: C is {c.dtype}, A is {a.dtype}")
-    return _gemm_real(a, b, c, _real_scalar(alpha), _real_scalar(beta),
-                      num_moduli=num_moduli, fastmode=fastmode,
-                      backend=backend, trans_a=trans_a, trans_b=trans_b,
-                      has_c=has_c, epilogue=epilogue,
-                      trivial_alpha=trivial_alpha, beta_kind=beta_kind)
+    # memory-gated M/N striping (pick_blocking on the card; explicit
+    # m_block/n_block force it)
+    at = a.T if trans_a else a
+    bt = b.T if trans_b else b
+    (m_eff, k_eff), n_eff = at.shape, bt.shape[1]
+    if m_block is None and n_block is None and k_eff > 0:
+        m_block, n_block = pick_blocking(m_eff, n_eff, k_eff, num_moduli,
+                                         a.dtype, backend, device=device)
+    mode = dict(num_moduli=num_moduli, fastmode=fastmode, backend=backend,
+                epilogue=epilogue)
+    if (m_block is not None or n_block is not None) and k_eff > 0:
+        ab = emulate_matmul_blocked(at, bt, n_block=n_block or n_eff,
+                                    m_block=m_block, **mode)
+    else:
+        ab = emulate_matmul(at, bt, **mode)
+    return ab_epilogue(ab, c, _real_scalar(alpha), _real_scalar(beta),
+                       has_c=has_c, epilogue=epilogue,
+                       trivial_alpha=trivial_alpha, beta_kind=beta_kind)
 
 
 def matmul(a, b, **kw) -> torch.Tensor:
@@ -546,3 +573,428 @@ def syrk(a, *, trans: bool = False, num_moduli: int = 8, fastmode="robust",
         out = out + (c if isinstance(beta, (int, float)) and beta == 1
                      else scalar(beta) * c)
     return out
+
+
+# ---------------------------------------------------------------------------
+# memory-bounded M/N-striped path (big single-card shapes)
+# ---------------------------------------------------------------------------
+
+def _is_complex(dtype) -> bool:
+    if isinstance(dtype, torch.dtype):
+        return dtype.is_complex
+    return np.dtype(dtype).kind == "c"
+
+
+def plane_bytes(rows: int, cols: int, num_moduli: int, dtype=torch.float64,
+                backend: str = tables.Backend.INT8) -> int:
+    """work_bytes' count of one operand's residue planes: num_moduli planes
+    (times the 3M lanes on complex) of rows x cols, one byte an element on
+    INT8 and six on FP8."""
+    lanes = 3 if _is_complex(dtype) else 1
+    plane_b = 6 if backend == tables.Backend.FP8 else 1
+    return num_moduli * lanes * rows * cols * plane_b
+
+
+def work_bytes(m: int, n: int, k: int, num_moduli: int,
+               dtype=torch.float64, backend: str = tables.Backend.INT8) -> int:
+    """Planning estimate of one emulated GEMM's peak temporary memory in
+    bytes, the JAX package's formula (the analog of gemmul8::workSize,
+    gemmul8_real.hpp:8-47): A and B residue planes + C_hi + C_mid + shift
+    vectors. FP8 counts 3 two-byte planes and 3 f32 products a modulus, as
+    the JAX package's bf16 planes take (the port's e4m3 stack takes half
+    the plane bytes); complex counts the 3M lanes. `dtype`: a torch dtype,
+    numpy dtype or name."""
+    lanes = 3 if _is_complex(dtype) else 1
+    prod = 3 if backend == tables.Backend.FP8 else 1
+    mid_b = 2 if backend == tables.Backend.FP8 else 1
+    planes_a = plane_bytes(m, k, num_moduli, dtype, backend)
+    planes_b = plane_bytes(k, n, num_moduli, dtype, backend)
+    c_hi = num_moduli * lanes * prod * m * n * 4
+    c_mid = num_moduli * (2 if lanes == 3 else 1) * m * n * mid_b
+    return planes_a + planes_b + c_hi + c_mid + 4 * (m + n)
+
+
+@functools.lru_cache(maxsize=None)
+def _total_memory(index: int) -> int:
+    return torch.cuda.get_device_properties(index).total_memory
+
+
+def device_budget_bytes(device) -> int:
+    """The bytes one call on a CUDA device may plan for: three quarters of
+    the device's total memory less what PyTorch's allocator has allocated.
+    Blocks the caching allocator holds reserved but unallocated count as
+    available, since the next allocation reuses them (the free bytes of
+    torch.cuda.mem_get_info count them as used); memory held by other
+    processes on the same device is not seen. The quarter left covers what
+    work_bytes does not count: the output, the operands' padded copies, the
+    shifts' temporaries and the CUDA context. One allocator query a call
+    (the total is read once per device)."""
+    device = torch.device(device)
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    stats = torch.cuda.memory_stats_as_nested_dict(index)
+    allocated = stats["allocated_bytes"]["all"]["current"] if stats else 0
+    return (_total_memory(index) - allocated) * 3 // 4
+
+
+def pick_blocking(m: int, n: int, k: int, num_moduli: int, dtype,
+                  backend: str = tables.Backend.INT8,
+                  budget_bytes: Optional[int] = None, *, device="cuda"):
+    """(m_block, n_block), or (None, None) for no striping: the reference's
+    stripe widths (8192 halving to 1024; matmult.hpp:68-75) so that one
+    stripe's work_bytes fits the budget. The budget: budget_bytes, else
+    GEMMUL8_HBM_BUDGET_GB (GiB), else device_budget_bytes on a CUDA device;
+    on the CPU, unbounded."""
+    import os
+    if budget_bytes is None:
+        env = os.environ.get("GEMMUL8_HBM_BUDGET_GB")
+        if env is not None:
+            budget_bytes = int(float(env) * (1 << 30))
+        elif torch.device(device).type == "cpu":
+            return None, None
+        else:
+            budget_bytes = device_budget_bytes(torch.device(device))
+    if work_bytes(m, n, k, num_moduli, dtype, backend) <= budget_bytes:
+        return None, None
+    for m_blk in (m, 8192, 4096, 2048, 1024):
+        if m_blk > m:
+            continue
+        for n_blk in (8192, 4096, 2048, 1024):
+            if n_blk > n:
+                continue
+            if work_bytes(min(m, m_blk), min(n, n_blk), k, num_moduli,
+                          dtype, backend) <= budget_bytes:
+                return (None if m_blk == m else m_blk), n_blk
+    return 1024, 1024
+
+
+def _stripe_operand(x, sft, scale_axis, num_moduli, backend):
+    """One stripe's planes and shifts, padded to multiples of 128 on the card
+    as emulate_matmul pads (zero rows or columns take shift 0)."""
+    if x.device.type != "cpu":
+        x = _pad128(x, (0, 1))
+        sft = torch.nn.functional.pad(sft, (0, x.shape[scale_axis]
+                                            - sft.shape[0]))
+    x = x.contiguous()
+    return encode_side(x, sft, scale_axis, num_moduli, backend), sft
+
+
+def emulate_matmul_blocked(a: torch.Tensor, b: torch.Tensor, *,
+                           num_moduli: int, fastmode=True,
+                           backend: str = tables.Backend.INT8,
+                           epilogue: str = "auto", n_block: int = 8192,
+                           m_block: Optional[int] = None) -> torch.Tensor:
+    """Emulated a @ b in stripes of n_block columns (and m_block rows), each
+    written into one preallocated output: peak temporary memory is about
+    work_bytes(m_block, n_block, k) instead of work_bytes(m, n, k), the
+    reference's bounded-workspace N blocking (matmult.hpp:68-75, 129-175).
+
+    Bit-equal to emulate_matmul: a row's shift and planes depend on that row
+    of A only, a column's on that column of B; in accurate mode the
+    estimation product's row and column maxima are taken exactly across the
+    whole tile grid before any encode. Real operands only."""
+    m, k = a.shape
+    n = b.shape[1]
+    out = torch.empty((m, n), dtype=a.dtype, device=a.device)
+    if k == 0:
+        return out.zero_()
+    m_block = m if m_block is None else m_block
+    m_starts = range(0, m, m_block)
+    n_starts = range(0, n, n_block)
+
+    if fastmode:
+        # each stripe's shifts once; with M striped too, a B stripe's
+        # encode is redone for each M stripe (its planes are not kept)
+        sft_bs = [fast_shift(b[:, ni:ni + n_block], num_moduli, fastmode,
+                             backend, 0) for ni in n_starts]
+        for mi in m_starts:
+            a_s = a[mi:mi + m_block]
+            sft_a = fast_shift(a_s, num_moduli, fastmode, backend, 1)
+            pa, sft_a = _stripe_operand(a_s, sft_a, 0, num_moduli, backend)
+            for ni, sft_b in zip(n_starts, sft_bs):
+                pb, sft_b = _stripe_operand(b[:, ni:ni + n_block], sft_b, 1,
+                                            num_moduli, backend)
+                o = out[mi:mi + m_block, ni:ni + n_block]
+                o.copy_(_emulated_product(pa, sft_a, pb, sft_b, num_moduli,
+                                          backend, a.dtype, epilogue)
+                        [:o.shape[0], :o.shape[1]])
+        return out
+
+    # accurate mode, phase 1: the estimation product over the whole tile
+    # grid, exact row and column maxima (a row's spans every N stripe, a
+    # column's every M stripe: scaling_accu_real.hpp:142-226 at blocked
+    # scale); each stripe's extraction once
+    ext_a = [quantize.extract_ub_plane(a[mi:mi + m_block], backend,
+                                       scale_axis=0) for mi in m_starts]
+    row_max = [None] * len(m_starts)
+    col_max = [None] * len(n_starts)
+    pre_b = [None] * len(n_starts)
+    for j, ni in enumerate(n_starts):
+        ub_b, pre_b[j] = quantize.extract_ub_plane(
+            b[:, ni:ni + n_block], backend, scale_axis=1)
+        for i in range(len(m_starts)):
+            est = quantize.estimate_gemm(ext_a[i][0], ub_b, backend)
+            rm, cm = torch.amax(est, dim=1), torch.amax(est, dim=0)
+            row_max[i] = rm if row_max[i] is None else torch.maximum(
+                row_max[i], rm)
+            col_max[j] = cm if col_max[j] is None else torch.maximum(
+                col_max[j], cm)
+    # phase 2: encode and the product of each tile
+    for i, mi in enumerate(m_starts):
+        sft_a = quantize.shift_accu_from_chi(row_max[i], ext_a[i][1],
+                                             num_moduli, backend)
+        pa, sft_a = _stripe_operand(a[mi:mi + m_block], sft_a, 0, num_moduli,
+                                    backend)
+        for j, ni in enumerate(n_starts):
+            sft_b = quantize.shift_accu_from_chi(col_max[j], pre_b[j],
+                                                 num_moduli, backend)
+            pb, sft_b = _stripe_operand(b[:, ni:ni + n_block], sft_b, 1,
+                                        num_moduli, backend)
+            o = out[mi:mi + m_block, ni:ni + n_block]
+            o.copy_(_emulated_product(pa, sft_a, pb, sft_b, num_moduli,
+                                      backend, a.dtype, epilogue)
+                    [:o.shape[0], :o.shape[1]])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase timing: the unfused stages, each timed
+# ---------------------------------------------------------------------------
+
+PHASES = ("quantize", "matmul", "mod_reduce", "crt_inverse")
+
+
+class _Clock:
+    """Marks between stages: CUDA events on the device's current stream on
+    the card (device time, no synchronization between stages),
+    time.perf_counter on the CPU."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.marks = []
+
+    def mark(self) -> None:
+        if self.device.type == "cuda":
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record(torch.cuda.current_stream(self.device))
+            self.marks.append(ev)
+        else:
+            import time
+            self.marks.append(time.perf_counter())
+
+    def seconds(self) -> list[float]:
+        if self.device.type == "cuda":
+            self.marks[-1].synchronize()
+            return [a.elapsed_time(b) * 1e-3
+                    for a, b in zip(self.marks, self.marks[1:])]
+        return [b - a for a, b in zip(self.marks, self.marks[1:])]
+
+
+def gemm_with_phases(a, b, *, num_moduli: int = 8, fastmode=True,
+                     backend: str = tables.Backend.INT8, iters: int = 1,
+                     epilogue: str = "auto", device="cuda"):
+    """Emulated a @ b in four separately timed stages; returns (C, {phase:
+    seconds}) with the phases of PHASES, averaged over `iters` runs after a
+    warm-up: the reference's timer vector {scaling, low-precision GEMM,
+    conv_hi2mid, inverse scaling} (gemmul8_real.hpp:67-68, 122-204).
+
+    The stages are the unfused ones: quantize = shifts + encode (K1, or K6
+    on FP8); matmul = the residue products (K-chunked residue sums past the
+    exact bound); mod_reduce = core.mod_reduce (FP8: the reassembly of each
+    modulus' three products), plain torch; crt_inverse = with the "ff"
+    epilogue (the card's default) the fused epilogue kernel K2 on the
+    reduced residues (int8, or on FP8 the int16 residues widened to int32,
+    since K2 takes no int16 and K3 reads the unreduced products), else
+    reconstruct_scale. C equals gemm's bits. Times come from CUDA events on
+    the card, time.perf_counter on the CPU; gemm itself never syncs."""
+    device = _device(device)
+    a = _as_tensor(a, device)
+    b = _as_tensor(b, device)
+    if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
+        raise ValueError(f"gemm_with_phases expects (m, k) and (k, n) "
+                         f"operands, got {tuple(a.shape)}, {tuple(b.shape)}")
+    if a.dtype != b.dtype or a.dtype not in _DTYPE_NAMES:
+        raise TypeError(f"gemm_with_phases supports float32 and float64 "
+                        f"operands of one dtype, got {a.dtype}, {b.dtype}")
+    if backend not in (tables.Backend.INT8, tables.Backend.FP8):
+        raise ValueError(f"backend must be 'INT8' or 'FP8', got {backend!r}")
+    _check_nu(a.dtype, num_moduli)
+    if iters < 1:
+        raise ValueError(f"iters must be >= 1, got {iters}")
+    out_dtype, (m, k), n = a.dtype, a.shape, b.shape[1]
+    if device.type != "cpu":
+        a = _pad128(a, (0, 1))
+        b = _pad128(b, (0, 1))
+    a, b = a.contiguous(), b.contiguous()
+    is_fp8 = backend == tables.Backend.FP8
+    chunked = k > (fp8.K_CHUNK_FP8 if is_fp8 else K_CHUNK)
+    ff_epilogue = resolve_epilogue(epilogue, device) == "ff"
+
+    def products(pa, pb):
+        if is_fp8:
+            return (fp8._chunked_residue_acc(pa, pb, num_moduli) if chunked
+                    else fp8.residue_matmul_fp8(pa, pb))
+        return (_chunked_residue_acc(pa, pb, num_moduli, backend) if chunked
+                else residue_matmul(pa, pb))
+
+    def reduce(c_hi):
+        if is_fp8 and not chunked:
+            return fp8._reassemble(c_hi.to(torch.int32),
+                                   num_moduli).to(torch.int16)
+        return mod_reduce(c_hi, num_moduli, backend)
+
+    def crt_inverse(c_mid, sft_a, sft_b):
+        if ff_epilogue:
+            return kernels.fused_epilogue(
+                c_mid.to(torch.int32) if is_fp8 else c_mid, sft_a, sft_b,
+                num_moduli, backend, out_dtype)
+        return reconstruct_scale(c_mid, sft_a, sft_b, num_moduli, backend,
+                                 out_dtype, epilogue)
+
+    totals = dict.fromkeys(PHASES, 0.0)
+    for it in range(iters + 1):                 # run 0 warms up
+        clock = _Clock(device)
+        clock.mark()
+        pa, sft_a, pb, sft_b = _quantize_operands(a, b, num_moduli, fastmode,
+                                                  backend)
+        clock.mark()
+        c_hi = products(pa, pb)
+        clock.mark()
+        c_mid = reduce(c_hi)
+        clock.mark()
+        out = crt_inverse(c_mid, sft_a, sft_b)
+        clock.mark()
+        if it:
+            for name, t in zip(PHASES, clock.seconds()):
+                totals[name] += t
+        del pa, pb, c_hi, c_mid
+    return out[:m, :n], {p: t / iters for p, t in totals.items()}
+
+
+# ---------------------------------------------------------------------------
+# precomputed operands: the skip-scal analog
+# ---------------------------------------------------------------------------
+
+_SIDES = {"A": 0, "B": 1}
+
+
+class QuantizedOperand:
+    """One operand's residue planes and shifts, computed once (fast-mode
+    shifts) and reused across GEMMs with the other side varying: the
+    reference's enable_skip_scal / workA/workB reuse (README.md:216-256,
+    hook.cu:87-107).
+
+    planes: A's (nu, m, k) or B's (nu, k, n) int8 planes, or on FP8 the
+    (3nu, ...) e4m3 stack (on the card B's a view of k-contiguous storage),
+    padded to multiples of 128 on the card; sft: int32 shifts; side: "A"
+    (row-scaled) or "B" (column-scaled); dims: the operand's shape before
+    padding."""
+
+    def __init__(self, planes, sft, side, num_moduli, fastmode, backend,
+                 dims):
+        self.planes = planes
+        self.sft = sft
+        self.side = side
+        self.num_moduli = num_moduli
+        self.fastmode = fastmode
+        self.backend = backend
+        self.dims = tuple(dims)
+
+
+def precompute(x, side: str, *, num_moduli: int = 8,
+               backend: str = tables.Backend.INT8,
+               device="cuda") -> QuantizedOperand:
+    """Quantize one operand once (fast-mode shifts, the JAX package's
+    "reference" variant) for reuse: side="A" scales the rows of an (m, k)
+    operand, side="B" the columns of a (k, n) one. On the card the operand
+    is zero-padded to multiples of 128 as emulate_matmul pads it (zero rows
+    and columns encode to zero planes with shift 0), and gemm_quantized
+    cuts the output back to size."""
+    if side not in _SIDES:
+        raise ValueError(f"side must be 'A' or 'B', got {side!r}")
+    if backend not in (tables.Backend.INT8, tables.Backend.FP8):
+        raise ValueError(f"backend must be 'INT8' or 'FP8', got {backend!r}")
+    device = _device(device)
+    x = _as_tensor(x, device)
+    if x.dim() != 2:
+        raise ValueError(f"precompute expects a 2-D operand, got "
+                         f"ndim={x.dim()}")
+    if x.dtype not in _DTYPE_NAMES:
+        raise TypeError(f"precompute supports float32 and float64, got "
+                        f"{x.dtype}")
+    _check_nu(x.dtype, num_moduli)
+    axis = _SIDES[side]
+    if x.shape[1 - axis] == 0:
+        raise ValueError("precompute needs k > 0 (the shifts reduce over k)")
+    dims = tuple(x.shape)
+    if device.type != "cpu":
+        x = _pad128(x, (0, 1))
+    x = x.contiguous()
+    sft = fast_shift(x, num_moduli, True, backend, 1 - axis)
+    planes = encode_side(x, sft, axis, num_moduli, backend)
+    return QuantizedOperand(planes, sft, side, num_moduli, True, backend,
+                            dims)
+
+
+def quantized_from_numpy(planes, sft, side: str, num_moduli: int,
+                         backend: str, dims, device="cuda") -> QuantizedOperand:
+    """A QuantizedOperand from a JAX one's arrays (np.asarray of its planes
+    and sft), INT8 only: JAX's (nu, m, k) or (nu, k, n) int8 planes go to
+    `device`, zero-padded to multiples of 128 on the card with B's planes
+    k-contiguous, the layout precompute gives."""
+    if backend != tables.Backend.INT8:
+        raise ValueError("quantized_from_numpy takes INT8 planes; the FP8 "
+                         "planes' layouts differ (the JAX package's CPU "
+                         "planes are (nu, 3, m, k) bf16)")
+    if side not in _SIDES:
+        raise ValueError(f"side must be 'A' or 'B', got {side!r}")
+    device = _device(device)
+    planes = torch.from_numpy(np.array(planes, np.int8))
+    sft = torch.from_numpy(np.array(sft, np.int32))
+    if planes.shape != (num_moduli, *dims):
+        raise ValueError(f"planes of shape {tuple(planes.shape)} do not "
+                         f"hold {num_moduli} planes of {tuple(dims)}")
+    if device.type != "cpu":
+        axis = _SIDES[side]
+        planes = _pad128(planes, (1, 2))
+        sft = torch.nn.functional.pad(sft, (0, planes.shape[1 + axis]
+                                            - sft.shape[0]))
+        buf = kernels.plane_buffer((num_moduli,), *planes.shape[1:], axis,
+                                   device)
+        planes = buf.copy_(planes)
+    return QuantizedOperand(planes.to(device), sft.to(device), side,
+                            num_moduli, True, backend, dims)
+
+
+def gemm_quantized(qa, qb, out_dtype=torch.float64,
+                   epilogue: str = "auto") -> torch.Tensor:
+    """GEMM from precomputed operands on their device. Either side may
+    instead be a raw operand, quantized on the fly with the other side's
+    num_moduli and backend: the reference's one-sided skip_scalA /
+    skip_scalB reuse (gemmul8_real.hpp:123-139). A raw operand on both
+    sides raises TypeError: call gemm."""
+    if (not isinstance(qa, QuantizedOperand)
+            and not isinstance(qb, QuantizedOperand)):
+        raise TypeError("at least one side must be a precomputed "
+                        "QuantizedOperand; use gemm() otherwise")
+    ref = qa if isinstance(qa, QuantizedOperand) else qb
+    kw = dict(num_moduli=ref.num_moduli, backend=ref.backend,
+              device=ref.planes.device)
+    if not isinstance(qa, QuantizedOperand):
+        qa = precompute(qa, "A", **kw)
+    if not isinstance(qb, QuantizedOperand):
+        qb = precompute(qb, "B", **kw)
+    if qa.side != "A" or qb.side != "B":
+        raise ValueError(f"gemm_quantized takes side A then side B, got "
+                         f"{qa.side} and {qb.side}")
+    if (qa.num_moduli, qa.backend) != (qb.num_moduli, qb.backend):
+        raise ValueError(
+            f"operands precomputed with different settings: "
+            f"{(qa.num_moduli, qa.backend)} and {(qb.num_moduli, qb.backend)}")
+    if qa.dims[1] != qb.dims[0] or qa.planes.device != qb.planes.device:
+        raise ValueError(f"cannot multiply {qa.dims} on {qa.planes.device} "
+                         f"by {qb.dims} on {qb.planes.device}")
+    m, n = qa.dims[0], qb.dims[1]
+    out = _emulated_product(qa.planes, qa.sft, qb.planes, qb.sft,
+                            qa.num_moduli, qa.backend, out_dtype, epilogue)
+    return out if out.shape == (m, n) else out[:m, :n]

@@ -86,7 +86,8 @@ def test_argument_errors():
 
 def test_unported_parts_raise_not_implemented():
     """What is not ported raises, naming its ROADMAP queue; accurate mode
-    (queue 5), once refused here, now returns gemmul8_tpu's bits."""
+    (queue 5) and striping (queue 6), once refused here, now return
+    gemmul8_tpu's bits."""
     a = np.ones((4, 8))
     b = np.ones((8, 3))
     ca, cb = a.astype(np.complex128), b.astype(np.complex128)
@@ -100,9 +101,12 @@ def test_unported_parts_raise_not_implemented():
     ref = np.asarray(g8.gemm(jnp.asarray(a), jnp.asarray(b), fastmode=False))
     got = gt.gemm(a, b, fastmode=False, device="cpu").numpy()
     np.testing.assert_array_equal(got.view(np.uint8), ref.view(np.uint8))
+    # m_block/n_block (queue 6), once refused here, now stripe the product
+    # with the unstriped call's bits
+    ref = gt.gemm(a, b, device="cpu").numpy()
     for kw in ({"m_block": 2}, {"n_block": 2}):
-        with pytest.raises(NotImplementedError, match="queue 6"):
-            gt.gemm(a, b, device="cpu", **kw)
+        got = gt.gemm(a, b, device="cpu", **kw).numpy()
+        np.testing.assert_array_equal(got.view(np.uint8), ref.view(np.uint8))
 
 
 def test_default_device_is_cuda_never_a_hidden_cpu():
