@@ -8,10 +8,14 @@ at the same width: precomputed operands (precompute, gemm_quantized), the
 striped path on a 32768 x 32768 x 8192 DGEMM that does not fit
 unstriped, gemm_with_phases, the compat layer on column-major CUDA
 buffers, and the interposer (a @ b, ZGEMM, an MLP's forward and backward,
-a worker thread) -- checks their launch counts, their accuracy against an
-extended-precision oracle and their bits against gemm's and the package's
-own CPU path, checks that the FP8 tensor-core products are exact, and
-times the kernels, the int8 and FP8 products and the whole calls. It also
+a worker thread), complex FP8 (ZGEMM nu=14 and 18, CGEMM nu=7, accurate
+ZGEMM nu=14: the lane encoder, the FP8 products a lane at a time, the
+reassembly and the complex epilogues on the FP8 plan) and compare's
+Ozaki-I baseline at 4096^3 -- checks their launch counts, their accuracy
+against an extended-precision oracle and their bits against gemm's and the
+package's own CPU path (blas3 and compare included), checks that the FP8
+tensor-core products are exact, and times the kernels, the int8 and FP8
+products and the whole calls. It also
 holds the probe tools' kernels (the hand-written int8 product, both
 schedules, and the tensor-core CRT epilogue) against their plain versions and
 the DGEMM path's own products and epilogue, and runs the probes' tables
@@ -115,9 +119,10 @@ TRANSPOSE_KEY = "transpose_i8[4096^2 nu=16]"
 PRODUCT_COUNTS = ("matmul_i8_kloop", "matmul_i8_astat", "matmul_i8_wgmma_kloop",
                   "matmul_i8_wgmma_astat", "transpose_i8")
 MXU_KEY = "fused_epilogue_mxu[pair nu=16]"
-# the sources of the kernels redesigned last (K6, K8, K3): phase 2 sums up
-# their registers and spills
+# the sources of the kernels redesigned last (K6, K8, K3) and of the complex
+# FP8 kernels (K6c, K3r): phase 2 sums up their registers and spills
 REDESIGNED = ("encode_fp8.cu", "epilogue_mxu.cu", "epilogue_fp8.cu")
+COMPLEX_FP8_SOURCES = ("encode_lanes_fp8.cu", "reassemble_fp8.cu")
 PROBE_NU, PROBE_M = 16, 4096          # the product probes' own size
 T0 = time.perf_counter()
 
@@ -188,37 +193,54 @@ def _flat(x):
     return x.reshape(-1, x.shape[-1])
 
 
+def max_abs_err(got, ref):
+    """The largest |got - ref| over the elements finite in both."""
+    err = 0.0
+    # in row blocks, so that the f64 copies of full-size planes stay small
+    for g, r in zip(_flat(got).split(2048), _flat(ref.to(got.device))
+                    .split(2048)):
+        g, r = g.double(), r.double()
+        fin = torch.isfinite(g) & torch.isfinite(r)
+        if bool(fin.any()):
+            err = max(err, float((g - r).abs()[fin].max()))
+    return err
+
+
 def compare(key, got, ref, what, count=True):
     """Hold a kernel's output (a tensor or a tuple of them) against its plain
-    version, bit for bit."""
+    version, bit for bit; MAX_ABS_ERR[key] keeps the largest |kernel -
+    plain| over finite elements, 0 where the bits are equal (a difference
+    raises with its size)."""
     torch.cuda.synchronize()
     pairs = list(zip(got, ref)) if isinstance(got, tuple) else [(got, ref)]
-    err = 0.0
     for g0, r0 in pairs:
-        # in row blocks, so that the f64 copies of full-size planes stay small
-        for g, r in zip(_flat(g0).split(2048), _flat(r0).split(2048)):
-            g, r = g.double(), r.double()
-            fin = torch.isfinite(g) & torch.isfinite(r)
-            if bool(fin.any()):
-                err = max(err, float((g - r).abs()[fin].max()))
-        assert_bits_equal(g0, r0, what)
-    MAX_ABS_ERR[key] = max(MAX_ABS_ERR.get(key, 0.0), err)
+        if not bits_equal(g0, r0, what):
+            assert_bits_equal(g0, r0, what,
+                              f" (max abs error {max_abs_err(g0, r0)!r})")
+    MAX_ABS_ERR.setdefault(key, 0.0)
     if count:
         CASES[key] = CASES.get(key, 0) + 1
 
 
-def assert_bits_equal(got, ref, what, extra=""):
-    got, ref = got.cpu(), ref.cpu()
+def bits_equal(got, ref, what):
+    """Whether got and ref (of one shape and dtype) hold the same bits,
+    compared on got's device."""
     check(got.shape == ref.shape and got.dtype == ref.dtype,
           f"{what}: {got.shape}/{got.dtype} vs {ref.shape}/{ref.dtype}")
+    ref = ref.to(got.device)
     if got.is_complex():
         got, ref = torch.view_as_real(got), torch.view_as_real(ref)
     if got.is_floating_point():
-        eq = torch.equal(got.contiguous().view(torch.uint8),
-                         ref.contiguous().view(torch.uint8))
-    else:
-        eq = torch.equal(got, ref)
-    if not eq:
+        return torch.equal(got.contiguous().view(torch.uint8),
+                           ref.contiguous().view(torch.uint8))
+    return torch.equal(got, ref)
+
+
+def assert_bits_equal(got, ref, what, extra=""):
+    if not bits_equal(got, ref, what):
+        got, ref = got.cpu(), ref.cpu()
+        if got.is_complex():
+            got, ref = torch.view_as_real(got), torch.view_as_real(ref)
         if got.dtype == torch.float8_e4m3fn:          # compare the bytes
             got, ref = got.view(torch.uint8), ref.view(torch.uint8)
         idx, g, r, n = first_diff(got, ref)
@@ -289,12 +311,20 @@ def log_build_report(kernels):
             for k, r, st, ld in rows))
     check("C7508" not in kernels.BUILD_LOG["matmul_i8_wgmma.cu"],
           "matmul_i8_wgmma.cu: setmaxnreg ignored (C7508)")
-    for name in REDESIGNED:
+    for name in REDESIGNED + COMPLEX_FP8_SOURCES:
         rows = kernels.ptxas_report(kernels.BUILD_LOG[name])
-        log(f"ptxas {name} (redesigned): {len(rows)} kernels, registers "
+        log(f"ptxas {name} ("
+            f"{'redesigned' if name in REDESIGNED else 'complex FP8'}): "
+            f"{len(rows)} kernels, registers "
             f"{min(r for _, r, _, _ in rows)}-{max(r for _, r, _, _ in rows)}, "
             f"spill bytes stored/loaded {sum(st for *_, st, _ in rows)}/"
             f"{sum(ld for *_, ld in rows)}")
+    # K4 and K5 on the FP8 plan: the same instantiations as on the INT8 one
+    # (K4 per limb count: the FP8 plan takes L 3-7 for f64 out, 3-5 for f32
+    # out; K5 per output type, int32 new for FP8)
+    for k, r, st, ld in kernels.ptxas_report(kernels.BUILD_LOG["complex.cu"]):
+        log(f"ptxas complex.cu on the FP8 plan: {k} {r} registers, spills "
+            f"{st}/{ld} bytes")
 
 
 # ---------------------------------------------------------------------------
@@ -1001,6 +1031,172 @@ def mxu_ragged_cases(rng):
     log("ragged K8 cases: both routes taken")
 
 
+# ---------------------------------------------------------------------------
+# complex FP8: the lane encoder (K6c), the reassembly (K3r), and K4, K5 and
+# K2 on the FP8 plan
+# ---------------------------------------------------------------------------
+
+# the complex FP8 kernel entries' keys: K6c per input dtype, K3r, K4 per
+# output, K5 and K2 on K5's int32 output (the nu > 16 split)
+LANES_KEY = {torch.float64: "encode_lanes_fp8[c128]",
+             torch.float32: "encode_lanes_fp8[c64]"}
+REASSEMBLE_KEY = "reassemble_fp8"
+K4_FP8_KEY = {torch.complex128: "fused_epilogue_complex[c128 FP8]",
+              torch.complex64: "fused_epilogue_complex[c64 FP8]"}
+K5_FP8_KEY = "fused_recombine_3m[c128 FP8 nu=18]"
+K2_FP8_SPLIT_KEY = "fused_epilogue[c128 FP8 nu=18 split]"
+
+
+def lanes_out_buffer(nu, rows, cols, axis):
+    """An empty (3, 3nu, rows, cols) e4m3 buffer in encode_lanes_fp8's layout
+    that starts one byte into a larger buffer (off 16-byte alignment)."""
+    numel = 9 * nu * rows * cols
+    buf = torch.empty(numel + 16, dtype=torch.float8_e4m3fn, device="cuda")
+    base = buf[1:1 + numel]
+    if axis == 0:
+        return base.view(3, 3 * nu, rows, cols)
+    return base.view(3, 3 * nu, cols, rows).transpose(-1, -2)
+
+
+def fp8_lane_residues(rng, nu, m, n, k, dt=np.float64):
+    """The (3nu, m, n) int32 lane residues of a random complex FP8 product,
+    as the complex path makes them (K6c, the 3nu products a lane, K3r),
+    with its shifts."""
+    from gemmul8_tpu_torch import complex_gemm as cg
+    a = [torch.from_numpy(phi_matrix(rng, m, k, 0.5, dt)).cuda()
+         for _ in range(2)]
+    b = [torch.from_numpy(phi_matrix(rng, k, n, 0.5, dt)).cuda()
+         for _ in range(2)]
+    sa, sb = cg.shifts(a, b, nu, True, "FP8")
+    pa = cg._quantize_complex(*a, sa, 0, nu, "FP8", False)
+    pb = cg._quantize_complex(*b, sb, 1, nu, "FP8", True)
+    return cg._fp8_lane_residues(pa, pb, nu), sa, sb
+
+
+def fp8_lane_chunk_sums(rng, nu, m, n):
+    """(3nu, m, n) int32 K-chunked FP8 lane residues: three per-chunk
+    wrapped residues summed, each lane."""
+    return torch.cat([fp8_chunk_sums(rng, nu, m, n) for _ in range(3)])
+
+
+def complex_fp8_cases(rng):
+    """The complex FP8 kernels against their plain versions at small shapes:
+    K6c on FP8_RAGGED for both sides, f64 at nu 2, 6, 7, 14, 20 and f32 at
+    nu 2, 6, 7, 13, conj on and off, on random operands and the edge corpus
+    (once more with Re and Im, and with out, off 16-byte alignment), taking
+    both its routes; K3r storing and accumulating at nu 2, 7, 14, 20 on
+    RAGGED (and misaligned) stacks of any integers |C| <= 2^24, and on the
+    lane products of random complex operands; K4 (nu <= 16) and K5 + 2 x K2
+    on the FP8 plan (K5 writing int32 residues) on any int32, on K-chunked
+    lane residues and on the lane residues of random operands, at nu 2, 6,
+    7, 13, 14, 16, 17, 18, 20; K5 + 2 x K2 equals K4 where both run."""
+    from gemmul8_tpu_torch import complex_gemm as cg, fp8, kernels
+    routes = {}
+    for dt, nus in ((np.float64, (2, 6, 7, 14, 20)),
+                    (np.float32, (2, 6, 7, 13))):
+        for nu in nus:
+            for axis in (0, 1):
+                shapes = FP8_RAGGED[axis]
+                cases = [(shape, False, False) for shape in shapes] + [
+                    (shapes[4], True, False), (shapes[5], False, True),
+                    (shapes[6], True, True)]
+                xs = [(phi_matrix(rng, *shape, 2.0, dt),
+                       phi_matrix(rng, *shape, 0.5, dt), mx, mo)
+                      for shape, mx, mo in cases]
+                e = edge_corpus(dt)
+                xs.append((e, e[::-1].copy(), False, False))
+                for re_np, im_np, mx, mo in xs:
+                    re, im = on_card(re_np, mx), on_card(im_np, mx)
+                    sft = cg._shift_complex_fast(re, im, nu, "FP8", 1 - axis)
+                    for conj in (False, True):
+                        out = (lanes_out_buffer(nu, *re.shape, axis) if mo
+                               else None)
+                        got = kernels.encode_lanes_fp8(re, im, sft, axis, nu,
+                                                       conj, out)
+                        routes.setdefault(f"K6c axis {axis}", set()).add(
+                            kernels._encode_vec(re, got, axis)
+                            and (axis == 1 or im.data_ptr() % 16 == 0))
+                        compare(LANES_KEY[re.dtype], got,
+                                kernels.encode_lanes_fp8_plain(
+                                    re, im, sft, axis, nu, conj),
+                                f"fp8 lanes {re.dtype} {tuple(re.shape)} "
+                                f"nu={nu} axis={axis} conj={conj} x "
+                                f"misaligned={mx} out misaligned={mo}")
+    for nu in (2, 7, 14, 20):
+        for m, n, misalign in [(m, n, False) for m, n in RAGGED] + [
+                (17, 264, True)]:
+            c3, c3b = (on_card(rng.integers(-2 ** 24, 2 ** 24 + 1,
+                                            (3 * nu, m, n))
+                               .astype(np.float32), misalign)
+                       for _ in range(2))
+            out = on_card(np.zeros((nu, m, n), np.int32), misalign)
+            routes.setdefault("K3r", set()).add(kernels._epilogue_vec(
+                n, kernels.EPILOGUE_COLS["reassemble_fp8"], c3, out))
+            what = f"fp8 reassembly {m}x{n} nu={nu} misaligned={misalign}"
+            first = kernels.reassemble_fp8_plain(c3, nu)
+            compare(REASSEMBLE_KEY, kernels.reassemble_fp8(c3, nu, out=out),
+                    first, f"{what} store")
+            compare(REASSEMBLE_KEY, kernels.reassemble_fp8(
+                        c3b, nu, out=out, accumulate=True),
+                    first + kernels.reassemble_fp8_plain(c3b, nu),
+                    f"{what} accumulate")
+    m, n, k = 144, 208, 320             # multiples of 16: the FP8 products
+    for nu in (2, 7, 14, 20):
+        a = [torch.from_numpy(phi_matrix(rng, m, k, 0.5)).cuda()
+             for _ in range(2)]
+        b = [torch.from_numpy(phi_matrix(rng, k, n, 0.5)).cuda()
+             for _ in range(2)]
+        sa, sb = cg.shifts(a, b, nu, True, "FP8")
+        pa = cg._quantize_complex(*a, sa, 0, nu, "FP8", False)
+        pb = cg._quantize_complex(*b, sb, 1, nu, "FP8", False)
+        for lane in range(3):
+            c3 = fp8.residue_matmul_fp8(pa[lane], pb[lane])
+            compare(REASSEMBLE_KEY, kernels.reassemble_fp8(c3, nu),
+                    kernels.reassemble_fp8_plain(c3, nu),
+                    f"fp8 reassembly of lane {lane} products nu={nu}")
+    for nu in (2, 6, 7, 13, 14, 16, 17, 18, 20):
+        for source in ("random", "chunked", "lanes"):
+            if source == "lanes":
+                chi, sa, sb = fp8_lane_residues(rng, nu, m, n, k)
+            else:
+                chi = (fp8_lane_chunk_sums(rng, nu, m, n) if source ==
+                       "chunked" else on_card(rng.integers(
+                           -2 ** 31, 2 ** 31, (3 * nu, m, n)).astype(np.int32)))
+                sa, sb = (on_card(rng.integers(-40, 90, size).astype(np.int32))
+                          for size in (m, n))
+            what = f"FP8 nu={nu} {source}"
+            mids = kernels.fused_recombine_3m(chi, nu, "FP8")
+            check(mids[0].dtype == torch.int32, f"K5 FP8 output {mids[0].dtype}")
+            compare(K5_FP8_KEY, mids,
+                    kernels.fused_recombine_3m_plain(chi, nu, "FP8"),
+                    f"recombine {what}")
+            for cdt in (torch.complex64, torch.complex128):
+                real_dt = kernels.REAL_DTYPE[cdt]
+                split = tuple(kernels.fused_epilogue(x, sa, sb, nu, "FP8",
+                                                     real_dt) for x in mids)
+                compare(K2_FP8_SPLIT_KEY, split,
+                        tuple(kernels.fused_epilogue_plain(
+                            x, sa, sb, nu, "FP8", real_dt) for x in mids),
+                        f"split epilogue {what} out={real_dt}")
+                if nu > 16 or (nu > 13 and cdt == torch.complex64):
+                    continue
+                got = kernels.fused_epilogue_complex(chi, sa, sb, nu, "FP8",
+                                                     cdt)
+                compare(K4_FP8_KEY[cdt], got,
+                        kernels.fused_epilogue_complex_plain(
+                            chi, sa, sb, nu, "FP8", cdt),
+                        f"complex epilogue {what}")
+                compare(K4_FP8_KEY[cdt], got, torch.complex(*split),
+                        f"K5 + 2 x K2 vs K4 {what} out={cdt}", count=False)
+                compare(K4_FP8_KEY[cdt], kernels.fused_epilogue_complex(
+                            chi, sa, sb, nu, "FP8", real_dt),
+                        (got.real, got.imag),
+                        f"planar vs complex output {what}", count=False)
+    for key, seen in routes.items():
+        check(seen == {True, False}, f"{key}: routes taken {seen}")
+    log(f"complex FP8 kernel cases: both routes taken by {sorted(routes)}")
+
+
 # rows 0-7 of A @ B per dtype of the real paths: (longdouble oracle, |A||B|,
 # torch.matmul's max and median relative error)
 ORACLES: dict = {}
@@ -1099,7 +1295,7 @@ def compare_rows(key, got, plain, what, rows=1024):
     for r0 in range(0, m, rows):
         r1 = min(r0 + rows, m)
         g = tuple(x[..., r0:r1, :] for x in got) if isinstance(got, tuple) \
-            else got[r0:r1]
+            else got[..., r0:r1, :]
         compare(key, g, plain(r0, r1), f"{what} rows {r0}:{r1}", count=False)
         torch.cuda.empty_cache()
     CASES[key] = CASES.get(key, 0) + 1
@@ -2306,6 +2502,415 @@ def complex_card_vs_cpu(rng):
 
 
 # ---------------------------------------------------------------------------
+# complex FP8 at full width, compare and blas3: the kernels at the paths'
+# own inputs, the paths with their launch counts and accuracy, the card
+# against the CPU, and the times
+# ---------------------------------------------------------------------------
+
+# the complex FP8 paths at 8192^3: name, dtype, nu, fastmode, and the
+# launches of one gt.gemm call in CFP8_COUNT_KEYS' order (nu=14 and nu=7:
+# log2P 64.33 and 33.02, the FP8 counts matched to INT8 nu=16 and 8, as for
+# the real paths; nu=18 the K5 + 2 x K2 split; accurate mode's estimates,
+# 4 int8 products a lane, counted apart)
+CFP8_COUNT_KEYS = ("encode_lanes_fp8", "_scaled_mm", "reassemble_fp8",
+                   "fused_epilogue_complex", "fused_recombine_3m",
+                   "fused_epilogue", "encode_planes", "encode_planes_fp8",
+                   "fused_epilogue_fp8", "_int_mm", "estimate_int_mm")
+CFP8_PATHS = (
+    ("zgemm_fp8_14", torch.complex128, 14, True,
+     (2, 126, 3, 1, 0, 0, 0, 0, 0, 0, 0)),
+    ("cgemm_fp8_7", torch.complex64, 7, True,
+     (2, 63, 3, 1, 0, 0, 0, 0, 0, 0, 0)),
+    ("zgemm_fp8_18", torch.complex128, 18, True,
+     (2, 162, 3, 0, 1, 2, 0, 0, 0, 0, 0)),
+    ("zgemm_fp8_14_accurate", torch.complex128, 14, False,
+     (2, 126, 3, 1, 0, 0, 0, 0, 0, 12, 12)),
+)
+CFP8_RUNS: dict = {}          # name -> that path's counts
+
+
+def complex_fp8_stages(nu, a, b, fastmode):
+    """The complex FP8 path's shifts and lanes as gt.gemm runs them:
+    ((Ar, Ai), (Br, Bi)), (sa, sb), (pa, pb)."""
+    from gemmul8_tpu_torch import complex_gemm as cg
+    pa_, pb_ = ((x.real.contiguous(), x.imag.contiguous()) for x in (a, b))
+    sa, sb = cg.shifts(pa_, pb_, nu, fastmode, "FP8")
+    pa = cg._quantize_complex(*pa_, sa, 0, nu, "FP8", False)
+    pb = cg._quantize_complex(*pb_, sb, 1, nu, "FP8", False)
+    return (pa_, pb_), (sa, sb), (pa, pb)
+
+
+def full_size_complex_fp8_cases(A, B):
+    """Each complex FP8 kernel on the inputs its full-width path gives it:
+    K6c on A's and B's Re and Im (their plain versions on row blocks of the
+    operands), K3r on each lane's FP8 products, and K4 (nu <= 16) or K5 and
+    K2 on K5's int32 output (nu = 18) on the path's own lane residues, for
+    each of CFP8_PATHS."""
+    from gemmul8_tpu_torch import fp8, kernels
+    for name, dt, nu, fastmode, _ in CFP8_PATHS:
+        a, b = A.to(dt), B.to(dt)
+        ((ar, ai), (br, bi)), (sa, sb), (pa, pb) = complex_fp8_stages(
+            nu, a, b, fastmode)
+        key = LANES_KEY[ar.dtype]
+        compare_rows(key, pa, lambda r0, r1: kernels.encode_lanes_fp8_plain(
+            ar[r0:r1], ai[r0:r1], sa[r0:r1], 0, nu), f"lanes of A {name}")
+        compare_rows(key, pb, lambda r0, r1: kernels.encode_lanes_fp8_plain(
+            br[r0:r1], bi[r0:r1], sb, 1, nu), f"lanes of B {name}")
+        res = torch.empty((3 * nu, FULL, FULL), dtype=torch.int32,
+                          device="cuda")
+        for lane in range(3):
+            c3 = fp8.residue_matmul_fp8(pa[lane], pb[lane])
+            got = kernels.reassemble_fp8(c3, nu,
+                                         out=res[lane * nu:(lane + 1) * nu])
+            compare_rows(REASSEMBLE_KEY, got,
+                         lambda r0, r1: kernels.reassemble_fp8_plain(
+                             c3[:, r0:r1].contiguous(), nu),
+                         f"reassembly of lane {lane} {name}")
+            del c3, got
+            torch.cuda.empty_cache()
+        del pa, pb
+        blk = lambda r0, r1: res[:, r0:r1].contiguous()  # noqa: E731
+        if nu <= 16:
+            compare_rows(K4_FP8_KEY[dt], kernels.fused_epilogue_complex(
+                             res, sa, sb, nu, "FP8", dt),
+                         lambda r0, r1: kernels.fused_epilogue_complex_plain(
+                             blk(r0, r1), sa[r0:r1], sb, nu, "FP8", dt),
+                         f"complex FP8 epilogue {name}")
+        else:
+            mids = kernels.fused_recombine_3m(res, nu, "FP8")
+            compare_rows(K5_FP8_KEY, mids,
+                         lambda r0, r1: kernels.fused_recombine_3m_plain(
+                             blk(r0, r1), nu, "FP8"),
+                         f"FP8 recombine {name}")
+            del res
+            for part, mid in zip(("Re", "Im"), mids):
+                compare_rows(K2_FP8_SPLIT_KEY, kernels.fused_epilogue(
+                                 mid, sa, sb, nu, "FP8", ar.dtype),
+                             lambda r0, r1: kernels.fused_epilogue_plain(
+                                 mid[:, r0:r1], sa[r0:r1], sb, nu, "FP8",
+                                 ar.dtype),
+                             f"FP8 split epilogue {name} {part}")
+            del mids
+        del blk
+        torch.cuda.empty_cache()
+
+
+def complex_fp8_main_paths(A, B):
+    """The complex FP8 paths through gt.gemm, each with its launch counts
+    set to 0 just before and read just after; the output's shape, dtype and
+    finiteness; rows 0-7 against the longdouble oracle of the INT8 complex
+    paths (the same operands), within the ZGEMM limit (<= 2x cuBLAS ZGEMM's
+    error) or the CGEMM one (below cuBLAS CGEMM's); and the peak memory."""
+    import gemmul8_tpu_torch as gt
+    for name, dt, nu, fastmode, want in CFP8_PATHS:
+        a, b = A.to(dt), B.to(dt)
+        torch.cuda.reset_peak_memory_stats()
+        c, counts = run_counted(lambda: gt.gemm(
+            a, b, num_moduli=nu, backend="FP8", fastmode=fastmode))
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        got = tuple(counts[k] for k in CFP8_COUNT_KEYS)
+        check(got == want, f"{name} launches {counts}, want "
+              f"{dict(zip(CFP8_COUNT_KEYS, want))}")
+        CFP8_RUNS[name] = counts
+        check(c.shape == (FULL, FULL) and c.dtype == dt
+              and bool(torch.isfinite(torch.view_as_real(c)).all()),
+              f"{name} output {c.shape} {c.dtype}")
+        ref = COMPLEX_ORACLES[("gemm", dt)]
+        err, med = complex_relerr(c[:8].cpu().numpy(), ref)
+        nerr, nmed = complex_relerr(torch.matmul(a, b)[:8].cpu().numpy(), ref)
+        log(f"accuracy {name} rows 0-7: emulated max {err:.3e} median "
+            f"{med:.3e}; torch.matmul max {nerr:.3e} median {nmed:.3e}")
+        if dt == torch.complex64:
+            check(err < nerr, f"{name} error {err} vs cuBLAS {nerr}")
+        else:
+            check(err <= 2 * nerr, f"{name} error {err} vs cuBLAS {nerr}")
+        log(f"main path {name} launches: "
+            f"{ {k: counts[k] for k in CFP8_COUNT_KEYS if counts[k]} }, "
+            f"peak memory {peak:.2f} GiB")
+        del c
+        torch.cuda.empty_cache()
+
+
+def os1_path(a64, b64, card):
+    """compare.matmul_os1_int8 (d = 8) at 4096^3 on the DGEMM operands'
+    corner, beside gt.gemm nu=16 on the same operands: launches (36 int8
+    products), max relative error on rows 0-7 against a longdouble oracle,
+    and times."""
+    import gemmul8_tpu_torch as gt
+    n = FULL // 2
+    a, b = a64[:n, :n].contiguous(), b64[:n, :n].contiguous()
+    c, counts = run_counted(lambda: gt.compare.matmul_os1_int8(a, b))
+    check(counts["_int_mm"] == 36, f"os1 int8 products {counts['_int_mm']}")
+    check(c.shape == (n, n) and c.dtype == torch.float64
+          and bool(torch.isfinite(c).all()), "os1 output")
+    a8, b_np = a[:8].cpu().numpy(), b.cpu().numpy()
+    ref = a8.astype(np.longdouble) @ b_np.astype(np.longdouble)
+    err, _ = max_median_relerr(c[:8].cpu().numpy(), ref)
+    emu = gt.gemm(a, b, num_moduli=16)
+    eerr, _ = max_median_relerr(emu[:8].cpu().numpy(), ref)
+    nerr, _ = max_median_relerr(torch.matmul(a, b)[:8].cpu().numpy(), ref)
+    t = in_turns({"os1": lambda: gt.compare.matmul_os1_int8(a, b),
+                  "gemm": lambda: gt.gemm(a, b, num_moduli=16),
+                  "matmul": lambda: torch.matmul(a, b)}, reps=3)
+    log(f"os1 int8 4096^3 d=8 rows 0-7: max relative error {err:.3e} "
+        f"(emulated DGEMM nu=16 {eerr:.3e}, torch.matmul {nerr:.3e}); "
+        f"launches {counts['_int_mm']} _int_mm")
+    log(f"times {card} | 4096^3: os1_int8_ms {t['os1'][0]:.3f}, gemm nu=16 "
+        f"{t['gemm'][0]:.3f}, torch.matmul {t['matmul'][0]:.3f}")
+    check(err < 1e-9, f"os1 error {err}")
+    del c, emu
+    torch.cuda.empty_cache()
+
+
+def complex_fp8_card_vs_cpu(rng):
+    """Complex FP8 on the card against the package's CPU path, bit for bit:
+    c128 and c64, ops N/T/C, general alpha/beta, fast, robust and accurate
+    mode at nu 7, 14 and 18, gemm_planar, gemm_batched, gemm_batched_planar,
+    compat.gemmLt and the interposer (their "auto" epilogue as the card
+    resolves it), a K-chunked shape past k = 2^16; every blas3 function on
+    INT8 and FP8; matmul_os1_int8 bit for bit and matmul_bf16x9 within its
+    stated tolerance."""
+    import gemmul8_tpu_torch as gt
+    from gemmul8_tpu_torch import compat
+    c128, c64 = np.complex128, np.complex64
+    alpha, beta = -1.25 + 0.5j, 0.75 - 0.25j
+    fp8 = dict(backend="FP8", epilogue="ff")
+    cases = [   # (entry, m, k, n, dtype, keywords)
+        ("gemm", 300, 520, 200, c128, dict(num_moduli=14, **fp8)),
+        ("gemm", 300, 520, 200, c128, dict(num_moduli=14, backend="FP8",
+                                           epilogue="f64", trans_a="T",
+                                           trans_b="C")),
+        ("gemm", 300, 520, 200, c64, dict(num_moduli=7, fastmode="robust",
+                                          trans_a="C", alpha=alpha,
+                                          beta=beta, **fp8)),
+        ("gemm", 300, 520, 200, c128, dict(num_moduli=18, trans_b="T",
+                                           alpha=alpha, beta=beta, **fp8)),
+        ("gemm", 300, 520, 200, c128, dict(num_moduli=14, fastmode=False,
+                                           trans_a="C", trans_b="C", **fp8)),
+        ("gemm", 300, 520, 200, c64, dict(num_moduli=7, fastmode=False,
+                                          alpha=alpha, **fp8)),
+        ("gemm", 300, 520, 200, c128, dict(num_moduli=18, fastmode=False,
+                                           beta=beta, **fp8)),
+        ("gemm", 32, (1 << 16) + 512, 48, c128, dict(num_moduli=14, **fp8)),
+        ("planar", 300, 520, 200, c128, dict(num_moduli=14, trans_a="C",
+                                             **fp8)),
+        ("batched", 100, 260, 80, c64, dict(num_moduli=7, **fp8)),
+        ("batched_planar", 100, 260, 80, c128, dict(num_moduli=18,
+                                                    fastmode="robust", **fp8)),
+        ("gemmLt", 300, 520, 200, c128, dict(num_moduli=14, trans_a="C")),
+        ("hook", 300, 520, 200, c128, dict(num_moduli=14)),
+    ]
+    n = 0
+
+    def run(label, fn):
+        nonlocal n
+        t0 = time.perf_counter()
+        got = fn("cuda")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with cpu_epilogue_ff():
+            ref = fn("cpu")
+        t2 = time.perf_counter()
+        for g, r in zip(got, ref) if isinstance(got, tuple) else [(got, ref)]:
+            assert_bits_equal(g, r, label)
+        log(f"  ok  {label}  card {t1 - t0:.2f}s cpu {t2 - t1:.2f}s")
+        n += 1
+
+    for entry, m, k, n_, dt, kw in cases:
+        ta, tb = kw.get("trans_a", "N"), kw.get("trans_b", "N")
+        if entry.startswith("batched"):
+            a = np.stack([cphi(rng, m, k, dt) for _ in range(3)])
+            b = np.stack([cphi(rng, k, n_, dt) for _ in range(3)])
+        else:
+            a = cphi(rng, *((m, k) if ta == "N" else (k, m)), dt)
+            b = cphi(rng, *((k, n_) if tb == "N" else (n_, k)), dt)
+        if "beta" in kw:
+            kw = dict(kw, c=cphi(rng, m, n_, dt))
+        planes = [np.ascontiguousarray(x)
+                  for x in (a.real, a.imag, b.real, b.imag)]
+        if entry == "gemm":
+            fn = lambda d: gt.gemm(a, b, device=d, **kw)  # noqa: E731
+        elif entry == "planar":
+            fn = lambda d: gt.gemm_planar(*planes, device=d, **kw)  # noqa
+        elif entry == "batched":
+            fn = lambda d: gt.gemm_batched(a, b, device=d, **kw)  # noqa
+        elif entry == "batched_planar":
+            fn = lambda d: gt.gemm_batched_planar(  # noqa: E731
+                *planes, device=d, **kw)
+        elif entry == "gemmLt":                    # 2-D buffers, in place
+            def fn(d, a=a, b=b, kw=kw):
+                c = np.zeros((m, n_), dt)
+                compat.gemmLt(None, ta, tb, m, n_, k, alpha, a, a.shape[0],
+                              b, b.shape[0], 0.0, c, m,
+                              num_moduli=kw["num_moduli"], fastmode=True,
+                              backend="FP8", device=d)
+                return torch.from_numpy(c)
+        else:                                       # the interposer
+            def fn(d, a=a, b=b, kw=kw):
+                x, y = (torch.from_numpy(v).to(d) for v in (a, b))
+                with gt.emulate(num_moduli=kw["num_moduli"], backend="FP8"):
+                    return x @ y
+        run(f"card vs cpu complex FP8 {entry} {np.dtype(dt).name} "
+            f"{m}x{k}x{n_} { {x: y for x, y in kw.items() if x != 'c'} }", fn)
+    # blas3 on INT8 and FP8
+    for backend in ("INT8", "FP8"):
+        kw = dict(num_moduli=14, backend=backend)
+        a, b = phi_matrix(rng, 200, 300, 0.5), phi_matrix(rng, 200, 300, 0.5)
+        ca, cb = cphi(rng, 200, 300, c128), cphi(rng, 200, 300, c128)
+        sq, csq = phi_matrix(rng, 200, 200, 0.5), cphi(rng, 200, 200, c128)
+        c, cc = phi_matrix(rng, 200, 200, 0.5), cphi(rng, 200, 300, c128)
+        c300 = cphi(rng, 300, 300, c128)
+        cplanes = [np.ascontiguousarray(x) for x in (csq.real, csq.imag,
+                                                     ca.real, ca.imag)]
+        for label, fn in (
+                ("syr2k", lambda d: gt.syr2k(a, b, alpha=-0.5, beta=2.0,
+                                             c=c, device=d, **kw)),
+                ("her2k", lambda d: gt.her2k(ca, cb, trans=True, alpha=alpha,
+                                             beta=0.5, c=c300, device=d,
+                                             **kw)),
+                ("symm", lambda d: gt.symm(sq, a, lower=False, alpha=1.5,
+                                           beta=-1.0, c=a.copy(), device=d,
+                                           **kw)),
+                ("hemm", lambda d: gt.hemm(csq, ca, alpha=alpha, beta=beta,
+                                           c=cc, device=d, **kw)),
+                ("her2k_planar", lambda d: gt.her2k_planar(
+                    *cplanes[2:], *cplanes[2:], alpha=alpha, device=d,
+                    **kw)),
+                ("symm_planar", lambda d: gt.symm_planar(
+                    *cplanes, device=d, **kw)),
+                ("hemm_planar", lambda d: gt.hemm_planar(
+                    *cplanes, lower=False, device=d, **kw))):
+            run(f"card vs cpu blas3 {label} {backend}", fn)
+    # compare: os1 bit for bit; bf16x9 within 2 k 2^-24 |A||B|
+    a, b = phi_matrix(rng, 300, 520, 0.5), phi_matrix(rng, 520, 200, 0.5)
+    run("card vs cpu compare.matmul_os1_int8 300x520x200 d=8",
+        lambda d: gt.compare.matmul_os1_int8(a, b, device=d))
+    got = gt.compare.matmul_bf16x9(a, b).cpu().double().numpy()
+    ref = gt.compare.matmul_bf16x9(a, b, device="cpu").double().numpy()
+    a32, b32 = (np.abs(x.astype(np.float32)).astype(np.float64)
+                for x in (a, b))
+    tol = 2 * 520 * 2.0 ** -24 * (a32 @ b32)
+    worst = float(np.max(np.abs(got - ref) / tol))
+    check(worst <= 1.0, f"bf16x9 card vs cpu: {worst} of its tolerance")
+    log(f"  ok  card vs cpu compare.matmul_bf16x9 300x520x200 within "
+        f"2 k 2^-24 |A||B| (largest share of it {worst:.3e})")
+    return n + 1
+
+
+def lane_encode_bound(m, k, nu, itemsize):
+    """Least time of one FP8 lane encode (K6c) of an (m, k) complex operand,
+    in fp8_encode_bound's convention. Bytes: Re and Im read once, the shifts,
+    9nu e4m3 planes written once. 32-bit operations per element: two of
+    fp8_encode_bound's preambles and per-modulus reductions, the wrapped sum
+    of the two residues (an add and two conditional corrections: 5), and
+    three splits (FP8_SPLIT_OPS each). f64 operations: twice encode_bound's."""
+    from gemmul8_tpu_torch import quantize
+    nl = quantize.n_limbs(nu, "FP8")
+    f64 = itemsize == 8
+    ops32 = (2 * (2 + (0 if f64 else 3) + (3 if f64 else 1) * 20 + 2
+                  + 4 * (nl - 1) + _moduli_ops(nu, nl - 1 + 6, 3, "FP8"))
+             + 5 * nu + 3 * FP8_SPLIT_OPS * nu)
+    ops64 = 20 if f64 else 0
+    bytes_ = m * k * (2 * itemsize + 9 * nu) + 4 * m
+    return bound(m * k * ops32, m * k * ops64, bytes_)
+
+
+def reassemble_bound(m, n, nu):
+    """Least time of one FP8 reassembly (K3r) storing at (m, n). Bytes: 3nu
+    f32 planes read once, nu int32 planes written once. 32-bit operations per
+    element: 3nu loads, nu stores, the reassembly (_fp8_reassemble_ops) and
+    the residue taken from its f32 bits (1 a modulus)."""
+    ops32 = 4 * nu + _fp8_reassemble_ops(nu) + nu
+    return bound(m * n * ops32, 0, m * n * 16 * nu)
+
+
+def complex_fp8_times(name, dt, nu, A, B, card):
+    """Phase 6 for one complex FP8 path: the whole call (10 runs, median and
+    quartiles), torch.matmul on the same complex operands, and each stage:
+    the shifts, K6c on A and on B, the 9nu FP8 products (a lane at a time),
+    K3r (one launch; three a call), K4 (or K5 and K2 on the split), with the
+    kernels' plain versions (K6c on row blocks of the operands, summed) and
+    bounds."""
+    import gemmul8_tpu_torch as gt
+    from gemmul8_tpu_torch import complex_gemm as cg, fp8, kernels
+    a, b = A.to(dt), B.to(dt)
+    runs = cuda_times(lambda: gt.gemm(a, b, num_moduli=nu, backend="FP8"),
+                      reps=10)
+    q1, q2, q3 = statistics.quantiles(runs, n=4)
+    t = dict(gemm_ms=q2, gemm_ms_q1=q1, gemm_ms_q3=q3,
+             library_ms=cuda_ms(lambda: torch.matmul(a, b)))
+    ((ar, ai), (br, bi)), (sa, sb), (pa, pb) = complex_fp8_stages(
+        nu, a, b, True)
+    t["shifts_ms"] = cuda_ms(lambda: cg.shifts((ar, ai), (br, bi), nu, True,
+                                               "FP8"))
+    t["k6c_ms"] = cuda_ms(lambda: kernels.encode_lanes_fp8(ar, ai, sa, 0,
+                                                             nu))
+    t["k6c_b_ms"] = cuda_ms(lambda: kernels.encode_lanes_fp8(br, bi, sb, 1,
+                                                             nu))
+    t["k6c_plain_ms"] = sum(cuda_ms(lambda: kernels.encode_lanes_fp8_plain(
+        ar[r0:r0 + 2048], ai[r0:r0 + 2048], sa[r0:r0 + 2048], 0, nu), reps=1)
+        for r0 in range(0, FULL, 2048))
+
+    def products():
+        for lane in range(3):
+            fp8.residue_matmul_fp8(pa[lane], pb[lane])
+    t["products_ms"] = cuda_ms(products, reps=3)
+    c3 = fp8.residue_matmul_fp8(pa[0], pb[0])
+    res = cg._fp8_lane_residues(pa, pb, nu)
+    del pa, pb
+    torch.cuda.empty_cache()
+    out = torch.empty((nu, FULL, FULL), dtype=torch.int32, device="cuda")
+    t["k3r_ms"] = cuda_ms(lambda: kernels.reassemble_fp8(c3, nu, out=out))
+    t["k3r_plain_ms"] = cuda_ms(lambda: kernels.reassemble_fp8_plain(c3, nu),
+                                reps=1)
+    del c3, out
+    torch.cuda.empty_cache()
+    real_dt = ar.dtype
+    out_bits = 53 if real_dt == torch.float64 else 24
+    if nu <= 16:
+        t["k4_ms"] = cuda_ms(lambda: kernels.fused_epilogue_complex(
+            res, sa, sb, nu, "FP8", dt))
+        t["k4_plain_ms"] = cuda_ms(
+            lambda: kernels.fused_epilogue_complex_plain(
+                res, sa, sb, nu, "FP8", dt), reps=1)
+        t["k4_bound"] = complex_epilogue_bound(FULL, FULL, nu, out_bits,
+                                               "FP8")
+    else:
+        t["k5_ms"] = cuda_ms(lambda: kernels.fused_recombine_3m(res, nu,
+                                                                "FP8"))
+        t["k5_plain_ms"] = cuda_ms(lambda: kernels.fused_recombine_3m_plain(
+            res, nu, "FP8"), reps=1)
+        t["k5_bound"] = recombine_bound(FULL, FULL, nu, "FP8")
+        mid_r, _ = kernels.fused_recombine_3m(res, nu, "FP8")
+        del res
+        t["k2_ms"] = cuda_ms(lambda: kernels.fused_epilogue(
+            mid_r, sa, sb, nu, "FP8", real_dt))
+        t["k2_plain_ms"] = cuda_ms(lambda: kernels.fused_epilogue_plain(
+            mid_r, sa, sb, nu, "FP8", real_dt), reps=1)
+        t["k2_bound"] = epilogue_bound(FULL, FULL, nu, out_bits, 4, "FP8")
+        del mid_r
+    t["k6c_bound"] = lane_encode_bound(FULL, FULL, nu, ar.element_size())
+    t["k3r_bound"] = reassemble_bound(FULL, FULL, nu)
+    flops = 8.0 * FULL ** 3
+    t["emulated_tflops"] = flops / (t["gemm_ms"] * 1e-3) / 1e12
+    t["library_tflops"] = flops / (t["library_ms"] * 1e-3) / 1e12
+    t["products_tops"] = 9 * nu * 2.0 * FULL ** 3 / (t["products_ms"]
+                                                     * 1e-3) / 1e12
+    t["products_bound_ms"] = 9 * nu * 2.0 * FULL ** 3 / PEAK_INT8_OPS * 1e3
+    check(t["products_tops"] * 1e12 <= PEAK_INT8_OPS,
+          f"{name} FP8 products at {t['products_tops']:.0f} TOPS exceed peak")
+    for k_ in ("k6c", "k3r", "k4", "k5", "k2"):
+        if f"{k_}_ms" in t and f"{k_}_bound" in t:
+            t[f"{k_}_share"] = t[f"{k_}_bound"][0] / t[f"{k_}_ms"]
+            check(t[f"{k_}_share"] <= 1.0, f"{name} {k_} faster than bound")
+    log(f"times {card} | {name} 8192^3 nu={nu}: " + ", ".join(
+        f"{k_} {v:.4f}" if isinstance(v, float) else f"{k_} {v}"
+        for k_, v in t.items()))
+    torch.cuda.empty_cache()
+    return t
+
+
+# ---------------------------------------------------------------------------
 # bounds
 # ---------------------------------------------------------------------------
 
@@ -2358,18 +2963,18 @@ def _crt_ops(nu, L, f64):
     return nu * L + 8 * (L - 1) + 8 + L + (13 * L if f64 else 14 * L + 1)
 
 
-def epilogue_bound(m, n, nu, out_bits, in_bytes=4):
+def epilogue_bound(m, n, nu, out_bits, in_bytes=4, backend="INT8"):
     """Least time of one epilogue at (m, n). Bytes: nu planes read once
     (int32, or int8 wrapped residues with in_bytes=1), the shifts, the output
     written once. 32-bit operations per element: nu loads, two shift loads
     and the store; on int32 input, per modulus the reduction of any int32
     (4) and the wrap (2), or a 3-op mask for p = 256 (wrapped int8 input
     needs none: the wrap is the identity there); then one CRT pipeline
-    (_crt_ops)."""
+    (_crt_ops). backend: the moduli's plan (FP8: p = 1024 takes the mask)."""
     from gemmul8_tpu_torch import ff
-    L = ff.limb_plan(nu, "INT8", out_bits)[1]
+    L = ff.limb_plan(nu, backend, out_bits)[1]
     f64 = out_bits == 53
-    ops32 = (nu + 3 + (_moduli_ops(nu, 6, 3) if in_bytes == 4 else 0)
+    ops32 = (nu + 3 + (_moduli_ops(nu, 6, 3, backend) if in_bytes == 4 else 0)
              + _crt_ops(nu, L, f64))
     ops64 = 5 * L if f64 else 0
     bytes_ = m * n * (in_bytes * nu + (8 if f64 else 4)) + 4 * (m + n)
@@ -2382,30 +2987,33 @@ def epilogue_bound(m, n, nu, out_bits, in_bytes=4):
 RECOMBINE_OPS = 5 + 6
 
 
-def complex_epilogue_bound(m, n, nu, out_bits):
+def complex_epilogue_bound(m, n, nu, out_bits, backend="INT8"):
     """Least time of one complex epilogue (K4) at (m, n). Bytes: 3nu int32
     planes read once, the shifts, Re and Im written once. 32-bit operations
     per element: 3nu loads, two shift loads, two stores; per modulus three
     reductions of any int32 with their wraps (as in epilogue_bound) and the
     recombine (RECOMBINE_OPS); then two CRT pipelines (_crt_ops). f64
-    operations (f64 out): 5 per limb in each pipeline."""
+    operations (f64 out): 5 per limb in each pipeline. backend: the moduli's
+    plan."""
     from gemmul8_tpu_torch import ff
-    L = ff.limb_plan(nu, "INT8", out_bits)[1]
+    L = ff.limb_plan(nu, backend, out_bits)[1]
     f64 = out_bits == 53
-    ops32 = (3 * nu + 4 + 3 * _moduli_ops(nu, 6, 3) + RECOMBINE_OPS * nu
+    ops32 = (3 * nu + 4 + 3 * _moduli_ops(nu, 6, 3, backend)
+             + RECOMBINE_OPS * nu
              + 2 * _crt_ops(nu, L, f64))
     ops64 = 10 * L if f64 else 0
     bytes_ = m * n * (12 * nu + 2 * (8 if f64 else 4)) + 4 * (m + n)
     return bound(m * n * ops32, m * n * ops64, bytes_)
 
 
-def recombine_bound(m, n, nu):
+def recombine_bound(m, n, nu, backend="INT8"):
     """Least time of one recombine (K5) at (m, n). Bytes: 3nu int32 planes
-    read once, 2nu int8 planes written once. 32-bit operations per element:
-    3nu loads, 2nu stores, per modulus three reductions with their wraps and
-    the recombine."""
-    ops32 = 5 * nu + 3 * _moduli_ops(nu, 6, 3) + RECOMBINE_OPS * nu
-    return bound(m * n * ops32, 0, m * n * 14 * nu)
+    read once, 2nu int8 planes written once (int32 on the FP8 plan). 32-bit
+    operations per element: 3nu loads, 2nu stores, per modulus three
+    reductions with their wraps and the recombine."""
+    ops32 = 5 * nu + 3 * _moduli_ops(nu, 6, 3, backend) + RECOMBINE_OPS * nu
+    out_bytes = 2 if backend == "INT8" else 8
+    return bound(m * n * ops32, 0, m * n * (12 + out_bytes) * nu)
 
 
 # per FP8 modulus and element, the encoder's split of the residue and its
@@ -2832,6 +3440,62 @@ def probe_entries(runs, t):
 # main
 # ---------------------------------------------------------------------------
 
+def complex_fp8_entries(cftiming):
+    """The kernels line's entries of the complex FP8 kernels: K6c and K4 on
+    the ZGEMM nu=14 and CGEMM nu=7 paths, K3r on ZGEMM nu=14, K5 and K2 on
+    the nu=18 split; launches are each path's own call's (and, under
+    path_launches, every complex FP8 path's of that dtype that runs the
+    kernel)."""
+    from gemmul8_tpu_torch import kernels
+    entries = []
+
+    def entry(name, key, count, source, replaces, path, t, stage, shape,
+              **extra):
+        _, dt, nu, _, _ = next(p for p in CFP8_PATHS if p[0] == path)
+        return dict(
+            name=name, route="cuda", source=f"gemmul8_tpu_torch/csrc/{source}",
+            replaces=replaces, launches=CFP8_RUNS[path][count],
+            max_abs_err=MAX_ABS_ERR[key], cases=CASES[key],
+            ms=t[f"{stage}_ms"], plain_ms=t[f"{stage}_plain_ms"],
+            bound_ms=t[f"{stage}_bound"][0], bound_by=t[f"{stage}_bound"][1],
+            library_ms=None, path=f"gemm {TAG[dt]} 8192^3 nu={nu} backend=FP8",
+            shape=shape, path_launches={
+                p[0]: CFP8_RUNS[p[0]][count] for p in CFP8_PATHS
+                if p[1] == dt and CFP8_RUNS[p[0]][count]},
+            **extra)
+
+    for path, dt in (("zgemm_fp8_14", torch.complex128),
+                     ("cgemm_fp8_7", torch.complex64)):
+        t, tag = cftiming[path], TAG[dt]
+        nu = next(p[2] for p in CFP8_PATHS if p[0] == path)
+        real_dt = kernels.REAL_DTYPE[dt]
+        entries += [
+            entry(f"encode_lanes_fp8[{tag}]", LANES_KEY[real_dt],
+                  "encode_lanes_fp8", "encode_lanes_fp8.cu",
+                  "gemmul8_tpu/complex_gemm.py:53 (jnp; no Pallas kernel)",
+                  path, t, "k6c", f"Re, Im 8192x8192 {TAG[real_dt]} -> 3 x "
+                  f"{3 * nu}x8192x8192 e4m3", ms_b=t["k6c_b_ms"]),
+            entry(K4_FP8_KEY[dt], K4_FP8_KEY[dt], "fused_epilogue_complex",
+                  "complex.cu", "gemmul8_tpu/pallas_kernels.py:595", path, t,
+                  "k4", f"{3 * nu}x8192x8192 int32 residues -> {tag}"),
+        ]
+    t = cftiming["zgemm_fp8_14"]
+    entries.append(entry(
+        "reassemble_fp8[c128 nu=14]", REASSEMBLE_KEY, "reassemble_fp8",
+        "reassemble_fp8.cu", "gemmul8_tpu/fp8.py:128 (jnp; no Pallas kernel)",
+        "zgemm_fp8_14", t, "k3r", "42x8192x8192 f32 -> 14x8192x8192 int32"))
+    t = cftiming["zgemm_fp8_18"]
+    entries += [
+        entry(K5_FP8_KEY, K5_FP8_KEY, "fused_recombine_3m", "complex.cu",
+              "gemmul8_tpu/pallas_kernels.py:655", "zgemm_fp8_18", t, "k5",
+              "54x8192x8192 int32 -> 2 x 18x8192x8192 int32"),
+        entry(K2_FP8_SPLIT_KEY, K2_FP8_SPLIT_KEY, "fused_epilogue",
+              "epilogue.cu", "gemmul8_tpu/pallas_kernels.py:399",
+              "zgemm_fp8_18", t, "k2", "18x8192x8192 int32 -> f64"),
+    ]
+    return entries
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--quick", action="store_true",
@@ -2890,6 +3554,8 @@ def main():
     rrng = np.random.default_rng(SEED + 8)
     fp8_ragged_cases(rrng)
     mxu_ragged_cases(rrng)
+    # the complex FP8 kernels, on a stream of their own
+    complex_fp8_cases(np.random.default_rng(SEED + 15))
     log(f"kernels vs plain, small shapes, all bit-equal: {CASES}")
     log_phase("phase 3 (kernels vs plain, FP8 product exactness)")
     if args.quick:
@@ -2924,6 +3590,15 @@ def main():
     log(f"kernels vs plain, all bit-equal, complex full size included: {CASES}")
     complex_launches = complex_main_paths(A, B)
     log_phase("phase 4 (complex paths)")
+    # complex FP8 on the same operands: each kernel at its paths' inputs,
+    # then the paths; and compare's Ozaki-I baseline
+    full_size_complex_fp8_cases(A, B)
+    log(f"kernels vs plain, all bit-equal, complex FP8 full size included: "
+        f"{CASES}")
+    complex_fp8_main_paths(A, B)
+    log_phase("phase 4 (complex FP8 paths)")
+    os1_path(a64, b64, card)
+    log_phase("phase 4 (compare.matmul_os1_int8)")
     # accurate mode, syrk and gemm_batched on the same operands: each kernel
     # at their inputs, then the paths
     full_size_accurate_cases(a64, b64, A, B)
@@ -2951,6 +3626,9 @@ def main():
     n_cpu += accurate_card_vs_cpu(np.random.default_rng(SEED + 9))
     # and the entry points', on another (SEED + 10 seeds K3's ragged cases)
     n_cpu += entry_card_vs_cpu(np.random.default_rng(SEED + 11))
+    # and complex FP8, blas3 and compare, on another (SEED + 15 seeds the
+    # complex FP8 kernel cases)
+    n_cpu += complex_fp8_card_vs_cpu(np.random.default_rng(SEED + 16))
     log(f"card vs cpu: {n_cpu} cases bit-equal")
     log_phase("phase 5 (card vs cpu)")
 
@@ -3005,6 +3683,14 @@ def main():
     ftiming = {dt: fp8_times(dt, nu, a64.to(dt), b64.to(dt), card)
                for dt, nu in FP8_PATHS}
     ctiming = {p[0]: complex_times(*p[:4], A, B, card) for p in CPATHS}
+    cftiming = {name: complex_fp8_times(name, dt, nu, A, B, card)
+                for name, dt, nu, fastmode, _ in CFP8_PATHS if fastmode}
+    accu = CFP8_PATHS[3]
+    za, zb = A.to(accu[1]), B.to(accu[1])
+    cftiming[accu[0]] = dict(gemm_ms=statistics.median(cuda_times(
+        lambda: gt.gemm(za, zb, num_moduli=accu[2], backend="FP8",
+                        fastmode=False), reps=10)))
+    del za, zb
     atiming = accurate_times(a64, b64, A, B, card)
     for name, *_, fastmode, _ in APATHS:
         t, gain = atiming[name], accurate_runs[name][1]
@@ -3021,6 +3707,16 @@ def main():
         log(f"headline {card}: {name} 8192^3 {t['emulated_tflops']:.3f} TF/s "
             f"({t['gemm_ms']:.3f} ms), torch.matmul "
             f"{t['library_tflops']:.3f} TF/s ({t['library_ms']:.3f} ms)")
+    for name, _, nu, _, _ in CFP8_PATHS[:3]:
+        t = cftiming[name]
+        log(f"headline {card}: {name} 8192^3 {t['emulated_tflops']:.3f} TF/s "
+            f"({t['gemm_ms']:.3f} ms; q1 {t['gemm_ms_q1']:.3f}, q3 "
+            f"{t['gemm_ms_q3']:.3f}), {9 * nu} FP8 products "
+            f"{t['products_ms']:.3f} ms, torch.matmul "
+            f"{t['library_tflops']:.3f} TF/s ({t['library_ms']:.3f} ms)")
+    log(f"headline {card}: {accu[0]} 8192^3 "
+        f"{cftiming[accu[0]]['gemm_ms']:.3f} ms (fast call "
+        f"{cftiming['zgemm_fp8_14']['gemm_ms']:.3f} ms)")
     t64 = timing[torch.float64]
     log(f"headline {card}: emulated DGEMM 8192^3 nu=16 "
         f"{t64['emulated_tflops']:.3f} TF/s ({t64['gemm_ms']:.3f} ms), "
@@ -3125,6 +3821,7 @@ def main():
              bound_by=t["k2_bound"][1], path="gemm c128 8192^3 nu=20",
              shape="20x8192x8192 int8 -> f64"),
     ]
+    kern += complex_fp8_entries(cftiming)
     kern += probe_entries(probe_runs, ptiming)
     # each kernel entry's launches in the accurate paths (and syrk's robust
     # one) of its dtype that run it

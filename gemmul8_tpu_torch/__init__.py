@@ -1,16 +1,24 @@
 """gemmul8_tpu_torch: the PyTorch/CUDA port of gemmul8_tpu.
 
 Emulated SGEMM/DGEMM and CGEMM/ZGEMM (Ozaki scheme II, fast, robust and
-accurate mode; INT8 residue planes, or for real operands the FP8 backend's
-e4m3 split planes; complex through the 3M scheme), syrk, herk and batched
-GEMM on an NVIDIA H100, with hand-written CUDA kernels for the residue-plane
-encoders, the fused mod + CRT + descale epilogues and the complex epilogues.
-Precomputed operands (precompute/gemm_quantized), memory-bounded striping of
-big real products, per-phase timing, the reference's compat entries
-(compat.gemm/gemmLt/workSize) and a matmul interposer for torch programs
-(install/emulate). Bit-equal to gemmul8_tpu on the CPU.
+accurate mode; INT8 residue planes or the FP8 backend's e4m3 split planes;
+complex through the 3M scheme), syrk, herk, batched GEMM and the rest of
+BLAS level 3 built on GEMM (syr2k, her2k, symm, hemm) on an NVIDIA H100,
+with hand-written CUDA kernels for the residue-plane encoders (complex FP8:
+one lane encoder for Re, Im and Re+Im), the fused mod + CRT + descale
+epilogues, the FP8 reassembly and the complex epilogues. Precomputed
+operands (precompute/gemm_quantized), memory-bounded striping of big real
+products, per-phase timing, the reference's compat entries
+(compat.gemm/gemmLt/workSize), a matmul interposer for torch programs
+(install/emulate), the accuracy model and num_moduli chooser
+(choose_moduli, modeled_max_rel_err) and the comparison baselines
+(compare.matmul_bf16x9, compare.matmul_os1_int8). Bit-equal to gemmul8_tpu
+on the CPU.
 """
-from . import compat
+from . import compare, compat, tables
+from .accuracy_model import choose_moduli, modeled_max_rel_err
+from .blas3 import (hemm, hemm_planar, her2k, her2k_planar, symm,
+                    symm_planar, syr2k)
 from .complex_gemm import gemm_batched_planar, gemm_planar, herk, herk_planar
 from .config import GemmConfig, env_config
 from .core import (QuantizedOperand, gemm, gemm_batched, gemm_quantized,
@@ -24,4 +32,6 @@ __all__ = ["gemm", "matmul", "syrk", "gemm_batched", "gemm_planar",
            "gemm_quantized", "QuantizedOperand", "work_bytes",
            "gemm_with_phases", "GemmConfig", "env_config", "compat",
            "install", "uninstall", "refresh", "emulate", "Backend",
-           "LAUNCHES", "reset_launches"]
+           "tables", "compare", "choose_moduli", "modeled_max_rel_err",
+           "syr2k", "her2k", "symm", "hemm", "her2k_planar", "hemm_planar",
+           "symm_planar", "LAUNCHES", "reset_launches"]

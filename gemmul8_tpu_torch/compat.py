@@ -36,8 +36,7 @@ Where this differs from the JAX package:
   * alpha and beta go through gemm's own epilogue on every route, so the
     skip flags never change the bits (compat.py:263);
   * with_timing works for every real call (ops, alpha and beta included);
-  * complex operands on the FP8 backend raise the queue-8
-    NotImplementedError of complex_gemm.
+  * complex operands take the FP8 backend through gemmLt, as real ones do.
 """
 from __future__ import annotations
 

@@ -1,19 +1,24 @@
 """Complex GEMM (CGEMM/ZGEMM), herk and batched complex GEMM via the 3M scheme
-in residue space, fast, robust and accurate mode, INT8, in PyTorch.
+in residue space, fast, robust and accurate mode, INT8 and FP8, in PyTorch.
 
 The counterpart of gemmul8_tpu/complex_gemm.py:
 
   * each operand emits three residue plane sets per modulus -- Re, Im and
     (Re+Im) mod p -- with one shift per row/column computed from Re and Im
-    together (two encode kernel launches, the third lane an int16 add and a
-    balanced wrap);
-  * 3nu exact int8 products, Crr = Ar.Br, Cii = Ai.Bi, Crii = (Ar+Ai).(Br+Bi),
-    one torch._int_mm each;
-  * with the "ff" epilogue the lane products go into one kernel that wraps,
-    recombines Re = Crr - Cii and Im = Crii - Crr - Cii mod p and runs both
-    CRT + descale pipelines (nu <= 16), or into a recombine kernel and two
-    passes of the real epilogue kernel (nu > 16). On the CPU the wrappers run
-    their plain versions. The "f64" epilogue runs the unfused chain;
+    together. INT8: two encode kernel launches, the third lane an int16 add
+    and a balanced wrap. FP8: one lane encoder launch that reads Re and Im
+    once and writes the three lanes' e4m3 split stacks;
+  * the lane products Crr = Ar.Br, Cii = Ai.Bi, Crii = (Ar+Ai).(Br+Bi):
+    3nu exact int8 products (torch._int_mm), or on FP8 three 3nu-plane
+    stacks of e4m3 products (torch._scaled_mm), one lane at a time, each
+    lane's f32 products reassembled into its wrapped int32 residues by a
+    kernel before the next lane's are made;
+  * with the "ff" epilogue the lane products (or residues) go into one
+    kernel that wraps, recombines Re = Crr - Cii and Im = Crii - Crr - Cii
+    mod p and runs both CRT + descale pipelines (nu <= 16), or into a
+    recombine kernel and two passes of the real epilogue kernel (nu > 16).
+    On the CPU the wrappers run their plain versions. The "f64" epilogue
+    runs the unfused chain;
   * conjugation ('C' op) negates the imaginary lane before the encode;
   * accurate mode bounds both parts of the product with three estimation
     products of the lanes' upper-bound planes, combined through the 3M
@@ -31,19 +36,15 @@ import functools
 import numpy as np
 import torch
 
-from . import core, kernels, quantize, tables
+from . import core, fp8, kernels, quantize, tables
 
 _COMPLEX_NAME = {torch.float32: "complex64", torch.float64: "complex128",
                  torch.complex64: "complex64", torch.complex128: "complex128"}
 
 
-def _check_mode(fastmode, backend) -> None:
+def _check_backend(backend) -> None:
     if backend not in (tables.Backend.INT8, tables.Backend.FP8):
         raise ValueError(f"backend must be 'INT8' or 'FP8', got {backend!r}")
-    if backend == tables.Backend.FP8:
-        raise NotImplementedError(
-            "backend='FP8' on complex operands is not ported yet (ROADMAP "
-            "queue 8: it needs a lane-emitting FP8 encoder)")
 
 
 def _check_nu(dtype, num_moduli) -> None:
@@ -89,7 +90,13 @@ def _extract_ub_lanes(re, im, scale_axis, backend):
     pre = quantize.MAX_UFP[backend] - E
     ub_r = quantize.extract_ub_with_pre(ar_, pre, reduce_axis, backend)
     ub_i = quantize.extract_ub_with_pre(ai_, pre, reduce_axis, backend)
-    return ub_r, ub_i, ub_r - ub_i, pre    # |ub_r - ub_i| <= 65: int8
+    # INT8: |ub_r - ub_i| <= 65, exact in int8. FP8: bounds reach 258 and
+    # the bf16 difference rounds |257| (258 - 1) to 256, as the JAX package
+    # does (gemmul8_tpu/complex_gemm.py:107). The 3M bound stays an upper
+    # bound all the same: a bound of 258 stands for a value below 256, and
+    # that slack covers the lost unit in every term of the estimate
+    # (tests/test_torch_complex_fp8.py::test_complex_gemm_107_fp8_difference_lane)
+    return ub_r, ub_i, ub_r - ub_i, pre
 
 
 def _combine_3m_bound(d):
@@ -151,12 +158,14 @@ def shifts(a, b, num_moduli, fastmode, backend):
 
 def _quantize_complex(re, im, sft, scale_axis, num_moduli, backend, conj):
     """The three lane plane sets (Re, Im, (Re+Im) mod p) of one operand:
-    (3, nu, r, c) int8, each lane in the layout encode_planes returns (B's
-    planes k-contiguous, as the int8 product reads them)."""
-    if backend != tables.Backend.INT8:
-        raise NotImplementedError(
-            "backend='FP8' on complex operands is not ported yet (ROADMAP "
-            "queue 8: it needs a lane-emitting FP8 encoder)")
+    INT8 (3, nu, r, c) int8, each lane in the layout encode_planes returns
+    (B's planes k-contiguous, as the int8 product reads them); FP8 the
+    (3, 3nu, r, c) e4m3 split stacks of kernels.encode_lanes_fp8, in the
+    side's slot order (B's planes column-major, as torch._scaled_mm reads
+    them)."""
+    if backend == tables.Backend.FP8:
+        return kernels.encode_lanes_fp8(re, im, sft, scale_axis, num_moduli,
+                                        conj)
     if conj:
         im = -im
     rows, cols = re.shape
@@ -176,14 +185,37 @@ def _quantize_complex(re, im, sft, scale_axis, num_moduli, backend, conj):
 
 def _recombine_3m(mids, num_moduli, backend):
     """(3, nu, m, n) wrapped lane-product residues -> (re, im), each
-    (nu, m, n) int8 wrapped residues: Re = Crr - Cii, Im = Crii - Crr - Cii,
-    mod p (reference: conv_hi2mid_complex.hpp:9-40)."""
+    (nu, m, n) wrapped residues, int8 for the INT8 moduli and int16 for the
+    FP8 ones: Re = Crr - Cii, Im = Crii - Crr - Cii, mod p (reference:
+    conv_hi2mid_complex.hpp:9-40)."""
+    mid_t = torch.int8 if backend == tables.Backend.INT8 else torch.int16
     out_r, out_i = [], []
     for i, p in enumerate(tables.moduli(backend)[:num_moduli]):
         crr, cii, cri = (mids[lane, i].to(torch.int32) for lane in range(3))
-        out_r.append(core._wrap(crr - cii, p).to(torch.int8))
-        out_i.append(core._wrap(cri - crr - cii, p).to(torch.int8))
+        out_r.append(core._wrap(crr - cii, p).to(mid_t))
+        out_i.append(core._wrap(cri - crr - cii, p).to(mid_t))
     return torch.stack(out_r), torch.stack(out_i)
+
+
+def _fp8_lane_residues(pa, pb, num_moduli):
+    """(3nu, m, n) int32 wrapped residues of the three FP8 lane products
+    (lane-major, as the complex epilogues read them): each lane's 3nu
+    e4m3 products (fp8.residue_matmul_fp8), K-chunked past K_CHUNK_FP8, go
+    through the reassembly kernel into the lane's slot, each chunk's
+    residues added to the last (fp8._chunked_residue_acc). One lane's f32
+    products are alive at a time."""
+    nu = num_moduli
+    m, k, n = pa.shape[-2], pa.shape[-1], pb.shape[-1]
+    res = torch.empty((3 * nu, m, n), dtype=torch.int32, device=pa.device)
+    for lane in range(3):
+        for lo in range(0, k, fp8.K_CHUNK_FP8):
+            sl = slice(lo, lo + fp8.K_CHUNK_FP8)
+            c3 = fp8.residue_matmul_fp8(pa[lane][:, :, sl],
+                                        pb[lane][:, sl, :])
+            kernels.reassemble_fp8(c3, nu, out=res[lane * nu:(lane + 1) * nu],
+                                   accumulate=lo > 0)
+            del c3
+    return res
 
 
 def _complex_product(pa, pb, sft_a, sft_b, num_moduli, backend, out_dtype,
@@ -193,8 +225,11 @@ def _complex_product(pa, pb, sft_a, sft_b, num_moduli, backend, out_dtype,
     out_dtype, else the (re, im) pair."""
     nu = num_moduli
     real_dt = kernels.REAL_DTYPE[out_dtype]
+    is_fp8 = backend == tables.Backend.FP8
     if core.resolve_epilogue(epilogue, pa.device) == "ff":
-        if pa.shape[-1] <= core.K_CHUNK:
+        if is_fp8:
+            c_hi3 = _fp8_lane_residues(pa, pb, nu)
+        elif pa.shape[-1] <= core.K_CHUNK:
             c_hi3 = core.residue_matmul(pa.reshape(3 * nu, *pa.shape[2:]),
                                         pb.reshape(3 * nu, *pb.shape[2:]))
         else:
@@ -204,14 +239,19 @@ def _complex_product(pa, pb, sft_a, sft_b, num_moduli, backend, out_dtype,
         if nu <= 16:
             return kernels.fused_epilogue_complex(c_hi3, sft_a, sft_b, nu,
                                                   backend, out_dtype)
-        # nu > 16: recombine into int8 residues, then the real epilogue twice
+        # nu > 16: recombine into int8 (FP8: int32) residues, then the real
+        # epilogue twice
         mid_r, mid_i = kernels.fused_recombine_3m(c_hi3, nu, backend)
         del c_hi3
         re, im = (kernels.fused_epilogue(x, sft_a, sft_b, nu, backend, real_dt)
                   for x in (mid_r, mid_i))
         return _pack(re, im, out_dtype)
-    mids = torch.stack([core.residue_gemm(pa[lane], pb[lane], nu, backend)
-                        for lane in range(3)])
+    if is_fp8:
+        mids = torch.stack([fp8.residue_gemm_fp8(pa[lane], pb[lane], nu)
+                            for lane in range(3)])
+    else:
+        mids = torch.stack([core.residue_gemm(pa[lane], pb[lane], nu, backend)
+                            for lane in range(3)])
     mid_r, mid_i = _recombine_3m(mids, nu, backend)
     re, im = (core.reconstruct_scale(x, sft_a, sft_b, nu, backend, real_dt,
                                      epilogue) for x in (mid_r, mid_i))
@@ -224,7 +264,7 @@ def _complex_product(pa, pb, sft_a, sft_b, num_moduli, backend, out_dtype,
 
 def _emulate(ar, ai, br, bi, num_moduli, fastmode, backend, conj_a, conj_b,
              epilogue, out_dtype):
-    _check_mode(fastmode, backend)
+    _check_backend(backend)
     m, n = ar.shape[0], br.shape[1]
     if ar.shape[1] == 0:
         # BLAS k=0 semantics: the product is zero
@@ -400,7 +440,7 @@ def _herk_rhs_lanes(pa, num_moduli, backend):
 
 def _herk(ar, ai, *, num_moduli, fastmode, backend, trans, epilogue,
           out_dtype):
-    _check_mode(fastmode, backend)
+    _check_backend(backend)
     if trans:
         # A^H @ A = B @ B^H with B = A^H = conj(A).T
         ar, ai = ar.T, -ai.T
@@ -422,7 +462,8 @@ def _check_herk_backend(backend) -> None:
     if backend != tables.Backend.INT8:
         raise NotImplementedError(
             "herk supports the INT8 backend (FP8 split planes cannot derive "
-            "the 3M difference lane); the FP8 backend is ROADMAP queue 8")
+            "the 3M difference lane); use gemm for FP8 Hermitian products, "
+            "as in the JAX package")
 
 
 def herk(a, *, trans: bool = False, num_moduli: int = 8, fastmode="robust",
@@ -492,7 +533,7 @@ def gemm_batched_complex(a, b, *, num_moduli: int = 8, fastmode=True,
         raise TypeError(f"gemm_batched_complex expects complex64 or "
                         f"complex128, got {a.dtype}")
     _check_nu(a.dtype, num_moduli)
-    _check_mode(fastmode, backend)
+    _check_backend(backend)
     if a.shape[0] == 0:
         return core.empty_batch(a, b)
     # a conjugate or negative view is materialized first, as in _operand
@@ -523,7 +564,7 @@ def gemm_batched_planar(ar, ai, br, bi, *, num_moduli: int = 8,
             f"gemm_batched_planar expects (B, m, k) and (B, k, n) planes; got "
             f"{tuple(ar.shape)} and {tuple(br.shape)}")
     _check_nu(ar.dtype, num_moduli)
-    _check_mode(fastmode, backend)
+    _check_backend(backend)
     if ar.shape[0] == 0:
         return core.empty_batch(ar, br), core.empty_batch(ai, bi)
     return core.batched(functools.partial(

@@ -20,13 +20,19 @@
 //   epilogue's, chip_smoke.complex_epilogue_bound) take about half that.
 //
 // fused_recombine_3m (nu > 16) writes the recombined residues as two
-// (nu, m, n) int8 stacks; two passes of the real epilogue on them
-// (epilogue.cu, int8 input) finish the product.
+// (nu, m, n) int8 stacks, or int32 ones on the FP8 plan (its residues reach
+// 544); two passes of the real epilogue on them (epilogue.cu, int8 or int32
+// input) finish the product.
 //   Replaces: gemmul8_tpu/pallas_kernels.py, fused_recombine_3m (body
 //   _recombine_kernel_cplx). Plain version: mod_reduce per lane ->
-//   complex_gemm._recombine_3m.
+//   complex_gemm._recombine_3m, in the output's type.
 //   Bound on the H100: device memory, 12nu bytes read and 2nu written per
-//   element: at 8192^2, nu=20, 18.8 GB, 5.6 ms.
+//   element (8nu for int32): at 8192^2, nu=20, 18.8 GB, 5.6 ms.
+//
+// Both take the FP8 plan as they take the INT8 one: on the complex FP8
+// path their input is each lane's wrapped residues (reassemble_fp8.cu) or
+// their K-chunk sums, which are int32 values like any other; wrap_any
+// wraps by each modulus' constants (p = 1024 by its mask).
 //
 // Design of K4: K2's (epilogue.cu), with two pipelines.
 //   - crt.cuh's 2-D tiling and division-free wrap: each thread takes one row
@@ -169,9 +175,10 @@ int launch_complex(const int* c, const int* a, const int* b, void* re,
     });
 }
 
+template <typename O>
 __global__ void recombine_3m_kernel(const int* __restrict__ chi,
-                                    int8_t* __restrict__ out_re,
-                                    int8_t* __restrict__ out_im, int m, int n,
+                                    O* __restrict__ out_re,
+                                    O* __restrict__ out_im, int m, int n,
                                     const __grid_constant__ EpiloguePlan plan) {
     const size_t mn = (size_t)m * n;
     const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
@@ -181,8 +188,8 @@ __global__ void recombine_3m_kernel(const int* __restrict__ chi,
         int re, im;
         lane_recombine_3m(chi[q * mn + idx], chi[(nu + q) * mn + idx],
                           chi[(2 * nu + q) * mn + idx], plan, q, re, im);
-        out_re[q * mn + idx] = (int8_t)re;
-        out_im[q * mn + idx] = (int8_t)im;
+        out_re[q * mn + idx] = (O)re;
+        out_im[q * mn + idx] = (O)im;
     }
 }
 
@@ -237,17 +244,25 @@ extern "C" int g8_fused_epilogue_complex(const void* chi, const void* sfta,
 }
 
 // chi: (3nu, m, n) contiguous int32; out_re, out_im: (nu, m, n) contiguous
-// int8. Only the plan's nu and moduli are read.
+// int8, or int32 where out_i32 is set. Only the plan's nu, moduli and wrap
+// constants are read.
 extern "C" int g8_fused_recombine_3m(const void* chi, void* out_re,
-                                     void* out_im, int m, int n,
+                                     void* out_im, int out_i32, int m, int n,
                                      const void* plan_ptr, void* stream) {
     const EpiloguePlan& plan = *static_cast<const EpiloguePlan*>(plan_ptr);
     if (plan.nu < 1 || plan.nu > G8_MAX_NU) return (int)cudaErrorInvalidValue;
     const int threads = 256;
     unsigned blocks;
     if (int err = grid_for(m, n, threads, &blocks)) return err;
-    recombine_3m_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int*>(chi), static_cast<int8_t*>(out_re),
-        static_cast<int8_t*>(out_im), m, n, plan);
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const int* c = static_cast<const int*>(chi);
+    if (out_i32)
+        recombine_3m_kernel<int><<<blocks, threads, 0, st>>>(
+            c, static_cast<int*>(out_re), static_cast<int*>(out_im), m, n,
+            plan);
+    else
+        recombine_3m_kernel<int8_t><<<blocks, threads, 0, st>>>(
+            c, static_cast<int8_t*>(out_re), static_cast<int8_t*>(out_im), m,
+            n, plan);
     return (int)cudaGetLastError();
 }

@@ -47,6 +47,7 @@ struct Int8Residues {
     using Plan = EncodePlan;
     using Out = int8_t;
     static constexpr bool kStageB = true;
+    static constexpr int kInputs = 1;
     __host__ __device__ static const EncodePlan& enc(const Plan& p) {
         return p;
     }

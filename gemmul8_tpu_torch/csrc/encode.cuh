@@ -1,9 +1,10 @@
-// The encoders' per-element steps, shared by the INT8 encoder (encode.cu)
-// and the FP8 one (encode_fp8.cu), so that they run the same code: scale by
+// The encoders' per-element steps, shared by the INT8 encoder (encode.cu),
+// the FP8 one (encode_fp8.cu) and the FP8 lane encoder of complex operands
+// (encode_lanes_fp8.cu), so that they run the same code: scale by
 // the row's or column's power of two, split into exact f32 components, place
 // the integer part in balanced 20-bit limbs with the fractions' joint carry,
 // and reduce the limbs modulo one modulus. Below them, the two launch frames
-// both encoders share (4 elements a thread; B staged through shared memory).
+// the encoders share (4 elements a thread; B staged through shared memory).
 //
 // Each step follows quantize.residues_wrapped op for op: the input is scaled
 // in its own dtype before the split, the scale uses the floor split of
@@ -139,18 +140,24 @@ inline int dispatch_nl(int nl, F&& f) {
     }
 }
 
-// The two frames of both encoders (K1, encode.cu; K6, encode_fp8.cu): each
-// thread quantizes 4 consecutive elements along the planes' contiguous axis
-// and hands their limbs to the encoder's Emit policy, which reduces them and
-// stores the planes. A policy provides
+// The two frames of the encoders (K1, encode.cu; K6, encode_fp8.cu; K6c,
+// encode_lanes_fp8.cu): each thread quantizes 4 consecutive elements along
+// the planes' contiguous axis and hands their limbs to the encoder's Emit
+// policy, which reduces them and stores the planes. A policy provides
 //   Plan, Out                  the kernel's plan and plane element types,
 //   enc(plan)                  the limb plan (EncodePlan) inside Plan,
 //   kStageB                    whether B is staged through shared memory,
+//   kInputs                    how many operands of one shape and one shift
+//                              it encodes together: 1 (K1, K6), or 2 (K6c:
+//                              Re in x and Im in x2, Im negated before it
+//                              is scaled where the frame's neg2 is set),
 //   emit<NL>(out, pos, plane, valid, word, lim, plan)
 //                              the planes of the 4 elements at offset pos
 //                              of plane 0 (planes `plane` bytes apart), of
 //                              which the first `valid` exist; `word`: the
-//                              wrapper's vec flag (whole aligned words).
+//                              wrapper's vec flag (whole aligned words);
+//                              lim: int[4][NL] for one operand, else
+//                              int[kInputs][4][NL].
 //
 // A (axis 0, planes (planes, m, k) row-major): thread (x, y) of a 32x8 block
 // takes elements c0 .. c0+3 of row r, read with 16-byte loads where vec
@@ -168,47 +175,74 @@ constexpr int kTileK = 128;      // axis 1: rows of x (k) per block
 constexpr int kTileN = 32;       // axis 1: columns of x (n) per block
 constexpr int kPitch = kTileK + 1;
 
+// the policy's emit on the limbs of its kInputs operands
+template <typename Emit, int NL, int NI>
+__device__ __forceinline__ void emit_limbs(typename Emit::Out* out,
+                                           size_t pos, size_t plane,
+                                           int valid, bool word,
+                                           const int (&lim)[NI][4][NL],
+                                           const typename Emit::Plan& plan) {
+    if constexpr (NI == 1)
+        Emit::template emit<NL>(out, pos, plane, valid, word, lim[0], plan);
+    else
+        Emit::template emit<NL>(out, pos, plane, valid, word, lim, plan);
+}
+
 template <typename Emit, typename T, int NL>
 __global__ void __launch_bounds__(256)
-encode_rows_kernel(const T* __restrict__ x, const int* __restrict__ sft,
+encode_rows_kernel(const T* __restrict__ x, const T* __restrict__ x2,
+                   int neg2, const int* __restrict__ sft,
                    typename Emit::Out* __restrict__ out,
                    const __grid_constant__ typename Emit::Plan plan, int rows,
                    int cols, int vec) {
+    constexpr int NI = Emit::kInputs;
     const int r = blockIdx.y * 8 + threadIdx.y;
     const int c0 = (blockIdx.x * 32 + threadIdx.x) * 4;
     if (r >= rows || c0 >= cols) return;
     const int valid = min(cols - c0, 4);
     const size_t pos = (size_t)r * cols + c0;
-    T v[4];
-    if (vec && valid == 4) {             // 16-byte loads: cols % 4 == 0
-        if (sizeof(T) == 4) {
-            const float4 q = *reinterpret_cast<const float4*>(x + pos);
-            v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
-        } else {
-            const double2 q0 = *reinterpret_cast<const double2*>(x + pos);
-            const double2 q1 = *reinterpret_cast<const double2*>(x + pos + 2);
-            v[0] = q0.x; v[1] = q0.y; v[2] = q1.x; v[3] = q1.y;
-        }
-    } else {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) v[e] = e < valid ? x[pos + e] : T(0);
-    }
     const EncodePlan& enc = Emit::enc(plan);
     const Pow2Split<T> scale(sft[r]);
-    int lim[4][NL];
+    int lim[NI][4][NL];
 #pragma unroll
-    for (int e = 0; e < 4; ++e)
-        quantize_limbs<T, NL>(scale.apply(v[e]), enc.max_exp, lim[e]);
-    Emit::template emit<NL>(out, pos, (size_t)rows * cols, valid, vec != 0,
-                            lim, plan);
+    for (int j = 0; j < NI; ++j) {
+        const T* src = j == 0 ? x : x2;
+        T v[4];
+        if (vec && valid == 4) {         // 16-byte loads: cols % 4 == 0
+            if (sizeof(T) == 4) {
+                const float4 q = *reinterpret_cast<const float4*>(src + pos);
+                v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+            } else {
+                const double2 q0 =
+                    *reinterpret_cast<const double2*>(src + pos);
+                const double2 q1 =
+                    *reinterpret_cast<const double2*>(src + pos + 2);
+                v[0] = q0.x; v[1] = q0.y; v[2] = q1.x; v[3] = q1.y;
+            }
+        } else {
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+                v[e] = e < valid ? src[pos + e] : T(0);
+        }
+        const bool neg = j == 1 && neg2;
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+            quantize_limbs<T, NL>(scale.apply(neg ? -v[e] : v[e]),
+                                  enc.max_exp, lim[j][e]);
+    }
+    emit_limbs<Emit, NL, NI>(out, pos, (size_t)rows * cols, valid, vec != 0,
+                             lim, plan);
 }
 
 template <typename Emit, typename T, int NL>
 __global__ void __launch_bounds__(256)
-encode_cols_kernel(const T* __restrict__ x, const int* __restrict__ sft,
+encode_cols_kernel(const T* __restrict__ x, const T* __restrict__ x2,
+                   int neg2, const int* __restrict__ sft,
                    typename Emit::Out* __restrict__ out,
                    const __grid_constant__ typename Emit::Plan plan, int rows,
                    int cols, int vec) {
+    constexpr int NI = Emit::kInputs;
+    static_assert(NI == 1 || !Emit::kStageB, "B is staged for one operand");
     __shared__ T tile[Emit::kStageB ? kTileN * kPitch : 1];
     const int r0 = blockIdx.x * kTileK, c0 = blockIdx.y * kTileN;
     const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -231,30 +265,38 @@ encode_cols_kernel(const T* __restrict__ x, const int* __restrict__ sft,
         const int gc = c0 + nc;
         if (gc >= cols) break;
         const Pow2Split<T> scale(sft[gc]);
-        int lim[4][NL];
+        int lim[NI][4][NL];
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-            T v;
-            if constexpr (Emit::kStageB)
-                v = tile[nc * kPitch + e * 32 + lane];
-            else
-                v = e < valid ? x[(size_t)(r0 + 4 * lane + e) * cols + gc]
-                              : T(0);
-            quantize_limbs<T, NL>(scale.apply(v), enc.max_exp, lim[e]);
+        for (int j = 0; j < NI; ++j) {
+            const T* src = j == 0 ? x : x2;
+            const bool neg = j == 1 && neg2;
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                T v;
+                if constexpr (Emit::kStageB)
+                    v = tile[nc * kPitch + e * 32 + lane];
+                else
+                    v = e < valid
+                        ? src[(size_t)(r0 + 4 * lane + e) * cols + gc] : T(0);
+                quantize_limbs<T, NL>(scale.apply(neg ? -v : v), enc.max_exp,
+                                      lim[j][e]);
+            }
         }
-        Emit::template emit<NL>(out, (size_t)gc * rows + r0 + 4 * lane,
-                                (size_t)rows * cols, valid, vec != 0, lim,
-                                plan);
+        emit_limbs<Emit, NL, NI>(out, (size_t)gc * rows + r0 + 4 * lane,
+                                 (size_t)rows * cols, valid, vec != 0, lim,
+                                 plan);
     }
 }
 
-// Both frames on x (rows, cols) f32 or f64, for the plan's limb count;
-// returns the launch's CUDA error, or cudaErrorInvalidValue for a bad axis,
-// limb count or grid.
+// Both frames on x (rows, cols) f32 or f64 (and x2 of the same shape for a
+// policy of two operands, negated where neg2 is set), for the plan's limb
+// count; returns the launch's CUDA error, or cudaErrorInvalidValue for a bad
+// axis, limb count or grid.
 template <typename Emit>
 int launch_encode(const void* x, const void* sft, void* out,
                   const typename Emit::Plan& plan, int is_f64, int axis,
-                  int rows, int cols, int vec, cudaStream_t st) {
+                  int rows, int cols, int vec, cudaStream_t st,
+                  const void* x2 = nullptr, int neg2 = 0) {
     const EncodePlan& enc = Emit::enc(plan);
     if (enc.nu < 1 || enc.nu > G8_MAX_NU || (axis != 0 && axis != 1))
         return (int)cudaErrorInvalidValue;
@@ -262,19 +304,20 @@ int launch_encode(const void* x, const void* sft, void* out,
         using T = decltype(tag);
         constexpr int NL = decltype(nl)::value;
         const T* xp = static_cast<const T*>(x);
+        const T* xp2 = static_cast<const T*>(x2);
         const int* sp = static_cast<const int*>(sft);
         auto* op = static_cast<typename Emit::Out*>(out);
         if (axis == 0) {
             const dim3 grid((cols + 127) / 128, (rows + 7) / 8);
             if (grid.y > 65535) return (int)cudaErrorInvalidValue;
             encode_rows_kernel<Emit, T, NL><<<grid, dim3(32, 8), 0, st>>>(
-                xp, sp, op, plan, rows, cols, vec);
+                xp, xp2, neg2, sp, op, plan, rows, cols, vec);
         } else {
             const dim3 grid((rows + kTileK - 1) / kTileK,
                             (cols + kTileN - 1) / kTileN);
             if (grid.y > 65535) return (int)cudaErrorInvalidValue;
             encode_cols_kernel<Emit, T, NL><<<grid, 256, 0, st>>>(
-                xp, sp, op, plan, rows, cols, vec);
+                xp, xp2, neg2, sp, op, plan, rows, cols, vec);
         }
         return (int)cudaGetLastError();
     };

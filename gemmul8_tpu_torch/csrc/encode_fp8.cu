@@ -98,6 +98,7 @@ struct Fp8Planes {
     using Plan = EncodePlanFp8;
     using Out = unsigned char;           // e4m3 bytes
     static constexpr bool kStageB = false;   // B read directly: faster
+    static constexpr int kInputs = 1;
     __host__ __device__ static const EncodePlan& enc(const Plan& p) {
         return p.enc;
     }

@@ -41,8 +41,7 @@ Where this differs from the JAX package:
     on unchanged. Cached and uncached calls give the same bits;
   * torch has no trace cache, so an environment change takes effect on the
     next call by itself and refresh() does nothing;
-  * complex operands on the FP8 backend raise complex_gemm's queue-8
-    NotImplementedError, not fall through.
+  * complex operands on the FP8 backend are emulated as real ones are.
 """
 from __future__ import annotations
 

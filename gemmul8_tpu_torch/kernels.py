@@ -4,10 +4,14 @@ The counterpart of gemmul8_tpu/pallas_kernels.py:
 
   encode_planes           csrc/encode.cu        replaces encode_planes_tiles
   encode_planes_fp8       csrc/encode_fp8.cu    replaces encode_planes_fp8_tiles
+  encode_lanes_fp8        csrc/encode_lanes_fp8.cu  (no Pallas counterpart: the
+                          JAX package builds complex FP8 lanes in jnp)
   fused_epilogue          csrc/epilogue.cu      replaces fused_epilogue
   fused_epilogue_fp8      csrc/epilogue_fp8.cu  replaces fused_epilogue_fp8
   fused_epilogue_complex  csrc/complex.cu       replaces fused_epilogue_complex
   fused_recombine_3m      csrc/complex.cu       replaces fused_recombine_3m
+  reassemble_fp8          csrc/reassemble_fp8.cu  (no Pallas counterpart:
+                          fp8._reassemble, which the JAX package runs in jnp)
 
 and of the int8 product and CRT-epilogue kernels of the probe tools
 (tools/probe_fused.py, tools/probe_matmul3.py, tools/probe_epilogue.py;
@@ -51,8 +55,10 @@ import torch
 
 from . import ff, fp8, quantize, tables
 
-LAUNCHES = {"encode_planes": 0, "encode_planes_fp8": 0, "fused_epilogue": 0,
-            "fused_epilogue_fp8": 0, "fused_epilogue_complex": 0,
+LAUNCHES = {"encode_planes": 0, "encode_planes_fp8": 0,
+            "encode_lanes_fp8": 0, "fused_epilogue": 0,
+            "fused_epilogue_fp8": 0, "reassemble_fp8": 0,
+            "fused_epilogue_complex": 0,
             "fused_recombine_3m": 0, "matmul_i8_kloop": 0,
             "matmul_i8_astat": 0, "matmul_i8_wgmma_kloop": 0,
             "matmul_i8_wgmma_astat": 0, "transpose_i8": 0,
@@ -76,16 +82,21 @@ _ARGTYPES = {
     "encode_planes": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # x, sft, out, plan, is_f64, scale_axis, rows, cols, vec, stream
     "encode_planes_fp8": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # re, im, sft, out, plan, is_f64, scale_axis, rows, cols, vec, conj,
+    # stream
+    "encode_lanes_fp8": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # c_hi, sft_a, sft_b, out, in_i8, out_f64, m, n, vec, plan, stream
     "fused_epilogue": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
     # c3, sft_a, sft_b, out, out_f64, m, n, vec, plan, stream
     "fused_epilogue_fp8": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
+    # c3, out, m, n, vec, accumulate, plan, stream
+    "reassemble_fp8": [_P, _P, _I, _I, _I, _I, _P, _P],
     # c_hi3, sft_a, sft_b, out_re, out_im, stride, out_f64, m, n, vec, plan,
     # stream
     "fused_epilogue_complex": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
                                _P],
-    # c_hi3, out_re, out_im, m, n, plan, stream
-    "fused_recombine_3m": [_P, _P, _P, _I, _I, _P, _P],
+    # c_hi3, out_re, out_im, out_i32, m, n, plan, stream
+    "fused_recombine_3m": [_P, _P, _P, _I, _I, _I, _P, _P],
     # a, b, c, nu, m, n, k, b_kcontig, astat, bk, a_vec, b_vec, stream
     "matmul_i8": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # a, b (k-contiguous), c, nu, m, n, k, astat, stream
@@ -105,7 +116,7 @@ REDUCE_RANGE = 2 ** 31 - 2 ** 11   # G8_REDUCE_RANGE: encode's exact |acc|
 # columns (csrc/epilogue.cu, csrc/epilogue_fp8.cu and csrc/complex.cu: kCols)
 _TILE_ROWS = 4      # G8_TILE_ROWS
 EPILOGUE_COLS = {"fused_epilogue": 4, "fused_epilogue_fp8": 4,
-                 "fused_epilogue_complex": 2}
+                 "fused_epilogue_complex": 2, "reassemble_fp8": 4}
 
 
 def reset_launches() -> None:
@@ -412,6 +423,70 @@ def encode_planes_fp8(x: torch.Tensor, sft: torch.Tensor, scale_axis: int,
     return out
 
 
+def encode_lanes_fp8_plain(re, im, sft, scale_axis, num_moduli, conj=False):
+    """Plain version of the FP8 lane encoder, the order of operations of
+    gemmul8_tpu/complex_gemm.py:50-61: the wrapped residues of Re and of Im
+    (Im negated first for conj), their wrapped sum, each lane split as
+    fp8.split_planes splits it and stacked in the side's slot order: the
+    (3, 3nu, *re.shape) e4m3 lanes Re, Im, (Re+Im)."""
+    from .core import _wrap
+    if conj:
+        im = -im
+    rr, ri = (quantize.residues_wrapped(x, sft, scale_axis, num_moduli, _FP8)
+              for x in (re, im))
+    s = torch.stack([_wrap(rr[i] + ri[i], p) for i, p in
+                     enumerate(tables.moduli(_FP8)[:num_moduli])])
+    side = "lhs" if scale_axis == 0 else "rhs"
+    return torch.stack([fp8._gemm_stack(fp8.split_planes(x, num_moduli),
+                                        num_moduli, side)
+                        for x in (rr, ri, s)])
+
+
+def encode_lanes_fp8(re: torch.Tensor, im: torch.Tensor, sft: torch.Tensor,
+                     scale_axis: int, num_moduli: int, conj: bool = False,
+                     out: torch.Tensor | None = None) -> torch.Tensor:
+    """The three 3M lanes of one complex operand on the FP8 backend, from
+    one read of Re and Im: the (3, 3nu, *re.shape) float8_e4m3fn stacks of
+    Re, Im and (Re+Im) mod p, each in its side's slot order (scale_axis 0:
+    A, per-row shifts; 1: B, per-column shifts). conj negates Im before it
+    is quantized (the 'C' op).
+
+    On the card, B's lanes are (3, 3nu, k, n) views of (3, 3nu, n, k)
+    storage, each plane the column-major operand torch._scaled_mm reads
+    (plane_buffer). `out`, if given, is written and returned instead: a
+    float8_e4m3fn tensor in that same layout."""
+    if re.device.type == "cpu":
+        lanes = encode_lanes_fp8_plain(re, im, sft, scale_axis, num_moduli,
+                                       conj)
+        return lanes if out is None else out.copy_(lanes)
+    rows, cols = _check_encode("encode_lanes_fp8", re, sft, scale_axis,
+                               num_moduli)
+    if (im.device != re.device or im.dtype != re.dtype
+            or im.shape != re.shape or not im.is_contiguous()):
+        raise ValueError("encode_lanes_fp8: im must be a contiguous tensor "
+                         "of re's shape, dtype and device")
+    lead = (3, 3 * num_moduli)
+    if out is None:
+        out = plane_buffer(lead, rows, cols, scale_axis, re.device,
+                           torch.float8_e4m3fn)
+    elif (out.dtype != torch.float8_e4m3fn or out.device != re.device
+          or out.shape != (*lead, rows, cols)
+          or out.stride() != plane_buffer(lead, rows, cols, scale_axis,
+                                          "meta").stride()):
+        raise ValueError("encode_lanes_fp8: out must be a float8_e4m3fn "
+                         f"(3, {lead[1]}, {rows}, {cols}) tensor in the "
+                         "layout encode_lanes_fp8 returns")
+    if re.numel():
+        plan = _encode_plan_fp8(num_moduli, "lhs" if scale_axis == 0 else "rhs")
+        vec = _encode_vec(re, out, scale_axis) and (
+            scale_axis == 1 or im.data_ptr() % 16 == 0)
+        _launch("encode_lanes_fp8", re.data_ptr(), im.data_ptr(),
+                sft.data_ptr(), out.data_ptr(), ctypes.addressof(plan),
+                int(re.dtype == torch.float64), scale_axis, rows, cols,
+                int(vec), int(bool(conj)), _stream(re))
+    return out
+
+
 # ---------------------------------------------------------------------------
 # fused epilogue: wrap mod p + CRT limbs + descale, one pass over C_hi
 # ---------------------------------------------------------------------------
@@ -620,6 +695,48 @@ def fused_epilogue_fp8(c3: torch.Tensor, sft_a: torch.Tensor,
     return out
 
 
+def reassemble_fp8_plain(c3, num_moduli):
+    """Plain version of the FP8 reassembly kernel: fp8._reassemble, the
+    (nu, m, n) int32 wrapped residues of each modulus' product."""
+    return fp8._reassemble(c3.to(torch.int32), num_moduli)
+
+
+def reassemble_fp8(c3: torch.Tensor, num_moduli: int,
+                   out: torch.Tensor | None = None,
+                   accumulate: bool = False) -> torch.Tensor:
+    """(3nu, m, n) f32 exact lane products of the FP8 split planes
+    (fp8.residue_matmul_fp8, k <= K_CHUNK_FP8) -> (nu, m, n) int32 wrapped
+    residues of each modulus' product, K3's reassembly with no CRT. Written
+    into `out` (a contiguous int32 (nu, m, n) tensor, e.g. one lane's slot
+    of the complex path's (3nu, m, n) stack) if given; accumulate=True adds
+    them to out instead: out then holds K-chunked residue sums, as
+    fp8._chunked_residue_acc sums them."""
+    if accumulate and out is None:
+        raise ValueError("reassemble_fp8: accumulate needs out")
+    if c3.device.type == "cpu":
+        part = reassemble_fp8_plain(c3, num_moduli)
+        if out is None:
+            return part
+        return out.add_(part) if accumulate else out.copy_(part)
+    _check_nu("reassemble_fp8", num_moduli)
+    m, n = _check_epilogue("reassemble_fp8", c3, 3 * num_moduli,
+                           (torch.float32,), None, None)
+    if out is None:
+        out = torch.empty((num_moduli, m, n), dtype=torch.int32,
+                          device=c3.device)
+    elif (out.dtype != torch.int32 or out.device != c3.device
+          or out.shape != (num_moduli, m, n) or not out.is_contiguous()):
+        raise ValueError("reassemble_fp8: out must be a contiguous int32 "
+                         f"({num_moduli}, {m}, {n}) tensor on {c3.device}")
+    if out.numel():
+        plan = _epilogue_plan_fp8(num_moduli, 53)
+        vec = _epilogue_vec(n, EPILOGUE_COLS["reassemble_fp8"], c3, out)
+        _launch("reassemble_fp8", c3.data_ptr(), out.data_ptr(), m, n,
+                int(vec), int(bool(accumulate)), ctypes.addressof(plan),
+                _stream(c3))
+    return out
+
+
 # ---------------------------------------------------------------------------
 # complex (3M) epilogues: wrap the three lane products + recombine mod p
 # ---------------------------------------------------------------------------
@@ -630,37 +747,48 @@ REAL_DTYPE = {torch.complex64: torch.float32, torch.complex128: torch.float64,
 
 
 def _lane_mids(c_hi3, num_moduli, backend):
-    """(3nu, m, n) lane products -> (3, nu, m, n) wrapped int8 residues."""
+    """(3nu, m, n) lane products -> (3, nu, m, n) wrapped residues: int8 for
+    the INT8 moduli, int16 for the FP8 ones (core.mod_reduce)."""
     from .core import mod_reduce
     nu = num_moduli
     return torch.stack([mod_reduce(c_hi3[lane * nu:(lane + 1) * nu], nu,
                                    backend) for lane in range(3)])
 
 
+# the residue type of the recombine kernel's output: int8 holds every INT8
+# residue, the FP8 ones (p up to 1089) take int32, which the real epilogue
+# reads as it reads the FP8 K-chunk sums
+RECOMBINE_DTYPE = {_INT8: torch.int8, _FP8: torch.int32}
+
+
 def fused_recombine_3m_plain(c_hi3, num_moduli, backend):
     """Plain version of the recombine kernel: mod_reduce per lane ->
-    complex_gemm._recombine_3m."""
+    complex_gemm._recombine_3m, in RECOMBINE_DTYPE[backend]."""
     from .complex_gemm import _recombine_3m
-    return _recombine_3m(_lane_mids(c_hi3, num_moduli, backend), num_moduli,
-                         backend)
+    re, im = _recombine_3m(_lane_mids(c_hi3, num_moduli, backend), num_moduli,
+                           backend)
+    return re.to(RECOMBINE_DTYPE[backend]), im.to(RECOMBINE_DTYPE[backend])
 
 
 def fused_recombine_3m(c_hi3: torch.Tensor, num_moduli: int, backend: str):
     """(3nu, m, n) int32 lane products Crr | Cii | Crii (or their K-chunked
-    residue sums) -> (re, im), each (nu, m, n) int8 wrapped residues of
-    Re = Crr - Cii and Im = Crii - Crr - Cii."""
+    residue sums, or any int32) -> (re, im), each (nu, m, n) wrapped
+    residues of Re = Crr - Cii and Im = Crii - Crr - Cii: int8 on the INT8
+    backend, int32 on the FP8 one (RECOMBINE_DTYPE)."""
     if c_hi3.device.type == "cpu":
         return fused_recombine_3m_plain(c_hi3, num_moduli, backend)
     _check_nu("fused_recombine_3m", num_moduli)
-    _check_backend("fused_recombine_3m", backend, (_INT8,))
+    _check_backend("fused_recombine_3m", backend, (_INT8, _FP8))
     m, n = _check_epilogue("fused_recombine_3m", c_hi3, 3 * num_moduli,
                            (torch.int32,), None, None)
-    re = torch.empty((num_moduli, m, n), dtype=torch.int8, device=c_hi3.device)
+    re = torch.empty((num_moduli, m, n), dtype=RECOMBINE_DTYPE[backend],
+                     device=c_hi3.device)
     im = torch.empty_like(re)
     if re.numel():
         plan = _epilogue_plan(num_moduli, backend, 53)
         _launch("fused_recombine_3m", c_hi3.data_ptr(), re.data_ptr(),
-                im.data_ptr(), m, n, ctypes.addressof(plan), _stream(c_hi3))
+                im.data_ptr(), int(backend == _FP8), m, n,
+                ctypes.addressof(plan), _stream(c_hi3))
     return re, im
 
 
@@ -679,14 +807,16 @@ def fused_epilogue_complex(c_hi3: torch.Tensor, sft_a: torch.Tensor,
                            sft_b: torch.Tensor, num_moduli: int, backend: str,
                            out_dtype: torch.dtype):
     """(3nu, m, n) int32 lane products Crr | Cii | Crii (or their K-chunked
-    residue sums) -> the (m, n) complex product: one complex64/complex128
-    tensor for a complex out_dtype, written in place of a separate
-    torch.complex pass, or a (re, im) pair for f32/f64."""
+    residue sums; on the FP8 backend the lanes' wrapped residues from
+    reassemble_fp8, or their K-chunk sums) -> the (m, n) complex product:
+    one complex64/complex128 tensor for a complex out_dtype, written in
+    place of a separate torch.complex pass, or a (re, im) pair for
+    f32/f64."""
     if c_hi3.device.type == "cpu":
         return fused_epilogue_complex_plain(c_hi3, sft_a, sft_b, num_moduli,
                                             backend, out_dtype)
     _check_nu("fused_epilogue_complex", num_moduli)
-    _check_backend("fused_epilogue_complex", backend, (_INT8,))
+    _check_backend("fused_epilogue_complex", backend, (_INT8, _FP8))
     m, n = _check_epilogue("fused_epilogue_complex", c_hi3, 3 * num_moduli,
                            (torch.int32,), sft_a, sft_b)
     if out_dtype not in REAL_DTYPE:

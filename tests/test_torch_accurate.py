@@ -315,11 +315,15 @@ def test_accurate_herk_planar_bit_equal():
     _bits_equal(got_i, ref_i)
 
 
-def test_accurate_complex_fp8_still_refused():
+def test_accurate_complex_fp8_bit_equal_and_herk_fp8_refused():
+    """Accurate complex FP8 (queue 8), once refused here, gives gemmul8_tpu's
+    bits; herk on FP8 stays refused, as in the JAX package."""
     a = np.ones((4, 8), C128)
-    with pytest.raises(NotImplementedError, match="queue 8"):
-        gt.gemm(a, a.T.copy(), backend="FP8", fastmode=False, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 8"):
+    _bits_equal(gt.gemm(a, a.T.copy(), backend="FP8", fastmode=False,
+                        device="cpu"),
+                g8.gemm(jnp.asarray(a), jnp.asarray(a.T.copy()),
+                        backend="FP8", fastmode=False))
+    with pytest.raises(NotImplementedError, match="use gemm"):
         gt.herk(a, backend="FP8", fastmode=False, device="cpu")
 
 

@@ -119,10 +119,10 @@ def test_gemm_complex_conjugate_op():
     _gemm(None, "C", "N", m, n, k, 1.0, a, k, b, k, 0.0, c, m,
           num_moduli=14, fastmode=True)
     _bits_equal(c, _jgemm(a, b, num_moduli=14, trans_a="C"))
-    with pytest.raises(NotImplementedError, match="queue 8"):
-        compat.gemmLt(None, "C", "N", m, n, k, 1.0, a, k, b, k, 0.0, c, m,
-                      num_moduli=8, fastmode=True, backend="FP8",
-                      device="cpu")
+    # complex FP8 (queue 8), once refused here, gives gemmul8_tpu's bits
+    compat.gemmLt(None, "C", "N", m, n, k, 1.0, a, k, b, k, 0.0, c, m,
+                  num_moduli=8, fastmode=True, backend="FP8", device="cpu")
+    _bits_equal(c, _jgemm(a, b, num_moduli=8, trans_a="C", backend="FP8"))
 
 
 def test_gemm_rejects_fp8_gemmlt_accepts():

@@ -103,10 +103,18 @@ def test_quantize_complex_b_lanes_are_k_contiguous():
 
 
 def test_quantize_complex_fp8_raises_naming_queue_8():
+    """Complex FP8 (queue 8), once refused here, gives the JAX lanes: the
+    (3, 3nu, ...) e4m3 stacks in the side's slot order."""
+    from gemmul8_tpu import fp8 as jfp8
     re, im = _planes(4, 8, 16, np.float64)
     sft = torch.zeros(8, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="queue 8"):
-        tcg._quantize_complex(*_t(re, im), sft, 0, 4, "FP8", False)
+    got = tcg._quantize_complex(*_t(re, im), sft, 0, 4, "FP8", False)
+    ref = jcg._quantize_complex(jnp.asarray(re), jnp.asarray(im),
+                                jnp.asarray(sft.numpy()), 0, 4, "FP8", False)
+    assert got.shape == (3, 12, 8, 16)
+    for lane in range(3):
+        _bits_equal(got[lane].to(torch.float32), np.asarray(
+            jfp8._gemm_stack(ref[lane], 4, "lhs"), np.float32))
 
 
 def test_recombine_3m_bit_equal():

@@ -134,14 +134,15 @@ def test_gemm_complex_accepts_tensors_and_conjugate_views():
 def test_complex_error_surface():
     a = np.ones((4, 8), C128)
     b = np.ones((8, 3), C128)
-    with pytest.raises(NotImplementedError, match="queue 8"):
-        gt.gemm(a, b, backend="FP8", device="cpu")
-    # accurate mode, refused until it was ported, gives gemmul8_tpu's bits
+    # complex FP8 and accurate mode, refused until they were ported, give
+    # gemmul8_tpu's bits
+    _bits_equal(gt.gemm(a, b, backend="FP8", device="cpu"),
+                g8.gemm(jnp.asarray(a), jnp.asarray(b), backend="FP8"))
     _bits_equal(gt.gemm(a, b, fastmode=False, device="cpu"),
                 g8.gemm(jnp.asarray(a), jnp.asarray(b), fastmode=False))
     _bits_equal(gt.herk(a, fastmode=False, device="cpu"),
                 g8.herk(jnp.asarray(a), fastmode=False))
-    with pytest.raises(NotImplementedError, match="queue 8"):
+    with pytest.raises(NotImplementedError, match="use gemm"):
         gt.herk(a, backend="FP8", device="cpu")
     with pytest.raises(ValueError, match="bad op"):
         gt.gemm(a, b, trans_a="X", device="cpu")

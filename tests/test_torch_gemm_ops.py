@@ -85,17 +85,18 @@ def test_argument_errors():
 
 
 def test_unported_parts_raise_not_implemented():
-    """What is not ported raises, naming its ROADMAP queue; accurate mode
-    (queue 5) and striping (queue 6), once refused here, now return
-    gemmul8_tpu's bits."""
+    """The parts once refused here, naming their ROADMAP queue, now return
+    gemmul8_tpu's bits: accurate mode (queue 5), striping (queue 6) and
+    complex FP8 (queue 8)."""
     a = np.ones((4, 8))
     b = np.ones((8, 3))
     ca, cb = a.astype(np.complex128), b.astype(np.complex128)
     ref = np.asarray(g8.gemm(jnp.asarray(ca), jnp.asarray(cb), fastmode=False))
     got = gt.gemm(ca, cb, fastmode=False, device="cpu").numpy()
     np.testing.assert_array_equal(got.view(np.uint8), ref.view(np.uint8))
-    with pytest.raises(NotImplementedError, match="queue 8"):
-        gt.gemm(ca, cb, backend="FP8", device="cpu")
+    ref = np.asarray(g8.gemm(jnp.asarray(ca), jnp.asarray(cb), backend="FP8"))
+    got = gt.gemm(ca, cb, backend="FP8", device="cpu").numpy()
+    np.testing.assert_array_equal(got.view(np.uint8), ref.view(np.uint8))
     # real operands take the FP8 backend
     assert float(gt.gemm(a, b, backend="FP8", device="cpu")[0, 0]) == 8.0
     ref = np.asarray(g8.gemm(jnp.asarray(a), jnp.asarray(b), fastmode=False))
