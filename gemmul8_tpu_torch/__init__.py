@@ -12,8 +12,14 @@ products, per-phase timing, the reference's compat entries
 (compat.gemm/gemmLt/workSize), a matmul interposer for torch programs
 (install/emulate), the accuracy model and num_moduli chooser
 (choose_moduli, modeled_max_rel_err) and the comparison baselines
-(compare.matmul_bf16x9, compare.matmul_os1_int8). Bit-equal to gemmul8_tpu
-on the CPU.
+(compare.matmul_bf16x9, compare.matmul_os1_int8), and the dense solvers on
+the emulated GEMM with mesh=None: triangular solve and product, LU and
+Cholesky with their solves, inverse, iterative refinement (trsm, trmm, getrf,
+lu_solve, solve, potrf, potrs, posv, inv, trtri), blocked Householder QR and
+least squares (geqrf, ormqr, qr, lstsq) and the block-Jacobi svd and eigh.
+Bit-equal to gemmul8_tpu on the CPU; the solvers' small native pieces
+(torch.linalg) are the one exception, so they are equal given the same
+native results.
 """
 from . import compare, compat, tables
 from .accuracy_model import choose_moduli, modeled_max_rel_err
@@ -23,8 +29,12 @@ from .complex_gemm import gemm_batched_planar, gemm_planar, herk, herk_planar
 from .config import GemmConfig, env_config
 from .core import (QuantizedOperand, gemm, gemm_batched, gemm_quantized,
                    gemm_with_phases, matmul, precompute, syrk, work_bytes)
+from .eig import eigh, svd
 from .hook import emulate, install, refresh, uninstall
 from .kernels import LAUNCHES, reset_launches
+from .qr import geqrf, lstsq, ormqr, qr
+from .solvers import (getrf, inv, lu_solve, posv, potrf, potrs, solve, trmm,
+                      trsm, trtri)
 from .tables import Backend
 
 __all__ = ["gemm", "matmul", "syrk", "gemm_batched", "gemm_planar",
@@ -34,4 +44,6 @@ __all__ = ["gemm", "matmul", "syrk", "gemm_batched", "gemm_planar",
            "install", "uninstall", "refresh", "emulate", "Backend",
            "tables", "compare", "choose_moduli", "modeled_max_rel_err",
            "syr2k", "her2k", "symm", "hemm", "her2k_planar", "hemm_planar",
-           "symm_planar", "LAUNCHES", "reset_launches"]
+           "symm_planar", "trsm", "trmm", "getrf", "lu_solve", "solve",
+           "potrf", "potrs", "posv", "inv", "trtri", "geqrf", "ormqr", "qr",
+           "lstsq", "svd", "eigh", "LAUNCHES", "reset_launches"]

@@ -56,8 +56,18 @@ import math
 from typing import NamedTuple, Optional, Union
 
 import numpy as np
+import torch
 
 from . import tables
+
+# the torch dtypes the model answers for, by their numpy names
+_TORCH_DTYPES = {torch.float32: "float32", torch.float64: "float64",
+                 torch.complex64: "complex64", torch.complex128: "complex128"}
+
+
+def _dtype_name(dtype) -> str:
+    """numpy's name of a numpy or torch dtype ("float64" for either)."""
+    return np.dtype(_TORCH_DTYPES.get(dtype, dtype)).name
 
 #: calibrated worst-case intercepts per shift mode (see module docstring)
 CALIBRATED_C = {"fast": 24.7, "robust": 24.0, "accu": 21.0}
@@ -146,14 +156,15 @@ def modeled_max_rel_err(num_moduli: int, *,
     """Modeled max elementwise relative error at ``num_moduli``/``fastmode``.
 
     Floored at the output dtype's roundoff (the emulation cannot beat the
-    precision of the dtype it returns); ``inf`` for fast mode outside its
+    precision of the dtype it returns; ``out_dtype`` numpy or torch, as
+    choose_moduli's ``dtype``); ``inf`` for fast mode outside its
     calibrated spread domain (use robust or accurate there).
     """
     bits = _modeled_bits(num_moduli, backend, spread_bits,
                          _mode_key(fastmode))
     real = {"complex64": "float32",
-            "complex128": "float64"}.get(np.dtype(out_dtype).name,
-                                         np.dtype(out_dtype).name)
+            "complex128": "float64"}.get(_dtype_name(out_dtype),
+                                         _dtype_name(out_dtype))
     # spread data lifts the output-rounding floor too, saturating around
     # ~2.5 bits on the committed rows (see FLOOR_SPREAD_CAP)
     floor_bits = (math.log2(np.finfo(np.dtype(real)).eps)
@@ -174,7 +185,8 @@ def choose_moduli(target_rel_err: Optional[float] = None, *,
         "match the native GEMM of ``dtype``" (f64: ~2^-36; f32: ~2^-10 --
         the measured native max-rel-err on protocol data, which is what the
         reference's accuracy tables compare against).
-      dtype: output dtype; bounds the valid num_moduli range
+      dtype: output dtype (numpy, or torch's float32, float64, complex64,
+        complex128); bounds the valid num_moduli range
         (tables.VALID_RANGE, reference include/gemmul8.hpp:30) and the
         roundoff floor.
       backend: "INT8" (default) or "FP8".
@@ -194,7 +206,7 @@ def choose_moduli(target_rel_err: Optional[float] = None, *,
       ValueError: if no valid setting reaches the target; the message
         reports the best achievable modeled error.
     """
-    dname = np.dtype(dtype).name
+    dname = _dtype_name(dtype)
     if dname not in tables.VALID_RANGE:
         raise TypeError(f"unsupported dtype {dname}")
     lo, hi = tables.VALID_RANGE[dname]

@@ -5,6 +5,11 @@
   matmul3   tools/probe_matmul3.py   the same product on flat plane views
   epilogue  tools/probe_epilogue.py  the tensor-core CRT epilogue against K2
 
+the factorization benchmark
+
+  solver_flops  benchmarks/solver_flops.py  getrf, potrf, geqrf TFLOP/s
+                                            beside cuSOLVER's
+
 and, with no tool behind it,
 
   epilogue_tiles                     the design choices of K2, K4, K6

@@ -95,3 +95,37 @@ def test_choose_moduli_bad_dtype():
     _same_outcome(lambda: tam.choose_moduli(dtype=np.int32),
                   lambda: jam.choose_moduli(dtype=np.int32))
     assert gt.choose_moduli() == tuple(g8.choose_moduli())
+
+
+TORCH_DTYPES = [("float32", np.float32), ("float64", np.float64),
+                ("complex64", np.complex64), ("complex128", np.complex128)]
+
+
+@pytest.mark.parametrize("tname,npdt", TORCH_DTYPES)
+def test_choose_moduli_accepts_torch_dtypes(tname, npdt):
+    """The solvers pass a tensor's dtype (solve and posv's refinement):
+    torch's four dtypes answer as their numpy names do, targets and errors
+    alike; a numpy dtype keeps working."""
+    import torch
+    t = getattr(torch, tname)
+    assert tam.choose_moduli(dtype=t) == tam.choose_moduli(
+        dtype=np.dtype(npdt)) == jam.choose_moduli(dtype=npdt)
+    for target in (1e-6, 2.0 ** -40):
+        _same_outcome(lambda: tam.choose_moduli(target, dtype=t),
+                      lambda: jam.choose_moduli(target, dtype=npdt))
+
+
+@pytest.mark.parametrize("tname,npdt", TORCH_DTYPES)
+def test_modeled_max_rel_err_accepts_torch_dtypes(tname, npdt):
+    import torch
+    t = getattr(torch, tname)
+    for nu in (6, 14, 17):
+        assert tam.modeled_max_rel_err(nu, out_dtype=t) == \
+            tam.modeled_max_rel_err(nu, out_dtype=np.dtype(npdt)) == \
+            jam.modeled_max_rel_err(nu, out_dtype=npdt)
+
+
+def test_other_torch_dtypes_still_refused():
+    import torch
+    with pytest.raises(TypeError):
+        tam.choose_moduli(dtype=torch.int32)
