@@ -4281,6 +4281,423 @@ def solver_times(x, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# SUMMA over a device mesh (gemmul8_tpu_torch.parallel): a 1x1 NCCL mesh (a
+# world of one) at full width, a 2x2 mesh of four processes sharing the
+# card over gloo, the card against the CPU path, and times
+# ---------------------------------------------------------------------------
+
+SUMMA_KEYS = ("encode_planes", "_int_mm", "fused_epilogue",
+              "encode_planes_fp8", "_scaled_mm", "fused_epilogue_fp8",
+              "reassemble_fp8", "fused_epilogue_complex", "estimate_int_mm")
+SUMMA_PANEL = 2048                     # k_panel of the 8192^3 streams: 4 steps
+SUMMA_RUNS: dict = {}                  # case -> (dtype tag, launch counts)
+SUMMA_MESHES: dict = {}                # device type -> its 1x1 mesh
+# the 8192^3 cases on the 1x1 NCCL mesh: name, dtype, summa keywords, and
+# the launches one call makes (SUMMA_KEYS order)
+SUMMA_PATHS = (
+    ("dgemm16 gather", torch.float64, dict(num_moduli=16),
+     (2, 16, 1, 0, 0, 0, 0, 0, 0)),
+    ("dgemm16 stream ring", torch.float64,
+     dict(num_moduli=16, k_panel=SUMMA_PANEL), (2, 64, 1, 0, 0, 0, 0, 0, 0)),
+    ("dgemm16 stream psum", torch.float64,
+     dict(num_moduli=16, k_panel=SUMMA_PANEL, bcast="psum"),
+     (2, 64, 1, 0, 0, 0, 0, 0, 0)),
+    ("dgemm16 robust", torch.float64, dict(num_moduli=16, fastmode="robust"),
+     (2, 16, 1, 0, 0, 0, 0, 0, 0)),
+    ("dgemm16 accurate", torch.float64, dict(num_moduli=16, fastmode=False),
+     (2, 17, 1, 0, 0, 0, 0, 0, 1)),
+    ("sgemm8 gather", torch.float32, dict(num_moduli=8),
+     (2, 8, 1, 0, 0, 0, 0, 0, 0)),
+    ("fp8 dgemm14 gather", torch.float64, dict(num_moduli=14, backend="FP8"),
+     (0, 0, 0, 2, 42, 1, 0, 0, 0)),
+    ("fp8 dgemm14 stream", torch.float64,
+     dict(num_moduli=14, backend="FP8", k_panel=SUMMA_PANEL),
+     (0, 0, 1, 2, 168, 0, 4, 0, 0)),
+    ("zgemm16 planar gather", torch.complex128, dict(num_moduli=16),
+     (4, 48, 0, 0, 0, 0, 0, 1, 0)),
+    ("zgemm16 planar stream", torch.complex128,
+     dict(num_moduli=16, k_panel=SUMMA_PANEL), (4, 192, 0, 0, 0, 0, 0, 1, 0)),
+)
+SUMMA_HOLD_ROWS = 1024
+
+
+def summa_mesh(device_type):
+    """The 1x1 mesh on `device_type` over the world of one make_mesh starts
+    (gloo for host tensors, NCCL for CUDA ones), made once."""
+    from gemmul8_tpu_torch.parallel import summa
+    if device_type not in SUMMA_MESHES:
+        SUMMA_MESHES[device_type] = summa.make_mesh((1, 1),
+                                                    device_type=device_type)
+    return SUMMA_MESHES[device_type]
+
+
+def summa_call(mesh, a, b, kw):
+    """summa_gemm (complex operands: summa_gemm_planar on their parts) on
+    the mesh: the local block of C, complex for complex operands."""
+    from gemmul8_tpu_torch.parallel import summa
+    if a.is_complex():
+        cr, ci = summa.summa_gemm_planar(a.real, a.imag, b.real, b.imag,
+                                         mesh=mesh, **kw)
+        return torch.complex(cr.to_local(), ci.to_local())
+    return summa.summa_gemm(a, b, mesh=mesh, **kw).to_local()
+
+
+def summa_captures(store):
+    """Patch targets keeping the inputs of the kernels SUMMA's streams end
+    in: the real epilogue's accumulator (K2, whole), the second FP8 panel's
+    reassembly in accumulate mode (K3r) and the complex epilogue's lane
+    accumulator (K4), these two on rows 0-1023."""
+    from gemmul8_tpu_torch import kernels
+    from gemmul8_tpu_torch.parallel import summa
+    rows = SUMMA_HOLD_ROWS
+
+    def real_epilogue(fn):
+        def call(acc, sa, sb, nu, backend, dt, epilogue):
+            if acc.dtype == torch.int32 and "k2" not in store:
+                store["k2"] = (acc.clone(), sa, sb, nu, backend, dt)
+            return fn(acc, sa, sb, nu, backend, dt, epilogue)
+        return call
+
+    def reassemble(fn):
+        def call(c3, nu, out=None, accumulate=False):
+            if accumulate and "k3r" not in store:
+                store["k3r"] = (c3[:, :rows].clone(), nu,
+                                out[:, :rows].clone())
+            return fn(c3, nu, out=out, accumulate=accumulate)
+        return call
+
+    def lanes_epilogue(fn):
+        def call(acc3, sa, sb, nu, backend, dt, epilogue):
+            if "k4" not in store:
+                store["k4"] = (acc3[:, :rows].clone(), sa[:rows].clone(), sb,
+                               nu, backend, dt)
+            return fn(acc3, sa, sb, nu, backend, dt, epilogue)
+        return call
+    return [(summa, "_real_epilogue", real_epilogue),
+            (kernels, "reassemble_fp8", reassemble),
+            (summa, "_lanes_epilogue", lanes_epilogue)]
+
+
+def summa_accuracy(name, dt, got8, a, b):
+    """Rows 0-7 against the gemm paths' longdouble oracles, PERF.md §2's
+    limits: f64 max relative error <= 2x cuBLAS DGEMM's and max
+    error/(|A||B|) < 1e-13; f32 below cuBLAS SGEMM's; ZGEMM <= 2x cuBLAS
+    ZGEMM's."""
+    if dt == torch.complex128:
+        ref = COMPLEX_ORACLES[("gemm", dt)]
+        err, med = complex_relerr(got8, ref)
+        nerr, _ = complex_relerr(torch.matmul(a[:8], b).cpu().numpy(), ref)
+        check(err <= 2 * nerr, f"summa {name} error {err} vs cuBLAS {nerr}")
+        log(f"accuracy summa {name} rows 0-7: max {err:.3e} median "
+            f"{med:.3e}; torch.matmul max {nerr:.3e}")
+        return
+    ref, scale, (nerr, _) = ORACLES[dt]
+    err, med = max_median_relerr(got8, ref)
+    cw = float(np.max(np.abs(np.asarray(got8, np.longdouble) - ref) / scale))
+    if dt == torch.float64:
+        check(err <= 2 * nerr and cw < 1e-13,
+              f"summa {name} error {err} (|A||B|-relative {cw}) vs cuBLAS "
+              f"{nerr}")
+    else:
+        check(err < nerr, f"summa {name} error {err} vs cuBLAS f32 {nerr}")
+    log(f"accuracy summa {name} rows 0-7: max {err:.3e} median {med:.3e} "
+        f"max/|A||B| {cw:.3e}; torch.matmul max {nerr:.3e}")
+
+
+def summa_paths(a64, b64, A, B):
+    """Phase 4: SUMMA through summa_gemm / summa_gemm_planar on a 1x1 NCCL
+    mesh at 8192^3, each case with its launch counts set to 0 just before
+    and read just after; the output's shape, dtype and finiteness; rows 0-7
+    within PERF.md §2's limits; the streams bit-equal to the gather path.
+    K2 on the streamed accumulator, K3r in accumulate mode and K4 on the
+    complex stream's accumulator are held against their plain versions at
+    these shapes."""
+    import torch.distributed as dist
+    from gemmul8_tpu_torch import kernels
+    mesh = summa_mesh("cuda")
+    backend = dist.get_backend_config(mesh.get_group("x"))
+    check("cuda:nccl" in backend, f"the card's mesh runs on {backend}")
+    ops = {torch.float64: (a64, b64),
+           torch.float32: (a64.float(), b64.float()),
+           torch.complex128: (A, B)}
+    outs, store = {}, {}
+    for name, dt, kw, want in SUMMA_PATHS:
+        a, b = ops[dt]
+        with patched(summa_captures(store)):
+            c, counts = run_counted(lambda: summa_call(mesh, a, b, kw))
+        got = tuple(counts.get(k, 0) for k in SUMMA_KEYS)
+        check(got == want, f"summa {name} launches "
+              f"{dict(zip(SUMMA_KEYS, got))}, want "
+              f"{dict(zip(SUMMA_KEYS, want))}")
+        SUMMA_RUNS[name] = (TAG[dt], counts)
+        check(c.shape == (FULL, FULL) and c.dtype == dt and bool(
+            torch.isfinite(torch.view_as_real(c) if c.is_complex() else c)
+            .all()), f"summa {name} output {c.shape} {c.dtype}")
+        summa_accuracy(name, dt, c[:8].cpu().numpy(), a, b)
+        outs[name] = c
+        log(f"summa {name}: launches "
+            f"{ {k: v for k, v in zip(SUMMA_KEYS, got) if v} }")
+    del ops
+    for stream, gather in (("dgemm16 stream ring", "dgemm16 gather"),
+                           ("dgemm16 stream psum", "dgemm16 gather"),
+                           ("fp8 dgemm14 stream", "fp8 dgemm14 gather"),
+                           ("zgemm16 planar stream",
+                            "zgemm16 planar gather")):
+        assert_bits_equal(outs[stream], outs[gather],
+                          f"summa {stream} vs {gather}")
+    del outs
+    torch.cuda.empty_cache()
+    acc, sa, sb, nu, backend, dt = store.pop("k2")
+    compare_rows("fused_epilogue[f64]",
+                 kernels.fused_epilogue(acc, sa, sb, nu, backend, dt),
+                 lambda r0, r1: kernels.fused_epilogue_plain(
+                     acc[:, r0:r1], sa[r0:r1], sb, nu, backend, dt),
+                 "K2 on SUMMA's streamed accumulator")
+    del acc
+    c3, nu, out = store.pop("k3r")
+    compare(REASSEMBLE_KEY, kernels.reassemble_fp8(
+        c3, nu, out=out.clone(), accumulate=True),
+        out + kernels.reassemble_fp8_plain(c3, nu),
+        "K3r accumulating SUMMA's second FP8 panel")
+    acc3, sa, sb, nu, backend, dt = store.pop("k4")
+    compare("fused_epilogue_complex[c128]", kernels.fused_epilogue_complex(
+        acc3, sa, sb, nu, backend, dt), kernels.fused_epilogue_complex_plain(
+        acc3, sa, sb, nu, backend, dt), "K4 on SUMMA's streamed lanes")
+    del store, c3, out, acc3
+    torch.cuda.empty_cache()
+    log(f"kernels vs plain at SUMMA's shapes, bit-equal: {CASES}")
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _block(x, coord, shape):
+    (i, j), (X, Y) = coord, shape
+    r, c = x.shape[0] // X, x.shape[1] // Y
+    return x[i * r:(i + 1) * r, j * c:(j + 1) * c]
+
+
+SUMMA_2X2: dict = {}          # case -> per-rank (ms, plane bytes)
+
+
+def summa_mesh_2x2(card, deadline_s=420):
+    """Phase 4: the 2x2 mesh, four processes sharing the card over gloo
+    (NCCL refuses two ranks on one device), started with the spawn method
+    after the kernel library is built; each loads it from _build/. Every
+    rank's C block (the solvers' whole results) must equal the 1x1 NCCL
+    run of the same cases bit for bit (compared by digest), each rank's
+    plane bytes must equal summa_bytes_moved's model (FP8: half, e4m3 for
+    bf16), rank 0 holds K1 and K2 at its block shapes against their plain
+    versions, and no rank imports JAX or the JAX package."""
+    import queue as queue_mod
+    import torch.multiprocessing as mp
+    from gemmul8_tpu_torch.parallel import summa
+    from gemmul8_tpu_torch.probes import summa_mesh as sm
+    shape, world = (2, 2), 4
+    coords = [(i, j) for i in range(2) for j in range(2)]
+    mesh = summa_mesh("cuda")
+    x = sm.inputs(torch.device("cuda"))
+    ref = {}
+    t0 = time.perf_counter()
+    for name in sm.case_names():
+        outs = sm.run_case(mesh, x, name)
+        ref[name] = ({c: [sm.digest(_block(o, c, shape)) for o in outs]
+                      for c in coords} if name in sm.GEMM_CASES
+                     else [sm.digest(o) for o in outs])
+        del outs
+    del x
+    torch.cuda.empty_cache()
+    log(f"summa 2x2: the 1x1 NCCL reference in "
+        f"{time.perf_counter() - t0:.1f}s")
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    t0 = time.perf_counter()
+    linalg = str(torch.backends.cuda.preferred_linalg_library()).rpartition(
+        ".")[2].lower()
+    procs = mp.spawn(sm.worker, args=(world, shape, _free_port(), q, linalg),
+                     nprocs=world, join=False)
+    got = []
+    try:
+        while len(got) < world:
+            check(time.perf_counter() - t0 < deadline_s,
+                  f"summa 2x2: {len(got)} of {world} ranks in {deadline_s}s")
+            try:
+                got.append(q.get(timeout=5))
+            except queue_mod.Empty:
+                procs.join(timeout=0.1)       # raises if a rank failed
+        while not procs.join(timeout=5):
+            check(time.perf_counter() - t0 < deadline_s, "summa 2x2: a rank "
+                  "did not end")
+    finally:
+        for p in procs.processes:
+            if p.is_alive():
+                p.terminate()
+    log(f"summa 2x2: four ranks in {time.perf_counter() - t0:.1f}s")
+    for rank, coord, res, holds, imported in sorted(got):
+        check(imported == [], f"rank {rank} imported {imported}")
+        for name, r in res.items():
+            want = ref[name][coord] if name in sm.GEMM_CASES else ref[name]
+            check(r["digests"] == want, f"summa 2x2 {name}: rank {rank} "
+                  f"{coord} differs from the 1x1 run")
+            if name in sm.GEMM_CASES:
+                planes = summa.plane_bytes(r["bytes"])
+                keys, kw = sm.GEMM_CASES[name]
+                n = sm.N_GEMM if len(keys) == 2 else sm.N_CPLX
+                model = summa.summa_bytes_moved(
+                    n, n, n, shape, kw["num_moduli"],
+                    k_panel=kw.get("k_panel"), bcast=kw.get("bcast", "ring"),
+                    backend=kw.get("backend", "INT8"),
+                    fastmode=kw.get("fastmode", True),
+                    complex_lanes=len(keys) == 4)
+                if kw.get("backend") == "FP8":
+                    model /= 2
+                check(planes == model, f"summa 2x2 {name}: rank {rank} sent "
+                      f"{planes} plane bytes, the model says {model}")
+                SUMMA_2X2.setdefault(name, []).append((r["ms"], planes))
+            else:
+                SUMMA_2X2.setdefault(name, []).append((r["ms"], None))
+        for kname, (equal, shape_) in holds.items():
+            key = f"{kname}[f64]"
+            check(equal, f"rank 0's {kname} at {shape_} differs from its "
+                  f"plain version")
+            MAX_ABS_ERR.setdefault(key, 0.0)
+            CASES[key] = CASES.get(key, 0) + 1
+    for name, runs in SUMMA_2X2.items():
+        log(f"summa 2x2 {card} (four ranks time-sharing one card over "
+            f"gloo, not scaling): {name} ms by rank "
+            f"{[round(ms, 3) for ms, _ in runs]}, plane bytes a rank "
+            f"{[b for _, b in runs]}")
+    return SUMMA_2X2
+
+
+def summa_runs_of(key, tag, kern):
+    """The launches of kernel `key` in each SUMMA call of phase 4 that the
+    entry tagged `tag` stands for: the entry of the call's dtype, else of
+    its real parts' (a planar ZGEMM's K1 encodes f64 planes), else every
+    entry of the kernel (K3r's one entry stands for it on any dtype)."""
+    tags = {e["name"].partition("[")[2].rstrip("]") for e in kern
+            if e["name"].partition("[")[0] == key}
+    runs = {}
+    for name, (dtag, counts) in SUMMA_RUNS.items():
+        if not counts.get(key):
+            continue
+        want = next((t for t in (dtag, {"c128": "f64", "c64": "f32"}.get(
+            dtag)) if t in tags), None)
+        if want is None or want == tag:
+            runs[name] = counts[key]
+    return runs
+
+
+def summa_card_vs_cpu(rng):
+    """Phase 5: the 1x1 NCCL mesh against the port's CPU path on a gloo CPU
+    mesh of one in this process, bit for bit, at small ragged shapes (the
+    card pads to 128; k_panel 96 pads each panel), in every mode, the "ff"
+    epilogue on both."""
+    cuda, cpu = summa_mesh("cuda"), summa_mesh("cpu")
+    m, k, n = 200, 384, 136
+    a = phi_matrix(rng, m, k, 1.0)
+    b = phi_matrix(rng, k, n, 1.0)
+    za = a + 1j * phi_matrix(rng, m, k, 1.0)
+    zb = b + 1j * phi_matrix(rng, k, n, 1.0)
+    cases = [
+        (a, b, dict(num_moduli=16)),
+        (a, b, dict(num_moduli=16, fastmode="robust")),
+        (a, b, dict(num_moduli=16, fastmode=False)),
+        (a, b, dict(num_moduli=16, k_panel=128)),
+        (a, b, dict(num_moduli=16, k_panel=96, bcast="psum")),
+        (a, b, dict(num_moduli=16, k_panel=96, fastmode=False)),
+        (a.astype(np.float32), b.astype(np.float32), dict(num_moduli=8)),
+        (a, b, dict(num_moduli=14, backend="FP8")),
+        (a, b, dict(num_moduli=14, backend="FP8", fastmode=False)),
+        (a, b, dict(num_moduli=14, backend="FP8", k_panel=96)),
+        (za, zb, dict(num_moduli=16)),
+        (za, zb, dict(num_moduli=18)),
+        (za, zb, dict(num_moduli=16, k_panel=128)),
+        (za, zb, dict(num_moduli=12, fastmode=False, k_panel=96)),
+        (za.astype(np.complex64), zb.astype(np.complex64),
+         dict(num_moduli=9, backend="FP8")),
+    ]
+    for x, y, kw in cases:
+        kw = dict(kw, epilogue="ff")
+        tx, ty = torch.from_numpy(x), torch.from_numpy(y)
+        got = summa_call(cuda, tx.cuda(), ty.cuda(), kw)
+        ref = summa_call(cpu, tx, ty, kw)
+        assert_bits_equal(got, ref, f"summa card vs cpu {x.dtype} {kw}")
+    return len(cases)
+
+
+def summa_times(a64, b64, card):
+    """Phase 6: SUMMA on the 1x1 NCCL mesh, gather and stream (k_panel
+    2048, ring), beside gemm and torch.matmul at DGEMM 8192^3 nu=16, in
+    turns (CUDA events, median of 10 after a warm-up), and each stage apart
+    (median of 5): the distributed shifts, the encodes, the collectives,
+    the products, the stream's accumulation and the epilogue."""
+    import gemmul8_tpu_torch as gt
+    from gemmul8_tpu_torch import core, kernels
+    from gemmul8_tpu_torch.parallel import summa
+    mesh = summa_mesh("cuda")
+    nu = 16
+    calls = {
+        "gemm": lambda: gt.gemm(a64, b64, num_moduli=nu),
+        "summa gather": lambda: summa.summa_gemm(a64, b64, mesh=mesh,
+                                                 num_moduli=nu),
+        "summa stream": lambda: summa.summa_gemm(
+            a64, b64, mesh=mesh, num_moduli=nu, k_panel=SUMMA_PANEL),
+        "torch.matmul": lambda: torch.matmul(a64, b64),
+    }
+    t = {name: v[0] for name, v in in_turns(calls, reps=5).items()}
+    summa.reset_bytes()
+    calls["summa gather"]()
+    # a 1x1 mesh sends no plane: each team is one rank (the 2x2 run's bytes
+    # are phase 4's)
+    t["plane_bytes_a_rank"] = summa.plane_bytes(summa.BYTES_SENT)
+    check(t["plane_bytes_a_rank"] == 0, "a 1x1 mesh sent plane bytes")
+    comm = summa.Comm(mesh)
+    sa, sb = summa._dist_shifts(a64, b64, nu, True, "INT8", comm)
+    pa = core.encode_side(a64, sa, 0, nu, "INT8")
+    pb = core.encode_side(b64, sb, 1, nu, "INT8")
+    ag = comm.gather_k(pa, "y", -1)
+    bg = comm.gather_k(pb, "x", -2)
+    c_hi = core.residue_matmul(ag, bg)
+    w = SUMMA_PANEL
+    ap, bp = (comm.bcast(pa, "y", 0, 0, w, -1)(),
+              comm.bcast(pb, "x", 0, 0, w, -2)())
+    part = core.residue_matmul(ap, bp)
+    raw = part.clone()
+    stages = dict(
+        shifts_ms=cuda_ms(lambda: summa._dist_shifts(a64, b64, nu, True,
+                                                     "INT8", comm)),
+        encodes_ms=cuda_ms(lambda: (core.encode_side(a64, sa, 0, nu, "INT8"),
+                                    core.encode_side(b64, sb, 1, nu,
+                                                     "INT8"))),
+        gather_ms=cuda_ms(lambda: (comm.gather_k(pa, "y", -1),
+                                   comm.gather_k(pb, "x", -2))),
+        products_ms=cuda_ms(lambda: core.residue_matmul(ag, bg)),
+        epilogue_ms=cuda_ms(lambda: kernels.fused_epilogue(
+            c_hi, sa, sb, nu, "INT8", torch.float64)),
+        panel_bcast_ms=cuda_ms(lambda: (
+            comm.bcast(pa, "y", 0, 0, w, -1)(),
+            comm.bcast(pb, "x", 0, 0, w, -2)())),
+        panel_products_ms=cuda_ms(lambda: core.residue_matmul(ap, bp,
+                                                              out=part)),
+        panel_accumulate_ms=cuda_ms(lambda: raw.add_(part)),
+    )
+    del ag, bg, c_hi, pa, pb, ap, bp, part, raw
+    torch.cuda.empty_cache()
+    t.update(stages)
+    flops = 2.0 * FULL ** 3
+    for name in calls:
+        t[f"{name} TF/s"] = flops / (t[name] * 1e-3) / 1e12
+    log(f"summa times {card} | DGEMM 8192^3 nu=16 1x1 NCCL mesh: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in t.items()))
+    return t
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--quick", action="store_true",
@@ -4409,6 +4826,13 @@ def main():
     sx = solver_operands()
     caps = solver_paths(sx)
     log_phase("phase 4 (solvers, qr, eig)")
+    # SUMMA over a device mesh: a 1x1 NCCL mesh at full width, then a 2x2
+    # mesh of four processes sharing the card over gloo
+    torch.cuda.empty_cache()
+    summa_paths(a64, b64, A, B)
+    log_phase("phase 4 (SUMMA, 1x1 NCCL mesh)")
+    summa_mesh_2x2(card)
+    log_phase("phase 4 (SUMMA, 2x2 mesh of four processes)")
 
     # phase 5: the card against the CPU path, bit for bit
     n_cpu = card_vs_cpu(rng)
@@ -4428,6 +4852,9 @@ def main():
     n_solver = solver_card_vs_cpu(np.random.default_rng(SEED + 17), caps)
     log(f"solvers card vs cpu: {n_solver} cases")
     del caps
+    # and SUMMA's, on another (SEED + 18 seeds the solver operands)
+    n_summa = summa_card_vs_cpu(np.random.default_rng(SEED + 19))
+    log(f"summa card vs cpu: {n_summa} cases bit-equal")
     log_phase("phase 5 (card vs cpu)")
 
     # phase 6: times; the solvers' first, so that their operands and
@@ -4437,6 +4864,8 @@ def main():
     del sx
     SOLVER_CALLS.clear()
     torch.cuda.empty_cache()
+    summa_times(a64, b64, card)
+    log_phase("phase 6 (SUMMA times)")
     timing = {}
     for dt, nu in PATHS:
         a, b = a64.to(dt), b64.to(dt)
@@ -4649,6 +5078,10 @@ def main():
                 and counts.get(key)}
         if runs:
             entry["solver_launches"] = runs
+        # and in the SUMMA calls of phase 4 (1x1 NCCL mesh) that run it
+        runs = summa_runs_of(key, tag.rstrip("]"), kern)
+        if runs:
+            entry["summa_launches"] = runs
     log(card)
     log(json.dumps({"kernels": kern}))
     print(json.dumps({"ok": True, "device": {

@@ -12,11 +12,14 @@ products, per-phase timing, the reference's compat entries
 (compat.gemm/gemmLt/workSize), a matmul interposer for torch programs
 (install/emulate), the accuracy model and num_moduli chooser
 (choose_moduli, modeled_max_rel_err) and the comparison baselines
-(compare.matmul_bf16x9, compare.matmul_os1_int8), and the dense solvers on
-the emulated GEMM with mesh=None: triangular solve and product, LU and
-Cholesky with their solves, inverse, iterative refinement (trsm, trmm, getrf,
-lu_solve, solve, potrf, potrs, posv, inv, trtri), blocked Householder QR and
-least squares (geqrf, ormqr, qr, lstsq) and the block-Jacobi svd and eigh.
+(compare.matmul_bf16x9, compare.matmul_os1_int8), the dense solvers on
+the emulated GEMM: triangular solve and product, LU and Cholesky with their
+solves, inverse, iterative refinement (trsm, trmm, getrf, lu_solve, solve,
+potrf, potrs, posv, inv, trtri), blocked Householder QR and least squares
+(geqrf, ormqr, qr, lstsq) and the block-Jacobi svd and eigh, and the
+distributed SUMMA GEMM over a torch.distributed device mesh
+(gemmul8_tpu_torch.parallel: summa_gemm, summa_gemm_planar, make_mesh),
+which the solvers' mesh= argument runs their updates through.
 Bit-equal to gemmul8_tpu on the CPU; the solvers' small native pieces
 (torch.linalg) are the one exception, so they are equal given the same
 native results.

@@ -218,6 +218,23 @@ def _fp8_lane_residues(pa, pb, num_moduli):
     return res
 
 
+def lanes_epilogue_ff(c_hi3, sft_a, sft_b, num_moduli, backend, out_dtype):
+    """The "ff" epilogue of (3nu, m, n) int32 lane products (or any int32
+    congruent to them, as residue sums are): one complex epilogue kernel for
+    nu <= 16; above it the recombine kernel into int8 (FP8: int32) residues,
+    then the real epilogue twice. Returns a complex tensor for a complex
+    out_dtype, else the (re, im) pair."""
+    if num_moduli <= 16:
+        return kernels.fused_epilogue_complex(c_hi3, sft_a, sft_b, num_moduli,
+                                              backend, out_dtype)
+    mid_r, mid_i = kernels.fused_recombine_3m(c_hi3, num_moduli, backend)
+    del c_hi3
+    real_dt = kernels.REAL_DTYPE[out_dtype]
+    re, im = (kernels.fused_epilogue(x, sft_a, sft_b, num_moduli, backend,
+                                     real_dt) for x in (mid_r, mid_i))
+    return _pack(re, im, out_dtype)
+
+
 def _complex_product(pa, pb, sft_a, sft_b, num_moduli, backend, out_dtype,
                      epilogue):
     """Lane-product residue GEMMs + 3M recombine + dual CRT from the encoded
@@ -236,16 +253,7 @@ def _complex_product(pa, pb, sft_a, sft_b, num_moduli, backend, out_dtype,
             c_hi3 = torch.cat([core._chunked_residue_acc(pa[lane], pb[lane],
                                                          nu, backend)
                                for lane in range(3)])
-        if nu <= 16:
-            return kernels.fused_epilogue_complex(c_hi3, sft_a, sft_b, nu,
-                                                  backend, out_dtype)
-        # nu > 16: recombine into int8 (FP8: int32) residues, then the real
-        # epilogue twice
-        mid_r, mid_i = kernels.fused_recombine_3m(c_hi3, nu, backend)
-        del c_hi3
-        re, im = (kernels.fused_epilogue(x, sft_a, sft_b, nu, backend, real_dt)
-                  for x in (mid_r, mid_i))
-        return _pack(re, im, out_dtype)
+        return lanes_epilogue_ff(c_hi3, sft_a, sft_b, nu, backend, out_dtype)
     if is_fp8:
         mids = torch.stack([fp8.residue_gemm_fp8(pa[lane], pb[lane], nu)
                             for lane in range(3)])

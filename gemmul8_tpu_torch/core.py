@@ -36,13 +36,14 @@ K_CHUNK = 1 << 17
 _DTYPE_NAMES = {torch.float32: "float32", torch.float64: "float64"}
 
 
-def residue_matmul(a_planes: torch.Tensor, b_planes: torch.Tensor
-                   ) -> torch.Tensor:
+def residue_matmul(a_planes: torch.Tensor, b_planes: torch.Tensor,
+                   out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(nu, m, k) int8 @ (nu, k, n) int8 -> (nu, m, n) int32, exact: one
-    torch._int_mm per modulus into a preallocated C_hi."""
+    torch._int_mm per modulus into a preallocated C_hi (`out` if given)."""
     nu, m, _ = a_planes.shape
     n = b_planes.shape[2]
-    c_hi = torch.empty((nu, m, n), dtype=torch.int32, device=a_planes.device)
+    c_hi = out if out is not None else torch.empty(
+        (nu, m, n), dtype=torch.int32, device=a_planes.device)
     for i in range(nu):
         quantize.int_mm(a_planes[i], b_planes[i], out=c_hi[i])
     return c_hi

@@ -1,11 +1,15 @@
 """Block-Jacobi SVD and Hermitian eigendecomposition over the emulated GEMM.
 
-The counterpart of gemmul8_tpu/eig.py, with ``mesh=None``. A sweep is a
-fixed round-robin schedule of block-pair rotations; each round's work is
-batched emulated GEMMs (the pair Gram products and the block-column
-rotations, through the port's :func:`gemm_batched`) plus one batched native
-eigh of the 2b x 2b rotation subproblems (``_eigh_small``: torch.linalg.eigh,
-cuSOLVER on the card).
+The counterpart of gemmul8_tpu/eig.py. A sweep is a fixed round-robin
+schedule of block-pair rotations; each round's work is batched emulated
+GEMMs (the pair Gram products and the block-column rotations, through the
+port's :func:`gemm_batched`) plus one batched native eigh of the 2b x 2b
+rotation subproblems (``_eigh_small``: torch.linalg.eigh, cuSOLVER on the
+card). With ``mesh`` (a DeviceMesh from
+gemmul8_tpu_torch.parallel.make_mesh) each batched GEMM of a round is split
+over the mesh's ranks by pairs, and one all-gather rebuilds the batch: the
+pairs are independent, and so are the products, so the bits are those of
+mesh=None.
 
 svd:  one-sided (Hestenes) block Jacobi -- orthogonalizes column blocks of
       W = A V; at convergence sigma = column norms, U = W / sigma.
@@ -33,7 +37,7 @@ import torch
 from . import tables
 from .complex_gemm import _cmul
 from .core import _as_tensor, _device, gemm_batched
-from .solvers import _check_2d, _check_mesh_blocking, _ct, _hermitian_part
+from .solvers import _check_2d, _ct, _hermitian_part
 
 __all__ = ["svd", "eigh"]
 
@@ -102,6 +106,31 @@ def _scatter_cols(x, cols, upd):
     x[:, cols.reshape(-1)] = upd.permute(1, 0, 2).reshape(x.shape[0], p * w)
 
 
+def _pair_split(mesh, pairs_per_round: int):
+    """This rank's share of a round's pairs, as a function that runs a
+    batched GEMM on its share and all-gathers the whole batch; None without
+    a mesh. A round's pairs are independent, so the split needs no
+    collective inside a product."""
+    if mesh is None:
+        return None
+    size = mesh.mesh.numel()
+    if pairs_per_round % size:
+        raise ValueError(
+            f"mesh with {size} devices needs the pairs-per-round "
+            f"({pairs_per_round}) divisible by it; pairs-per-round is "
+            f"floor(nb/2) for nb = n/block blocks -- pick a block width "
+            f"making that a multiple of n_devices")
+    from .parallel import summa
+    comm = summa.Comm(mesh)
+    share = pairs_per_round // size
+    me = comm.pos["x"] * comm.size["y"] + comm.pos["y"]
+    mine = slice(me * share, (me + 1) * share)
+
+    def run(a, b, **kw):
+        return comm.gather_all(gemm_batched(a[mine], b[mine], **kw), 0)
+    return run
+
+
 def _default_nu(dtype) -> int:
     # iterative orthogonalization needs near-dtype-accurate rotations: the
     # dtype's native-precision settings (choose_moduli law)
@@ -155,7 +184,7 @@ def svd(a, *, num_moduli: Optional[int] = None, fastmode="robust",
     nu = num_moduli if num_moduli is not None else _default_nu(a.dtype)
     b = _pick_block(n, block)
     rounds = _round_robin(n // b)
-    _check_mesh_blocking(mesh, "svd")
+    batched = _pair_split(mesh, len(rounds[0])) or gemm_batched
     stop = _tolerances(a, tol)
     tiny = torch.finfo(a.dtype).tiny
     kw = dict(num_moduli=nu, fastmode=fastmode, backend=backend,
@@ -174,16 +203,16 @@ def svd(a, *, num_moduli: Optional[int] = None, fastmode="robust",
                 continue
             cols = _pair_cols(pairs, b, device)
             x = _gather_cols(w, cols)                       # (P, m, 2b)
-            g = gemm_batched(_ct(x), x, **kw)
+            g = batched(_ct(x), x, **kw)
             d = torch.diagonal(g, dim1=1, dim2=2).real      # (P, 2b)
             denom = torch.sqrt(torch.clamp(
                 d[:, :b, None] * d[:, None, b:], min=tiny))
             off = torch.maximum(off, torch.max(g[:, :b, b:].abs() / denom))
             off2 = off2 + torch.sum(_abs2(g[:, :b, b:]))
             j = torch.flip(_rotations(g), (2,))             # descending
-            _scatter_cols(w, cols, gemm_batched(x, j, **kw))
+            _scatter_cols(w, cols, batched(x, j, **kw))
             if compute_uv:
-                _scatter_cols(v, cols, gemm_batched(
+                _scatter_cols(v, cols, batched(
                     _gather_cols(v, cols), j, **kw))
         off_h, off_f = torch.stack([off, torch.sqrt(off2) / fro2]).tolist()
         if off_h <= stop:
@@ -232,7 +261,7 @@ def eigh(a, *, num_moduli: Optional[int] = None, fastmode="robust",
     nu = num_moduli if num_moduli is not None else _default_nu(a.dtype)
     b = _pick_block(n, block)
     rounds = _round_robin(n // b)
-    _check_mesh_blocking(mesh, "eigh")
+    batched = _pair_split(mesh, len(rounds[0])) or gemm_batched
     stop = _tolerances(a, tol)
     tiny = torch.finfo(a.dtype).tiny
     kw = dict(num_moduli=nu, fastmode=fastmode, backend=backend,
@@ -257,11 +286,11 @@ def eigh(a, *, num_moduli: Optional[int] = None, fastmode="robust",
             s = torch.gather(rows, 2, cols[:, None, :].expand(p, w2, w2))
             off2 = off2 + 2.0 * torch.sum(_abs2(s[:, :b, b:]))
             j = _rotations(s)                               # ascending
-            _scatter_cols(a, cols, gemm_batched(_gather_cols(a, cols), j,
+            _scatter_cols(a, cols, batched(_gather_cols(a, cols), j,
                                                 **kw))
             rows = a.index_select(0, idx).reshape(p, w2, n)
-            a[idx, :] = gemm_batched(_ct(j), rows, **kw).reshape(-1, n)
-            _scatter_cols(v, cols, gemm_batched(_gather_cols(v, cols), j,
+            a[idx, :] = batched(_ct(j), rows, **kw).reshape(-1, n)
+            _scatter_cols(v, cols, batched(_gather_cols(v, cols), j,
                                                 **kw))
         a = hermitian(a)
         off_h = float(torch.sqrt(off2) / torch.clamp(fro, min=tiny))

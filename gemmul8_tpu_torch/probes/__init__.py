@@ -14,6 +14,9 @@ and, with no tool behind it,
 
   epilogue_tiles                     the design choices of K2, K4, K6
                                      and K8, each undone in turn and timed
+  summa_mesh                         chip_smoke.py's SUMMA cases on a mesh
+                                     of ranks sharing the card (a worker
+                                     module, no table of its own)
 
 Each runs as `python -m gemmul8_tpu_torch.probes.<name>` on a CUDA card and
 prints a table; chip_smoke.py drives the first three's main() functions and

@@ -1,8 +1,10 @@
 """Blocked Householder QR and least squares over the emulated GEMM.
 
-The counterpart of gemmul8_tpu/qr.py, with ``mesh=None``: blocked
-Householder with compact-WY block reflectors (Q = I - V T V^H per block,
-LAPACK geqrf/larft/larfb structure).
+The counterpart of gemmul8_tpu/qr.py: blocked Householder with compact-WY
+block reflectors (Q = I - V T V^H per block, LAPACK geqrf/larft/larfb
+structure). With ``mesh`` the Gram products and the trailing updates run
+distributed through summa_gemm (solvers._dist_gemm), the Gram a plain
+product there, not a syrk.
 
 - The panel factorization (m_rem x block) is native: ``_panel_qr``
   (torch.geqrf, cuSOLVER on the card), O(m * block^2) work.
@@ -53,10 +55,14 @@ def _panel_vt(packed_panel, bw):
     return v
 
 
-def _gram(v, *, num_moduli, fastmode, backend):
+def _gram(v, *, num_moduli, fastmode, backend, mesh=None):
     """V^H V (V^T V for real) with plane reuse where available: syrk for
     real, herk for complex INT8; complex FP8 takes the generic gemm (its
-    split planes cannot derive the 3M difference lane)."""
+    split planes cannot derive the 3M difference lane). With `mesh`, the
+    distributed product of V^H and V."""
+    if mesh is not None:
+        return _dist_gemm(_ct(v), v, mesh=mesh, num_moduli=num_moduli,
+                          fastmode=fastmode, backend=backend)
     kw = dict(num_moduli=num_moduli, fastmode=fastmode, backend=backend,
               device=v.device)
     if not v.is_complex():
@@ -81,7 +87,7 @@ def _reciprocal(x):
                          torch.where(im_larger, -1 / d_i, -r_r / d_r))
 
 
-def _block_t(v, tau, *, num_moduli, fastmode, backend):
+def _block_t(v, tau, *, num_moduli, fastmode, backend, mesh=None):
     """Compact-WY T for one block: T = inv(diag(1/tau) + striu(V^H V)).
 
     tau_j == 0 means H_j = I. The limit of T as 1/tau_j -> inf is T with row
@@ -89,7 +95,8 @@ def _block_t(v, tau, *, num_moduli, fastmode, backend):
     k > j): solve with a finite dummy diagonal there, then mask those rows
     and columns to the exact limit.
     """
-    w = _gram(v, num_moduli=num_moduli, fastmode=fastmode, backend=backend)
+    w = _gram(v, num_moduli=num_moduli, fastmode=fastmode, backend=backend,
+              mesh=mesh)
     good = tau != 0
     safe_inv = torch.where(good, _reciprocal(torch.where(good, tau, 1.0)),
                            1.0)
@@ -97,10 +104,13 @@ def _block_t(v, tau, *, num_moduli, fastmode, backend):
     return torch.where(good[:, None] & good[None, :], t, 0.0)
 
 
-def _apply_block(v, t, c, *, trans, num_moduli, fastmode, backend):
+def _apply_block(v, t, c, *, trans, num_moduli, fastmode, backend,
+                 mesh=None):
     """(I - V T^H V^H) C when trans else (I - V T V^H) C, the two large
-    GEMMs emulated (^H is ^T on real operands). Returns a new tensor."""
-    kw = dict(num_moduli=num_moduli, fastmode=fastmode, backend=backend)
+    GEMMs emulated (^H is ^T on real operands; distributed with `mesh`).
+    Returns a new tensor."""
+    kw = dict(num_moduli=num_moduli, fastmode=fastmode, backend=backend,
+              mesh=mesh)
     y = _dist_gemm(_ct(v), c, **kw)
     z = solvers._small_matmul(_ct(t) if trans else t, y)
     return _schur_update(v, z, c, **kw)
@@ -115,8 +125,9 @@ def _geqrf_t(a, *, num_moduli, fastmode, backend, block, mesh):
     m, n = a.shape
     kmin = min(m, n)
     blk = block or _default_block(kmin)
-    _check_mesh_blocking(mesh, "geqrf")
-    kw = dict(num_moduli=num_moduli, fastmode=fastmode, backend=backend)
+    _check_mesh_blocking(mesh, (m, n), blk, "geqrf")
+    kw = dict(num_moduli=num_moduli, fastmode=fastmode, backend=backend,
+              mesh=mesh)
     a = a.clone()
     taus, ts = [], []
     for (lo, hi) in _blocks(kmin, blk):
@@ -165,12 +176,14 @@ def ormqr(packed, taus, c, *, trans: bool = False, num_moduli: int = 8,
     if c.shape[0] != m:
         raise ValueError(f"C rows {c.shape[0]} != {m}")
     blk = block or _default_block(kmin)
-    _check_mesh_blocking(mesh, "ormqr")
+    _check_mesh_blocking(mesh, (m, kmin), blk, "ormqr",
+                         rhs_cols=c.shape[1])
     spans = _blocks(kmin, blk)
     if ts is not None and len(ts) != len(spans):
         raise ValueError(f"ts has {len(ts)} block factors for {len(spans)} "
                          f"blocks -- was geqrf run with the same block?")
-    kw = dict(num_moduli=num_moduli, fastmode=fastmode, backend=backend)
+    kw = dict(num_moduli=num_moduli, fastmode=fastmode, backend=backend,
+              mesh=mesh)
     c = c.clone()
     # Q = (I - V1 T1 V1^H) ... (I - Vp Tp Vp^H): blocks in factorization
     # order for Q^H, in reverse for Q
@@ -208,7 +221,9 @@ def lstsq(a, b, *, num_moduli: int = 8, fastmode="robust",
           mesh=None, device="cuda") -> torch.Tensor:
     """Least-squares solution of A @ X = B (m >= n, full column rank) via
     blocked Householder QR: X = R^{-1} (Q^H B), the R solve through
-    :func:`trsm`."""
+    :func:`trsm`. `mesh` distributes the factorization; the Q^H B
+    application and the triangular solve stay local, as in the JAX
+    package."""
     device = _device(device)
     a, b = _as_tensor(a, device), _as_tensor(b, device)
     m, n = a.shape

@@ -1,10 +1,15 @@
 """Triangular solves, LU and Cholesky over the emulated GEMM.
 
-The counterpart of gemmul8_tpu/solvers.py, with ``mesh=None``: every
-O(n^3) flop -- the trailing Schur updates of LU and Cholesky and the
-off-diagonal updates of the blocked substitutions -- runs through the
-port's :func:`gemm` (K1, the int8 products and K2; complex operands through
-the 3M path), and only the O(n * block^2) diagonal-block work is native.
+The counterpart of gemmul8_tpu/solvers.py: every O(n^3) flop -- the
+trailing Schur updates of LU and Cholesky and the off-diagonal updates of
+the blocked substitutions -- runs through the port's :func:`gemm` (K1, the
+int8 products and K2; complex operands through the 3M path), and only the
+O(n * block^2) diagonal-block work is native. With ``mesh`` (a 2-D
+DeviceMesh from gemmul8_tpu_torch.parallel.make_mesh) those updates run
+distributed through :func:`summa_gemm`, as in the JAX package: bit-identical
+across mesh shapes, not to mesh=None (SUMMA's shifts differ in the last
+bit, and its result is subtracted apart from the product, not in gemm's
+fused epilogue). Every rank runs the same call on the same full operands.
 Upper-triangular cases reduce to the lower one by the exact reversal
 permutation (flip rows and columns), so there is one substitution path.
 
@@ -57,12 +62,25 @@ def _default_block(n: int) -> int:
     return max(32, min(512, n))
 
 
-def _check_mesh_blocking(mesh, name):
-    """The distributed updates (SUMMA over a device mesh) are not ported."""
-    if mesh is not None:
-        raise NotImplementedError(
-            f"{name}: mesh= needs the distributed updates through SUMMA, "
-            f"which are not ported yet (queue 13); pass mesh=None")
+def _check_mesh_blocking(mesh, n_or_shape, blk, name, rhs_cols=None):
+    """Distributed updates route through SUMMA, which shards every GEMM dim
+    over the mesh: block and every block boundary must divide both mesh
+    axes (and the RHS column count must divide mesh.y, for the substitution
+    updates whose n dimension is the RHS width). Enforced upfront so
+    failures name the constraint, not a shape."""
+    if mesh is None:
+        return
+    mx, my = tuple(mesh.mesh.shape)
+    dims = (n_or_shape,) if isinstance(n_or_shape, int) else tuple(n_or_shape)
+    bad = blk % mx or blk % my or any(d % blk for d in dims)
+    if bad:
+        raise ValueError(
+            f"{name} with mesh {mx}x{my} needs block divisible by both mesh "
+            f"axes and dims divisible by block; got block={blk}, dims={dims}")
+    if rhs_cols is not None and rhs_cols % my:
+        raise ValueError(
+            f"{name} with mesh {mx}x{my} needs the RHS column count "
+            f"divisible by mesh.y; got {rhs_cols}")
 
 
 def _ct(x):
@@ -82,20 +100,33 @@ def _scale(alpha, x):
                         device=x.device).to(x.dtype) * x
 
 
-def _dist_gemm(a_blk, b_blk, *, num_moduli, fastmode, backend):
-    """Plain emulated product a_blk @ b_blk, shared with the QR layer."""
-    return gemm(a_blk, b_blk, num_moduli=num_moduli, fastmode=fastmode,
-                backend=backend, device=a_blk.device)
+def _dist_gemm(a_blk, b_blk, *, mesh=None, num_moduli, fastmode, backend):
+    """Plain emulated product a_blk @ b_blk, distributed through SUMMA when
+    `mesh` is given (every rank gets the full product, gathered through
+    SUMMA's collectives): the one local/distributed dispatch point of the
+    solver and QR layers."""
+    if mesh is None:
+        return gemm(a_blk, b_blk, num_moduli=num_moduli, fastmode=fastmode,
+                    backend=backend, device=a_blk.device)
+    from .parallel import summa
+    c = summa.summa_gemm(a_blk, b_blk, mesh=mesh, num_moduli=num_moduli,
+                         fastmode=fastmode, backend=backend)
+    return summa.Comm(mesh).gather_all(c.to_local(), 1).to(a_blk.device)
 
 
-def _schur_update(a_blk, b_blk, c_blk, *, num_moduli, fastmode, backend,
-                  sign=-1.0):
+def _schur_update(a_blk, b_blk, c_blk, *, mesh=None, num_moduli, fastmode,
+                  backend, sign=-1.0):
     """c_blk + sign * a_blk @ b_blk, emulated, in gemm's fused alpha=sign,
     beta=1 epilogue (sign=-1: Schur complement / substitution update; +1:
-    trmm row accumulation). Returns a new tensor."""
-    return gemm(a_blk, b_blk, num_moduli=num_moduli, fastmode=fastmode,
-                backend=backend, alpha=sign, beta=1.0, c=c_blk,
-                device=a_blk.device)
+    trmm row accumulation); with `mesh` the SUMMA product, then the
+    elementwise sum. Returns a new tensor."""
+    if mesh is None:
+        return gemm(a_blk, b_blk, num_moduli=num_moduli, fastmode=fastmode,
+                    backend=backend, alpha=sign, beta=1.0, c=c_blk,
+                    device=a_blk.device)
+    prod = _dist_gemm(a_blk, b_blk, mesh=mesh, num_moduli=num_moduli,
+                      fastmode=fastmode, backend=backend)
+    return c_blk - prod if sign == -1.0 else c_blk + prod
 
 
 # ---------------------------------------------------------------------------
@@ -152,12 +183,13 @@ def _hermitian_part(x):
 # ---------------------------------------------------------------------------
 
 def _trsm_lower_left(t, b, *, unit_diag, num_moduli, fastmode, backend,
-                     block):
+                     block, mesh=None):
     """X with T @ X = B, T lower-triangular (m, m), B (m, n).
 
     Blocked forward substitution: the diagonal solves are native, the
     off-diagonal update B_i -= T[i,:i] @ X[:i] is ONE emulated GEMM per
-    block row (alpha=-1, beta=1 fused epilogue).
+    block row (alpha=-1, beta=1 fused epilogue; distributed through SUMMA
+    when `mesh` is given).
     """
     spans = _blocks(t.shape[0], block)
     if len(spans) == 1:
@@ -166,7 +198,7 @@ def _trsm_lower_left(t, b, *, unit_diag, num_moduli, fastmode, backend,
     for (lo, hi) in spans:
         rhs = b[lo:hi]
         if lo > 0:
-            rhs = _schur_update(t[lo:hi, :lo], x[:lo], rhs,
+            rhs = _schur_update(t[lo:hi, :lo], x[:lo], rhs, mesh=mesh,
                                 num_moduli=num_moduli, fastmode=fastmode,
                                 backend=backend)
         x[lo:hi] = _tri_solve_native(t[lo:hi, lo:hi], rhs,
@@ -175,7 +207,7 @@ def _trsm_lower_left(t, b, *, unit_diag, num_moduli, fastmode, backend,
 
 
 def _trmm_lower_left(t, b, *, unit_diag, num_moduli, fastmode, backend,
-                     block):
+                     block, mesh=None):
     """T @ B with T lower-triangular: per block row, one emulated GEMM over
     the strictly-lower panel plus a native small triangular product."""
     out = torch.empty_like(b)
@@ -186,7 +218,7 @@ def _trmm_lower_left(t, b, *, unit_diag, num_moduli, fastmode, backend,
                      + torch.eye(hi - lo, dtype=t.dtype, device=t.device))
         row = _small_matmul(tdiag, b[lo:hi])
         if lo > 0:
-            row = _schur_update(t[lo:hi, :lo], b[:lo], row,
+            row = _schur_update(t[lo:hi, :lo], b[:lo], row, mesh=mesh,
                                 num_moduli=num_moduli, fastmode=fastmode,
                                 backend=backend, sign=1.0)
         out[lo:hi] = row
@@ -238,7 +270,9 @@ def trsm(a, b, *, side: str = "left", lower: bool = True, trans_a=False,
 
     The diagonal blocks (`block` wide, default <= 512) solve natively;
     everything else is blocked substitution whose updates are emulated
-    GEMMs. `mesh` is not ported (queue 13): anything but None raises.
+    GEMMs. With `mesh` the update GEMMs run distributed through
+    summa_gemm (block and the matrix dims divisible as
+    _check_mesh_blocking says, the RHS width by mesh.y).
     """
     device = _device(device)
     a, b = _as_tensor(a, device), _as_tensor(b, device)
@@ -255,9 +289,10 @@ def trsm(a, b, *, side: str = "left", lower: bool = True, trans_a=False,
         # reversal trick: P @ U @ P is lower for the exchange permutation P
         t, b = _flip2(t), torch.flip(b, (0,))
     blk = block or _default_block(t.shape[0])
-    _check_mesh_blocking(mesh, "trsm")
+    _check_mesh_blocking(mesh, t.shape[0], blk, "trsm", rhs_cols=b.shape[1])
     x = _trsm_lower_left(t, b, unit_diag=unit_diag, num_moduli=num_moduli,
-                         fastmode=fastmode, backend=backend, block=blk)
+                         fastmode=fastmode, backend=backend, block=blk,
+                         mesh=mesh)
     if not is_lower:
         x = torch.flip(x, (0,))
     return x.T if side == "right" else x
@@ -270,7 +305,8 @@ def trmm(a, b, *, side: str = "left", lower: bool = True, trans_a=False,
          device="cuda") -> torch.Tensor:
     """Triangular matrix product alpha * op(A) @ B (or B @ op(A)): each
     block row multiplies only its strictly-lower panel through the emulated
-    GEMM, plus a native small diagonal product."""
+    GEMM, plus a native small diagonal product. `mesh` distributes the
+    panel GEMMs through summa_gemm (see trsm)."""
     device = _device(device)
     a, b = _as_tensor(a, device), _as_tensor(b, device)
     _check_2d(a, "A")
@@ -282,9 +318,10 @@ def trmm(a, b, *, side: str = "left", lower: bool = True, trans_a=False,
     if not is_lower:
         t, b = _flip2(t), torch.flip(b, (0,))
     blk = block or _default_block(t.shape[0])
-    _check_mesh_blocking(mesh, "trmm")
+    _check_mesh_blocking(mesh, t.shape[0], blk, "trmm", rhs_cols=b.shape[1])
     out = _trmm_lower_left(t, b, unit_diag=unit_diag, num_moduli=num_moduli,
-                           fastmode=fastmode, backend=backend, block=blk)
+                           fastmode=fastmode, backend=backend, block=blk,
+                           mesh=mesh)
     if not is_lower:
         out = torch.flip(out, (0,))
     if side == "right":
@@ -303,7 +340,9 @@ def potrf(a, *, lower: bool = True, num_moduli: int = 8, fastmode="robust",
     The update of each block column against all finished columns is ONE
     emulated GEMM L[lo:, :lo] @ L[lo:hi, :lo]^H; the diagonal blocks factor
     natively and the subdiagonal panels come from the emulated substitution.
-    Reads only the lower triangle (the upper one with lower=False).
+    Reads only the lower triangle (the upper one with lower=False). With
+    `mesh` the block-column updates run distributed through summa_gemm;
+    the subdiagonal substitutions stay local, as in the JAX package.
     """
     device = _device(device)
     a = _as_tensor(a, device)
@@ -316,7 +355,7 @@ def potrf(a, *, lower: bool = True, num_moduli: int = 8, fastmode="robust",
         # chol_lower(A^T) = conj(L), and the final .T gives L^H = R)
         a = a.T
     blk = block or _default_block(n)
-    _check_mesh_blocking(mesh, "potrf")
+    _check_mesh_blocking(mesh, n, blk, "potrf")
     # the finished block columns go straight into `out`, so L[lo:, :lo] is
     # a view of it
     out = torch.zeros((n, n), dtype=a.dtype, device=device)
@@ -325,8 +364,8 @@ def potrf(a, *, lower: bool = True, num_moduli: int = 8, fastmode="robust",
         if lo > 0:
             left = out[lo:, :lo]
             blk_col = _schur_update(left, _ct(left[:hi - lo]), blk_col,
-                                    num_moduli=num_moduli, fastmode=fastmode,
-                                    backend=backend)
+                                    mesh=mesh, num_moduli=num_moduli,
+                                    fastmode=fastmode, backend=backend)
         strict = torch.tril(blk_col[:hi - lo], -1)
         diag = _chol_native(_hermitian_part(
             torch.tril(blk_col[:hi - lo]) + _ct(strict)))
@@ -350,7 +389,9 @@ def getrf(a, *, num_moduli: int = 8, fastmode="robust",
     `perm` is the length-m int32 row permutation as absolute row indices
     ((PA)[i] == A[perm[i]]). The panels factor natively; the U12 row solves
     and every trailing Schur update A22 -= L21 @ U12 -- the O(n^3) bulk --
-    run through the emulated GEMM (HPL-MxP-style mixed-precision LU).
+    run through the emulated GEMM (HPL-MxP-style mixed-precision LU). With
+    `mesh` the Schur updates run distributed through summa_gemm; the panels
+    and the U12 substitutions stay local, as in the JAX package.
     """
     device = _device(device)
     a = _as_tensor(a, device)
@@ -358,7 +399,7 @@ def getrf(a, *, num_moduli: int = 8, fastmode="robust",
     m, n = a.shape
     kmin = min(m, n)
     blk = block or _default_block(kmin)
-    _check_mesh_blocking(mesh, "getrf")
+    _check_mesh_blocking(mesh, (m, n), blk, "getrf")
     a = a.clone()
     # perm[i] = original row index now at row i
     perm = torch.arange(m, device=device)
@@ -381,8 +422,9 @@ def getrf(a, *, num_moduli: int = 8, fastmode="robust",
             if hi < m:
                 # Schur: A22 -= L21 @ U12 (the emulated O(n^3) bulk)
                 a[hi:, hi:] = _schur_update(
-                    a[hi:, lo:hi], u12, a[hi:, hi:], num_moduli=num_moduli,
-                    fastmode=fastmode, backend=backend)
+                    a[hi:, lo:hi], u12, a[hi:, hi:], mesh=mesh,
+                    num_moduli=num_moduli, fastmode=fastmode,
+                    backend=backend)
     return a, perm.to(torch.int32)
 
 

@@ -11,8 +11,9 @@ gemmul8_tpu.eig on the CPU under x64.
   1e-12 of JAX's relative to ||A||, and the vectors meet
   tests/test_eig.py's reconstruction and orthogonality contracts.
 - Port-only: the round-robin schedule, the block choice, the complex
-  tolerances, complex eigh and svd contracts, the refused mesh (queue 13),
-  the bad inputs, and that no input is modified.
+  tolerances, complex eigh and svd contracts, the mesh refusal with JAX's
+  text, the bad inputs, and that no input is modified. (With a mesh the
+  calls are held against JAX's in tests/test_torch_solvers_mesh.py.)
 - The JAX package's svd stagnation rule (eig.py:220), a fault the port
   does not carry: JAX's singular values against the port's on an input
   where it stops early.
@@ -190,10 +191,26 @@ def test_complex_tolerances_use_the_real_component(dtype):
     assert torch.finfo(t.dtype).tiny == float(jnp.finfo(j.dtype).tiny)
 
 
+class _Grid:
+    """A stand-in for a 2x2 DeviceMesh: the pair-split refusal reads only
+    its rank grid, and a world of one cannot hold a real 2x2."""
+    mesh = torch.empty(2, 2)
+
+
 @pytest.mark.parametrize("name", eigt.__all__)
 def test_mesh_refused_naming_queue_13(name):
-    with pytest.raises(NotImplementedError, match="queue 13"):
-        getattr(gt, name)(X["sym"], mesh=object(), device="cpu")
+    """The mesh refusal the JAX package makes (eig.py:124-147), with its
+    text: 48 / 8 = 6 blocks give 3 pairs a round, which 4 ranks do not
+    divide. (The test keeps the name it had when every mesh was refused.)"""
+    import jax
+    from jax.sharding import Mesh
+    jmesh = Mesh(np.asarray(jax.devices()[:4]).reshape(2, 2), ("x", "y"))
+    with pytest.raises(ValueError) as ref:
+        getattr(g8, name)(jnp.asarray(X["sym"]), mesh=jmesh)
+    with pytest.raises(ValueError) as got:
+        getattr(gt, name)(X["sym"], mesh=_Grid(), device="cpu")
+    assert str(got.value) == str(ref.value)
+    assert "pairs-per-round (3)" in str(got.value)
 
 
 @pytest.mark.parametrize("name", eigt.__all__)

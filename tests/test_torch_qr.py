@@ -8,8 +8,10 @@ gemmul8_tpu.qr on the CPU under x64.
   JAX's at nu=14 that meet tests/test_qr.py's contracts (reconstruction and
   orthogonality < 1e-13, lstsq within 1e-11 of numpy's).
 - Port-only: the exact tau = 0 limit (tests/test_qr.py:171-194), the
-  complex reciprocal against XLA's bits, the FP8 Gram routes, the refused
-  mesh (queue 13), the bad shapes and ts, and that no input is modified.
+  complex reciprocal against XLA's bits, the FP8 Gram routes, the mesh
+  refusal with JAX's text, the bad shapes and ts, and that no input is
+  modified. (With a mesh the calls are held against JAX's in
+  tests/test_torch_solvers_mesh.py.)
 """
 import importlib
 
@@ -208,11 +210,39 @@ def _calls(t):
     }, (packed, taus)
 
 
+class _Grid:
+    """A stand-in for a 2x2 DeviceMesh: the mesh refusals read only the
+    shape of its rank grid, and a world of one cannot hold a real 2x2."""
+    mesh = torch.empty(2, 2)
+
+
 @pytest.mark.parametrize("name", qrt.__all__)
 def test_mesh_refused_naming_queue_13(name):
+    """The mesh refusal the JAX package makes (_check_mesh_blocking), with
+    its text: block 24 does not divide A's 64 columns (ormqr: min(m, n)).
+    (The test keeps the name it had when every mesh was refused.)"""
+    import jax
+    from jax.sharding import Mesh
+    jmesh = Mesh(np.asarray(jax.devices()[:4]).reshape(2, 2), ("x", "y"))
+    packed, taus = qrj.geqrf(jnp.asarray(X["a"]), **ZKW)
+    jax_calls = {
+        "geqrf": lambda **k: qrj.geqrf(jnp.asarray(X["a"]), **k),
+        "ormqr": lambda **k: qrj.ormqr(packed, taus, jnp.asarray(X["c"]),
+                                       **k),
+        "qr": lambda **k: qrj.qr(jnp.asarray(X["a"]), **k),
+        "lstsq": lambda **k: qrj.lstsq(jnp.asarray(X["a"]),
+                                       jnp.asarray(X["vec"]), **k),
+    }
     calls, _ = _calls({k: torch.from_numpy(v) for k, v in X.items()})
-    with pytest.raises(NotImplementedError, match="queue 13"):
-        calls[name][0](mesh=object(), device="cpu", **ZKW)
+    kw = dict(num_moduli=14, block=24)
+    with pytest.raises(ValueError) as ref:
+        jax_calls[name](mesh=jmesh, **kw)
+    port = calls[name][0] if name != "qr" else (
+        lambda **k: gt.qr(X["a"], **k))
+    with pytest.raises(ValueError) as got:
+        port(mesh=_Grid(), device="cpu", **kw)
+    assert str(got.value) == str(ref.value)
+    assert "with mesh 2x2 needs block divisible" in str(got.value)
 
 
 @pytest.mark.parametrize("name", qrt.__all__)

@@ -11,8 +11,10 @@ against gemmul8_tpu.solvers on the CPU under x64.
   of JAX's at nu=14 and meets the JAX tests' own contracts
   (tests/test_solvers.py: reconstruction < 1e-12, residuals < 1e-11,
   refinement at nu=6 below 1e-12).
-- Port-only: the refused mesh (queue 13), the vector right-hand side that
-  drops it, the bad-shape refusals, and that no input tensor is modified.
+- The mesh refusals, with JAX's text; the vector right-hand side that drops
+  the mesh; port-only: the bad-shape refusals, and that no input tensor is
+  modified. (With a mesh the calls are held against JAX's in
+  tests/test_torch_solvers_mesh.py.)
 
 Every JAX result is computed once (XLA compiles dominate: n = 64, block 32,
 nu = 14 throughout, the refinement case at nu = 6).
@@ -311,31 +313,64 @@ def test_potrf_posv_contracts(key, lower):
 # port only
 # ---------------------------------------------------------------------------
 
-MESH = object()          # any mesh: none is accepted yet
+class _Grid:
+    """A stand-in for a 2x2 DeviceMesh: the mesh refusals read only the
+    shape of its rank grid, and a world of one cannot hold a real 2x2."""
+    mesh = torch.empty(2, 2)
 
 
-def _refusing_calls():
-    a, b, tl, spd, vec = X["a"], X["rhs"], X["tl"], X["spd"], X["vec"]
-    lu, perm = gt.getrf(a, device="cpu", **KW)
-    chol = gt.potrf(spd, device="cpu", **KW)
+MESH = _Grid()
+
+
+def _refusing_calls(mod):
+    """name -> fn(mesh, block): each solver on matrix operands, JAX's
+    (mod is g8) or the port's."""
+    arr = jnp.asarray if mod is g8 else torch.from_numpy
+    dev = {} if mod is g8 else dict(device="cpu")
+    a, b, tl, spd = (arr(X[k]) for k in ("a", "rhs", "tl", "spd"))
+    lu, perm = mod.getrf(a, **dev, **KW)
+    chol = mod.potrf(spd, **dev, **KW)
+    kw = dict(num_moduli=NU, **dev)
     return {
-        "trsm": lambda **k: gt.trsm(tl, b, **k),
-        "trmm": lambda **k: gt.trmm(tl, b, **k),
-        "getrf": lambda **k: gt.getrf(a, **k),
-        "lu_solve": lambda **k: gt.lu_solve(lu, perm, b, **k),
-        "solve": lambda **k: gt.solve(a, b, **k),
-        "potrf": lambda **k: gt.potrf(spd, **k),
-        "potrs": lambda **k: gt.potrs(chol, b, **k),
-        "posv": lambda **k: gt.posv(spd, vec, **k),
-        "inv": lambda **k: gt.inv(a, **k),
-        "trtri": lambda **k: gt.trtri(tl, **k),
+        "trsm": lambda m, blk: mod.trsm(tl, b, mesh=m, block=blk, **kw),
+        "trmm": lambda m, blk: mod.trmm(tl, b, mesh=m, block=blk, **kw),
+        "getrf": lambda m, blk: mod.getrf(a, mesh=m, block=blk, **kw),
+        "lu_solve": lambda m, blk: mod.lu_solve(lu, perm, b, mesh=m,
+                                                block=blk, **kw),
+        "solve": lambda m, blk: mod.solve(a, b, mesh=m, block=blk, **kw),
+        "potrf": lambda m, blk: mod.potrf(spd, mesh=m, block=blk, **kw),
+        "potrs": lambda m, blk: mod.potrs(chol, b, mesh=m, block=blk, **kw),
+        "posv": lambda m, blk: mod.posv(spd, b, mesh=m, block=blk, **kw),
+        "inv": lambda m, blk: mod.inv(a, mesh=m, block=blk, **kw),
+        "trtri": lambda m, blk: mod.trtri(tl, mesh=m, block=blk, **kw),
     }
+
+
+def _jax_mesh_2x2():
+    import jax
+    from jax.sharding import Mesh
+    return Mesh(np.asarray(jax.devices()[:4]).reshape(2, 2), ("x", "y"))
+
+
+# the calls whose substitution updates have the RHS as their n dimension
+RHS_CHECKED = ("trsm", "trmm", "lu_solve", "potrs")
 
 
 @pytest.mark.parametrize("name", solvers.__all__)
 def test_mesh_refused_naming_queue_13(name):
-    with pytest.raises(NotImplementedError, match="queue 13"):
-        _refusing_calls()[name](mesh=MESH, device="cpu", **KW)
+    """The mesh refusals the JAX package makes (_check_mesh_blocking), with
+    its text: a block that does not divide the matrix (block 24 of 64), and
+    for the calls that solve against the RHS, an RHS width (3) that mesh.y
+    (2) does not divide. (The test keeps the name it had when every mesh
+    was refused.)"""
+    cases = [24] + ([BLK] if name in RHS_CHECKED else [])
+    for blk in cases:
+        with pytest.raises(ValueError) as ref:
+            _refusing_calls(g8)[name](_jax_mesh_2x2(), blk)
+        with pytest.raises(ValueError) as got:
+            _refusing_calls(gt)[name](MESH, blk)
+        assert str(got.value) == str(ref.value)
+        assert "with mesh 2x2 needs" in str(got.value)
 
 
 @pytest.mark.parametrize("name", ["lu_solve", "potrs"])
