@@ -24,7 +24,11 @@ products and the whole calls. It also
 holds the probe tools' kernels (the hand-written int8 product, both
 schedules, and the tensor-core CRT epilogue) against their plain versions and
 the DGEMM path's own products and epilogue, and runs the probes' tables
-(gemmul8_tpu_torch.probes).
+(gemmul8_tpu_torch.probes). Last in phase 4 it runs the ten examples
+(gemmul8_tpu_torch.examples) and the four benchmark probes (accuracy,
+flops, big_flops and power, the last sampling the draw through
+nvidia-smi), each with its launches, and phase 5 holds their results
+against the CPU path.
 
     python3 chip_smoke.py            # needs one CUDA card and nvcc
 
@@ -4698,6 +4702,231 @@ def summa_times(a64, b64, card):
     return t
 
 
+# ---------------------------------------------------------------------------
+# the examples and the benchmark probes (queue 14)
+# ---------------------------------------------------------------------------
+
+# each example (gemmul8_tpu_torch/examples) and the launches its run must
+# show: its main path's kernels and library products
+EXAMPLES = (
+    ("dgemm_int8", ("encode_planes", "_int_mm", "fused_epilogue")),
+    ("fp8_backend", ("encode_planes_fp8", "_scaled_mm", "fused_epilogue_fp8")),
+    ("planar_complex", ("encode_planes", "_int_mm",
+                        "fused_epilogue_complex")),
+    ("compat_gemmlt", ("encode_planes", "_int_mm", "fused_epilogue",
+                       "encode_planes_fp8", "_scaled_mm",
+                       "fused_epilogue_fp8")),
+    ("blas3_tour", ("encode_planes", "_int_mm", "fused_epilogue",
+                    "fused_epilogue_complex")),
+    ("iterative_refinement", ("encode_planes", "_int_mm", "fused_epilogue")),
+    ("lu_solver", ("encode_planes", "_int_mm", "fused_epilogue")),
+    ("dense_linalg", ("encode_planes", "_int_mm", "fused_epilogue")),
+    ("hook_training", ("encode_planes", "_int_mm", "fused_epilogue")),
+    ("distributed_summa", ("encode_planes", "_int_mm", "fused_epilogue",
+                           "estimate_int_mm")),
+)
+EXAMPLE_RUNS: dict = {}       # example -> (launch counts, seconds)
+EXAMPLE_OUT: dict = {}        # example -> what its main returned on the card
+BENCH_RUNS: dict = {}         # probe -> launch counts
+# the accuracy sweep of the benchmarks part, cut in sweep length only
+ACC_SWEEP = dict(dtype="f64", ks=(1024, 4096), phis=(0.5, 4.0), nus=(9, 16))
+BIG_SIZE, BIG_NU, BIG_BUDGET_GB = 16384, 16, 8.0
+
+
+def example_paths():
+    """Phase 4: each example's main on the card, through run_counted: an
+    assert that fails in an example fails the run, and each must launch
+    its main path's kernels and products."""
+    for name, want in EXAMPLES:
+        mod = importlib.import_module(f"gemmul8_tpu_torch.examples.{name}")
+        log(f"example {name}:")
+        t0 = time.perf_counter()
+        out, counts = run_counted(lambda: mod.main(device="cuda"))
+        secs = time.perf_counter() - t0
+        launched = {k: v for k, v in counts.items() if v}
+        for key in want:
+            check(launched.get(key, 0) > 0,
+                  f"example {name}: no {key} launch ({launched})")
+        EXAMPLE_RUNS[name] = (launched, secs)
+        EXAMPLE_OUT[name] = out
+        log(f"example {name}: {secs:.3f} s, launches {launched}")
+
+
+def power_limit_w(card):
+    """The power limit in watts from nvidia-smi's "name, 700.00 W"."""
+    return float(card.rsplit(",", 1)[1].split()[0])
+
+
+def benchmark_paths(card):
+    """Phase 4: the four benchmark probes at full protocol width, cut only
+    in sweep length: accuracy (f64 INT8, k 1024 and 4096, phi 0.5 and 4, nu
+    9 and 16, with the os1 and robust rows), flops (4096^3 nu=16, f64 with
+    the phases and the syrk row, and c128), big_flops (16384^3 nu=16 under
+    an 8 GiB budget, which must stripe) and power (10 s of 4096^3 nu=16
+    gemm calls, sampled by one streaming nvidia-smi)."""
+    from gemmul8_tpu_torch import core
+    from gemmul8_tpu_torch.probes import accuracy, big_flops, flops, power
+    out = {}
+    rows, BENCH_RUNS["accuracy"] = run_counted(
+        lambda: accuracy.sweep(**ACC_SWEEP, device="cuda", log=sys.stdout))
+    for r in rows:
+        check(all(math.isfinite(x) for x in r[4:6]), f"accuracy row {r}")
+    for k in ACC_SWEEP["ks"]:
+        for phi in ACC_SWEEP["phis"]:
+            med = {r[3]: r[5] for r in rows
+                   if r[:3] == [k, phi, "oz2-robust"]}
+            check(med[16] < med[9], f"accuracy k={k} phi={phi}: nu=16 not "
+                  f"more accurate than nu=9 ({med})")
+    log(f"benchmark accuracy {card}: " + json.dumps(rows))
+    out["accuracy"] = rows
+    t0 = time.perf_counter()
+    frows = []
+    for dtype in ("f64", "c128"):
+        got, BENCH_RUNS[f"flops {dtype}"] = run_counted(
+            lambda: flops.sweep(dtype, (4096,), (16,), iters=8,
+                                phases=dtype == "f64", device="cuda",
+                                log=sys.stdout))
+        frows += [[dtype, *r] for r in got]
+    for dtype, size, method, nu, sec, tflops, *ph in frows:
+        check(sec > 0 and 0 < tflops < math.inf, f"flops row {method}")
+        if method.startswith("oz2"):
+            # the emulated call runs nu int8 products (3nu complex)
+            lanes = 3 if dtype == "c128" else 1
+            fac = 8.0 if dtype == "c128" else 2.0
+            check(lanes * nu * 2.0 / fac * tflops * 1e12 <= PEAK_INT8_OPS,
+                  f"flops {dtype} {method}: {tflops} TF/s above the int8 peak")
+        if dtype == "f64" and method == "oz2-fast":
+            check(all(isinstance(p, float) and p > 0 for p in ph),
+                  f"flops phases {ph}")
+    check({r[2] for r in frows} == {"native", "os1-int8", "oz2-fast",
+                                    "oz2-syrk"}, f"flops methods {frows}")
+    log(f"benchmark flops {card} ({time.perf_counter() - t0:.1f} s): "
+        + json.dumps(frows))
+    out["flops"] = frows
+    brows, BENCH_RUNS["big_flops"] = run_counted(
+        lambda: big_flops.rows((BIG_SIZE,), (BIG_NU,), BIG_BUDGET_GB, 3,
+                               log=sys.stdout))
+    size, method, nu, sec, tflops, mb, nb, peak, own, finite = brows[0]
+    # the probe's own peak (operands, output, workspace; the memory this
+    # script holds excluded) against the unstriped call's
+    unstriped = core.work_bytes(size, size, size, nu) + 3 * size * size * 8
+    check(nb < size and finite, f"big_flops: n_block {nb}, finite {finite}")
+    check(own < unstriped, f"big_flops: peak {own} not below the "
+          f"unstriped call's {unstriped}")
+    log(f"benchmark big_flops {card}: {size}^3 nu={nu} m_block={mb!r} "
+        f"n_block={nb} {sec * 1e3:.3f} ms = {tflops:.3f} TF/s, peak "
+        f"{peak} bytes, its own {own} ({own / (1 << 30):.3f} GiB; "
+        f"unstriped would need {unstriped / (1 << 30):.3f} GiB)")
+    out["big_flops"] = brows
+    res, BENCH_RUNS["power"] = run_counted(
+        lambda: power.measure(4096, 16, 10.0, 0.1, "cuda"))
+    limit = power_limit_w(card)
+    check(res["power_source"] == "nvidia-smi",
+          f"power: source {res['power_source']}, not nvidia-smi")
+    check(res["watts"] is not None and 0 < res["watts"] <= limit,
+          f"power: mean {res['watts']} W outside (0, {limit}]")
+    check(res["samples"] >= 50 and res["gflops_per_watt"] > 0,
+          f"power: {res}")
+    log(f"benchmark power {card}: " + json.dumps(res))
+    out["power"] = res
+    for name, counts in BENCH_RUNS.items():
+        # the INT8 main path's kernels and product (ZGEMM: K4, not K2)
+        epilogue = ("fused_epilogue_complex" if name == "flops c128"
+                    else "fused_epilogue")
+        check(all(counts.get(key, 0) > 0
+                  for key in ("encode_planes", "_int_mm", epilogue)),
+              f"benchmark {name}: launches {counts}")
+    return out
+
+
+def _arrays(out, path=""):
+    """(path, value) of every array and number in an example's result."""
+    if isinstance(out, dict):
+        for k, v in out.items():
+            yield from _arrays(v, f"{path}.{k}" if path else str(k))
+    elif isinstance(out, (list, tuple)):
+        for i, v in enumerate(out):
+            yield from _arrays(v, f"{path}[{i}]")
+    elif isinstance(out, (np.ndarray, float, int, bool)):
+        yield path, out
+
+
+def _sign_fixed(v):
+    """v's columns with the sign that makes each one's largest-magnitude
+    entry positive (eigen and singular vectors are defined up to sign)."""
+    idx = np.argmax(np.abs(v), axis=0)
+    return v * np.sign(v[idx, np.arange(v.shape[1])])
+
+
+# examples whose results hold the CPU path's bits on the card; blas3_tour's
+# trtri runs cuBLAS's triangular solves on its diagonal blocks (held within
+# the solvers' 1e-11)
+BIT_EXAMPLES = ("dgemm_int8", "fp8_backend", "planar_complex",
+                "compat_gemmlt", "blas3_tour", "iterative_refinement",
+                "distributed_summa")
+
+
+def example_card_vs_cpu(bench):
+    """Phase 5: each example's card results against its main(device="cpu")
+    with "auto" resolved to the card's "ff" epilogue: bit for bit where the
+    example runs only emulated products and host numpy, within a relative
+    1e-11 for lu_solver and dense_linalg (their native pieces are cuSOLVER
+    and LAPACK; dense_linalg's vectors compared up to sign, its nu=8
+    singular values within 1e-7, the dial's nu=8 accuracy, since the
+    native pieces' last bits steer those sweeps apart), hook_training
+    within 1e-5 (the MLP fixture's tolerance); and the accuracy sweep's
+    oz2-* and os1-int8 rows on the CPU path, equal."""
+    import io
+    from gemmul8_tpu_torch.probes import accuracy
+    n, worst = 0, {}
+    for name, _ in EXAMPLES:
+        mod = importlib.import_module(f"gemmul8_tpu_torch.examples.{name}")
+        with cpu_epilogue_ff(), contextlib.redirect_stdout(io.StringIO()):
+            ref = dict(_arrays(mod.main(device="cpu")))
+        got = dict(_arrays(EXAMPLE_OUT[name]))
+        check(got.keys() == ref.keys(), f"example {name}: {got.keys()}")
+        for path, g in got.items():
+            r = ref[path]
+            what = f"example {name} {path} card vs cpu"
+            if not isinstance(g, np.ndarray):
+                if name in BIT_EXAMPLES and path != "trtri":
+                    check(g == r, f"{what}: {g!r} vs {r!r}")
+                continue
+            if name in BIT_EXAMPLES and path != "trtri":
+                assert_bits_equal(torch.from_numpy(np.ascontiguousarray(g)),
+                                  torch.from_numpy(np.ascontiguousarray(r)),
+                                  what)
+                continue
+            if name == "dense_linalg" and path in ("u", "v"):
+                g, r = _sign_fixed(g), _sign_fixed(r)
+            elif name == "dense_linalg" and path == "vt":
+                g, r = _sign_fixed(g.T), _sign_fixed(r.T)
+            elif name == "dense_linalg" and path in ("q", "r"):
+                d = np.sign(np.diagonal(ref["r"]) * np.diagonal(
+                    got["r"]))              # the Householder sign choice
+                g = g * d if path == "q" else d[:, None] * g
+            tol = (1e-5 if name == "hook_training"
+                   else 1e-7 if path == "s8" else 1e-11)
+            err = float(np.max(np.abs(g - r)) / np.max(np.abs(r)))
+            check(err <= tol, f"{what}: {err!r} > {tol!r}")
+            worst[f"{name}.{path}"] = err
+        n += 1
+    log("examples card vs cpu: " + ", ".join(BIT_EXAMPLES)
+        + " bit-equal (blas3_tour's trtri within 1e-11); within "
+        "tolerance: " + ", ".join(f"{k} {v:.3g}" for k, v in worst.items()))
+    with cpu_epilogue_ff():
+        cpu_rows = accuracy.sweep(**ACC_SWEEP, device="cpu",
+                                  log=io.StringIO())
+    emulated = [(g, r) for g, r in zip(bench["accuracy"], cpu_rows)
+                if g[2].startswith("oz2") or g[2] == "os1-int8"]
+    check(len(emulated) == len(ACC_SWEEP["ks"]) * len(ACC_SWEEP["phis"])
+          * (1 + 2 * len(ACC_SWEEP["nus"])), f"accuracy rows {emulated}")
+    for g, r in emulated:
+        check(g == r, f"accuracy row card vs cpu: {g} vs {r}")
+    log(f"accuracy sweep card vs cpu: {len(emulated)} oz2/os1 rows equal")
+    return n + 1
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--quick", action="store_true",
@@ -4833,6 +5062,14 @@ def main():
     log_phase("phase 4 (SUMMA, 1x1 NCCL mesh)")
     summa_mesh_2x2(card)
     log_phase("phase 4 (SUMMA, 2x2 mesh of four processes)")
+    # the examples and the benchmark probes, each through the calls a user
+    # makes (distributed_summa on the world of one the SUMMA parts started)
+    torch.cuda.empty_cache()
+    example_paths()
+    log_phase("phase 4 (examples)")
+    bench = benchmark_paths(card)
+    torch.cuda.empty_cache()
+    log_phase("phase 4 (benchmarks)")
 
     # phase 5: the card against the CPU path, bit for bit
     n_cpu = card_vs_cpu(rng)
@@ -4856,6 +5093,10 @@ def main():
     n_summa = summa_card_vs_cpu(np.random.default_rng(SEED + 19))
     log(f"summa card vs cpu: {n_summa} cases bit-equal")
     log_phase("phase 5 (card vs cpu)")
+    # and the examples' and the accuracy sweep's (their own seeds)
+    n_examples = example_card_vs_cpu(bench)
+    log(f"examples and accuracy sweep card vs cpu: {n_examples} cases")
+    log_phase("phase 5 (examples and benchmarks card vs cpu)")
 
     # phase 6: times; the solvers' first, so that their operands and
     # outputs are freed before the big products run
@@ -5058,6 +5299,7 @@ def main():
     kern += probe_entries(probe_runs, ptiming)
     # each kernel entry's launches in the accurate paths (and syrk's robust
     # one) of its dtype that run it
+    first_entry = set()
     for entry in kern:
         key, _, tag = entry["name"].partition("[")
         runs = {name: accurate_runs[name][0][key]
@@ -5082,6 +5324,17 @@ def main():
         runs = summa_runs_of(key, tag.rstrip("]"), kern)
         if runs:
             entry["summa_launches"] = runs
+        # and in the examples and the benchmark probes of phase 4: each
+        # run's launches of the kernel, on the kernel's first entry only
+        # (a run mixes dtypes)
+        if key not in first_entry:
+            first_entry.add(key)
+            for field, table in (("example_launches", {
+                    n: c for n, (c, _) in EXAMPLE_RUNS.items()}),
+                    ("benchmark_launches", BENCH_RUNS)):
+                runs = {n: c[key] for n, c in table.items() if c.get(key)}
+                if runs:
+                    entry[field] = runs
     log(card)
     log(json.dumps({"kernels": kern}))
     print(json.dumps({"ok": True, "device": {

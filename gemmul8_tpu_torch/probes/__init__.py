@@ -5,8 +5,16 @@
   matmul3   tools/probe_matmul3.py   the same product on flat plane views
   epilogue  tools/probe_epilogue.py  the tensor-core CRT epilogue against K2
 
-the factorization benchmark
+the five benchmarks
 
+  accuracy      benchmarks/accuracy.py      the k x phi x nu error sweep
+                                            against a longdouble oracle
+  flops         benchmarks/flops.py         square sizes x nu TFLOP/s with
+                                            the four phases
+  big_flops     benchmarks/big_flops.py     16384^3 through the striped
+                                            driver under a budget
+  power         benchmarks/power.py         watts and GFLOPS/W from one
+                                            streaming nvidia-smi
   solver_flops  benchmarks/solver_flops.py  getrf, potrf, geqrf TFLOP/s
                                             beside cuSOLVER's
 
@@ -19,6 +27,7 @@ and, with no tool behind it,
                                      module, no table of its own)
 
 Each runs as `python -m gemmul8_tpu_torch.probes.<name>` on a CUDA card and
-prints a table; chip_smoke.py drives the first three's main() functions and
-reads the rows they return.
+prints a table (the benchmarks write their CSV under
+gemmul8_tpu_torch/_results/, power prints JSON); chip_smoke.py drives the
+tools' and the benchmarks' functions and reads the rows they return.
 """

@@ -149,3 +149,26 @@ def worker(rank, world, shape, store_path, out_dir):
                    os.path.join(out_dir, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
+
+
+def example_worker(rank, world, store_path, out_dir):
+    """One spawned rank of the distributed_summa example: joins a gloo
+    world of `world` ranks on a FileStore, runs the example's main on the
+    CPU (its mesh: the world's) and saves what it returned and printed."""
+    import contextlib
+    import io
+    from gemmul8_tpu_torch.examples import distributed_summa
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", store=dist.FileStore(store_path, world),
+                            rank=rank, world_size=world)
+    try:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            out = distributed_summa.main(device="cpu")
+        torch.save(dict(out=out, lines=buf.getvalue().splitlines(),
+                        initialized=dist.is_initialized(),
+                        imported=sorted(m for m in ("jax", "gemmul8_tpu")
+                                        if m in sys.modules)),
+                   os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
