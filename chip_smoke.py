@@ -28,7 +28,14 @@ the DGEMM path's own products and epilogue, and runs the probes' tables
 (gemmul8_tpu_torch.examples) and the four benchmark probes (accuracy,
 flops, big_flops and power, the last sampling the draw through
 nvidia-smi), each with its launches, and phase 5 holds their results
-against the CPU path.
+against the CPU path. Then the device stress sweep (probes.device_stress:
+40 random real trials and 8 planar ones at shapes 8-399, each within the
+tool's tolerance and bit-equal to the CPU path, and the hand-written int8
+products at every trial's shape on both routes) and the rank-2k probe
+(probes.blas3_perf: syr2k and her2k against two gemm calls at 4096, nu=16);
+phase 5 ends with ff.crt_limbs, the piece-wise CRT cross-check, on the
+8192^2 paths' own residues, bit-equal to the CPU path and within P * 2^-78
+of crt_limbs_matrix.
 
     python3 chip_smoke.py            # needs one CUDA card and nvcc
 
@@ -4927,6 +4934,272 @@ def example_card_vs_cpu(bench):
     return n + 1
 
 
+# ---------------------------------------------------------------------------
+# the stress sweep, the rank-2k probe and the piece-wise CRT
+# ---------------------------------------------------------------------------
+
+STRESS_TRIALS = 40            # tools/device_stress.py's default
+STRESS_RUNS: dict = {}        # run -> launch counts
+# the sweep's launches: the INT8 real trials' (K1, products, K2), the FP8
+# ones' (K6, FP8 products, K3) and the planar trials' (K4)
+STRESS_WANT = ("encode_planes", "_int_mm", "fused_epilogue",
+               "encode_planes_fp8", "_scaled_mm", "fused_epilogue_fp8",
+               "fused_epilogue_complex")
+# the product kernels at each trial's shape: (kernel, schedule, bk, B
+# k-contiguous)
+STRESS_PRODUCTS = (("auto", "kloop", 64, False), ("auto", "astat", 64, True),
+                   ("mma_sync", "kloop", 64, False),
+                   ("mma_sync", "kloop", 128, True),
+                   ("mma_sync", "astat", 64, False))
+BLAS3_N, BLAS3_NU = 4096, 16  # tools/probe_blas3_perf.py's defaults
+CRT_PATHS = (("INT8", 16), ("FP8", 14))   # DGEMM nu=16, FP8 DGEMM nu=14
+CRT_ROWS = 64                 # the CPU reruns' row blocks: cache-sized,
+                              # 3x faster than 2048-row ones on the H100
+                              # host's 8 cores
+GAP_ROWS = 2048               # crt_value_gap's row blocks on the card
+
+
+def stress_paths(card):
+    """Phase 4: the device stress sweep (probes.device_stress) at SEED: 40
+    real trials across dtype, backend, nu, mode, ops, alpha/beta and phi at
+    shapes 8-399, and 8 planar-complex ones, each within the tool's
+    tolerance of the host f64 product. First on the card alone through
+    run_counted (the launches), then with --against-cpu: each trial rerun
+    on the CPU path and held bit for bit. Then the hand-written int8
+    products (kernels.matmul_i8, both routes, both schedules, both B
+    layouts) at every trial's (m, k, n) from SEED + 20, against their plain
+    version: the random check of _product_route's TMA -> mma.sync fallback
+    (gemm's own products are torch._int_mm on operands padded to 128, so
+    the sweep does not reach it)."""
+    from gemmul8_tpu_torch import kernels
+    from gemmul8_tpu_torch.probes import device_stress
+    t0 = time.perf_counter()
+    recs, STRESS_RUNS["device_stress"] = run_counted(
+        lambda: device_stress.run(STRESS_TRIALS, SEED, "cuda",
+                                  log=sys.stdout))
+    bad = [r["label"] for r in recs if not r["ok"]]
+    check(not bad, f"stress trials {bad} outside the tool's tolerance")
+    check(len(recs) == STRESS_TRIALS + max(STRESS_TRIALS // 5, 3),
+          f"stress: {len(recs)} trials")
+    counts = STRESS_RUNS["device_stress"]
+    for key in STRESS_WANT:
+        check(counts.get(key, 0) > 0, f"stress: no {key} launch ({counts})")
+    log(f"stress sweep {card}: {len(recs)} trials within tolerance in "
+        f"{time.perf_counter() - t0:.1f} s, worst err/tol "
+        f"{max(r['err'] / r['tol'] for r in recs):.3g}, launches "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    t0 = time.perf_counter()
+    recs = device_stress.run(STRESS_TRIALS, SEED, "cuda", against_cpu=True,
+                             log=sys.stdout)
+    bad = [r["label"] for r in recs if not (r["ok"] and r["cpu_equal"])]
+    check(not bad, f"stress trials {bad} failed or differ from the CPU path")
+    log(f"stress sweep card vs cpu: {len(recs)} trials bit-equal in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    rng = np.random.default_rng(SEED)
+    shapes = [(t["m"], t["k"], t["n"]) for t in
+              device_stress.real_trials(STRESS_TRIALS, rng)]
+    shapes += [(t["m"], t["k"], t["n"]) for t in
+               device_stress.planar_trials(STRESS_TRIALS, rng)]
+    prng = np.random.default_rng(SEED + 20)
+    cases, routes = [], {}
+    for m, k, n in shapes:
+        a = torch.from_numpy(prng.integers(-128, 128, (2, m, k),
+                                           dtype=np.int8)).cuda()
+        b = torch.from_numpy(prng.integers(-128, 128, (2, k, n),
+                                           dtype=np.int8)).cuda()
+        for kernel, schedule, bk, kcontig in STRESS_PRODUCTS:
+            bb = b.transpose(1, 2).contiguous().transpose(1, 2) if kcontig \
+                else b
+            route = kernels._product_route(a, bb, kernel)
+            routes[route] = routes.get(route, 0) + 1
+            cases.append((a, bb, kernel, schedule, bk, (m, k, n), route))
+
+    def launch_all():
+        return [kernels.matmul_i8(a, bb, schedule, bk, kernel)
+                for a, bb, kernel, schedule, bk, _, _ in cases]
+
+    outs, STRESS_RUNS["product_routes"] = run_counted(launch_all)
+    for got, (a, bb, kernel, schedule, bk, shape, route) in zip(outs, cases):
+        assert_bits_equal(got, kernels.matmul_i8_plain(a, bb),
+                          f"matmul_i8 {kernel} {schedule} bk{bk} {shape} "
+                          f"route {route}")
+    counts = {k: v for k, v in STRESS_RUNS["product_routes"].items() if v}
+    check(routes.get("wgmma", 0) > 0 and routes.get("mma_sync", 0) > 0,
+          f"stress products: routes {routes}")
+    check(sum(counts.get(k, 0) for k in PRODUCT_COUNTS[:4]) == len(cases),
+          f"stress products: launches {counts} for {len(cases)} products")
+    log(f"stress products: {len(cases)} matmul_i8 calls at the {len(shapes)} "
+        f"trial shapes bit-equal to their plain version, routes {routes}, "
+        f"launches {counts}")
+
+
+def blas3_path(card):
+    """Phase 4: probes.blas3_perf at 4096, nu=16: syr2k against the naive
+    two-GEMM form, exactly 0 apart at 256 rows (the probe raises
+    otherwise), then one gemm, syr2k, the naive form, her2k and the naive
+    two-ZGEMM form timed in rotated turns, with their launches."""
+    from gemmul8_tpu_torch.probes import blas3_perf
+    t0 = time.perf_counter()
+    res, BENCH_RUNS["blas3_perf"] = run_counted(
+        lambda: blas3_perf.measure(BLAS3_N, BLAS3_N, BLAS3_NU, reps=4,
+                                   device="cuda", log=sys.stdout))
+    check(res["diff"] == 0.0, f"blas3_perf: syr2k - naive {res['diff']!r}")
+    check(len(res["rows"]) == 5, f"blas3_perf rows {res['rows']}")
+    for name, n, k, nu, ms, tflops in res["rows"]:
+        # products at the rank-2k convention's flops: nu int8 products per
+        # real product, 3nu per complex one (2 n^2 k each, as 8 n^2 k / 4)
+        lanes = 3 if "Z" in name or "her2k" in name else 1
+        fac = 8.0 if lanes == 3 else 2.0
+        check(ms > 0 and lanes * nu * 2.0 / fac * tflops * 1e12
+              <= PEAK_INT8_OPS, f"blas3_perf {name}: {ms} ms, {tflops} TF/s")
+    t = {r[0]: r[4] for r in res["rows"]}
+    log(f"blas3_perf {card} ({time.perf_counter() - t0:.1f} s): "
+        + json.dumps(res["rows"])
+        + f"; syr2k / naive {t['syr2k (G + G^T)'] / t['naive 2-GEMM']:.3f}, "
+        f"her2k / naive {t['her2k (G + G^H)'] / t['naive 2-ZGEMM']:.3f}, "
+        f"launches {json.dumps(BENCH_RUNS['blas3_perf'])}")
+    return res
+
+
+def crt_value_gap(limbs20, base20, limbs16, base16, P):
+    """max over the elements of |t20 - t16 (mod P)| / P, exactly: t20 =
+    sum limbs20[i] 2^(base20 + 20 i) (ff.crt_limbs), t16 likewise on the
+    16-bit grid (ff.crt_limbs_matrix). The two may pick different
+    representatives near +-P/2 (the wrap quotient is an f32 estimate), so q
+    = round((t20 - t16) / P) comes from f64 sums; then t20 - t16 - q P is
+    formed exactly in 32-bit words of int64 (balanced carries) in units of
+    2^g, g = min(base20, base16, 0), and its words summed highest first."""
+    g = min(base20, base16, 0)
+    dev = limbs20[0].device
+    top = max(base20 + 20 * len(limbs20), base16 + 16 * len(limbs16))
+    n_words = (top - g) // 32 + 3
+
+    def approx(limbs, base, width):
+        out = torch.zeros(limbs[0].shape, dtype=torch.float64, device=dev)
+        for i in range(len(limbs) - 1, -1, -1):
+            out += limbs[i].double() * 2.0 ** (base + width * i)
+        return out
+
+    def carry(words):
+        for w in range(n_words - 1):
+            c = (words[w] + (1 << 31)) >> 32
+            words[w] = words[w] - c * (1 << 32)
+            words[w + 1] = words[w + 1] + c
+        return words
+
+    def words_of(limbs, base, width, sign):
+        words = [torch.zeros(limbs[0].shape, dtype=torch.int64, device=dev)
+                 for _ in range(n_words)]
+        for i, limb in enumerate(limbs):
+            w, off = divmod(base + width * i - g, 32)
+            words[w] += limb.to(torch.int64) * (sign * (1 << off))
+        return carry(words)
+
+    q = torch.round((approx(limbs20, base20, 20) - approx(limbs16, base16, 16))
+                    / float(P)).to(torch.int64)
+    check(bool((q.abs() <= 1).all()), "crt_limbs: values more than P apart")
+    d = [x + y for x, y in zip(words_of(limbs20, base20, 20, 1),
+                               words_of(limbs16, base16, 16, -1))]
+    pw = P << -g
+    for w in range(n_words):
+        d[w] = d[w] - q * ((pw >> (32 * w)) & 0xFFFFFFFF)
+    d = carry(d)
+    val = torch.zeros_like(d[0], dtype=torch.float64)
+    for w in range(n_words - 1, -1, -1):
+        val = val * 2.0 ** 32 + d[w].double()
+    return float(val.abs().max()) * 2.0 ** g / float(P)
+
+
+def crt_residues(a64, b64, backend, nu):
+    """The wrapped residues C_mid (nu, 8192, 8192) of the 8192^3 path's own
+    products: K1's planes through torch._int_mm, mod-reduced (the INT8
+    DGEMM), or K6's stacks through the FP8 products, reassembled (the FP8
+    DGEMM), in row blocks."""
+    from gemmul8_tpu_torch import core, fp8, kernels, quantize
+    sa = quantize.shift_fast(a64, nu, backend, 1)
+    sb = quantize.shift_fast(b64, nu, backend, 0)
+    if backend == "INT8":
+        c_hi = core.residue_matmul(
+            kernels.encode_planes(a64, sa, 0, nu, backend),
+            kernels.encode_planes(b64, sb, 1, nu, backend))
+        return core.mod_reduce(c_hi, nu, backend)
+    c3 = fp8.residue_matmul_fp8(kernels.encode_planes_fp8(a64, sa, 0, nu),
+                                kernels.encode_planes_fp8(b64, sb, 1, nu))
+    return torch.cat([fp8._reassemble(c3[:, r0:r0 + 1024].to(torch.int32), nu)
+                      for r0 in range(0, FULL, 1024)], dim=1).to(torch.int16)
+
+
+def crt_limbs_card_vs_cpu(a64, b64, card):
+    """Phase 5: ff.crt_limbs, the piece-wise 20-bit CRT that cross-checks
+    the production crt_limbs_matrix (on no production route), on the card
+    over the DGEMM nu=16 and FP8 DGEMM nu=14 paths' own wrapped residues at
+    8192^2: every limb bit for bit against the CPU path (in 64-row blocks),
+    the limbs balanced below the top one, and the value within P * 2^-78
+    of crt_limbs_matrix's, modulo P (crt_value_gap), as tests/test_ff.py
+    holds them."""
+    from gemmul8_tpu_torch import ff, tables
+    for backend, nu in CRT_PATHS:
+        t0 = time.perf_counter()
+        c_mid = crt_residues(a64, b64, backend, nu)
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        limbs, base = ff.crt_limbs(c_mid, nu, backend, 53)
+        torch.cuda.synchronize()
+        t_card = time.perf_counter() - t1
+        half = 1 << (ff.LIMB_BITS - 1)
+        for i, limb in enumerate(limbs[:-1]):
+            check(int(limb.min()) >= -half and int(limb.max()) < half,
+                  f"crt_limbs {backend} nu={nu}: limb {i} not balanced")
+        cpu_mid = c_mid.cpu()
+        t1 = time.perf_counter()
+        for r0 in range(0, FULL, CRT_ROWS):
+            ref, ref_base = ff.crt_limbs(cpu_mid[:, r0:r0 + CRT_ROWS], nu,
+                                         backend, 53)
+            check(ref_base == base, f"crt_limbs base {ref_base} vs {base}")
+            for i, (g, r) in enumerate(zip(limbs, ref)):
+                assert_bits_equal(g[r0:r0 + CRT_ROWS], r,
+                                  f"crt_limbs {backend} nu={nu} limb {i} "
+                                  f"rows {r0}: card vs cpu")
+        t_cpu = time.perf_counter() - t1
+        del cpu_mid
+        limbs16, base16 = ff.crt_limbs_matrix(c_mid, nu, backend, 53)
+        P = 1
+        for p in tables.moduli(backend)[:nu]:
+            P *= int(p)
+        gap = 0.0
+        for r0 in range(0, FULL, GAP_ROWS):
+            rows = slice(r0, r0 + GAP_ROWS)
+            gap = max(gap, crt_value_gap([x[rows] for x in limbs], base,
+                                         [x[rows] for x in limbs16], base16,
+                                         P))
+        check(gap <= 2.0 ** -78, f"crt_limbs {backend} nu={nu}: "
+              f"{gap!r} P from crt_limbs_matrix's value")
+        log(f"crt_limbs {card} {backend} nu={nu} {FULL}^2: {len(limbs)} limbs "
+            f"bit-equal card vs cpu (card {t_card * 1e3:.1f} ms, cpu "
+            f"{t_cpu:.1f} s), value within {gap:.3g} P of crt_limbs_matrix's "
+            f"(bound 2^-78 = {2.0 ** -78:.3g}), {time.perf_counter() - t0:.1f}"
+            " s in all")
+        del c_mid, limbs, limbs16
+        torch.cuda.empty_cache()
+    return len(CRT_PATHS)
+
+
+def stress_key(name):
+    """The launch-count key of a kernels-line entry (the product entries
+    count by route and schedule)."""
+    for entry, _, _, schedule, _, _ in PROBE_PRODUCTS:
+        if name == entry:
+            return f"matmul_i8_wgmma_{schedule}"
+    for entry, schedule, *_ in MMA_SYNC:
+        if name == entry:
+            return f"matmul_i8_{schedule}"
+    if name == TRANSPOSE_KEY:
+        return "transpose_i8"
+    return name.partition("[")[0]
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--quick", action="store_true",
@@ -5070,6 +5343,13 @@ def main():
     bench = benchmark_paths(card)
     torch.cuda.empty_cache()
     log_phase("phase 4 (benchmarks)")
+    # the device stress sweep and the rank-2k probe, each through the calls
+    # a user makes
+    stress_paths(card)
+    log_phase("phase 4 (device stress sweep)")
+    blas3_path(card)
+    torch.cuda.empty_cache()
+    log_phase("phase 4 (blas3_perf)")
 
     # phase 5: the card against the CPU path, bit for bit
     n_cpu = card_vs_cpu(rng)
@@ -5097,6 +5377,10 @@ def main():
     n_examples = example_card_vs_cpu(bench)
     log(f"examples and accuracy sweep card vs cpu: {n_examples} cases")
     log_phase("phase 5 (examples and benchmarks card vs cpu)")
+    # and the piece-wise CRT's, on the 8192^3 paths' own residues
+    n_crt = crt_limbs_card_vs_cpu(a64, b64, card)
+    log(f"crt_limbs card vs cpu: {n_crt} cases bit-equal")
+    log_phase("phase 5 (crt_limbs card vs cpu)")
 
     # phase 6: times; the solvers' first, so that their operands and
     # outputs are freed before the big products run
@@ -5299,7 +5583,7 @@ def main():
     kern += probe_entries(probe_runs, ptiming)
     # each kernel entry's launches in the accurate paths (and syrk's robust
     # one) of its dtype that run it
-    first_entry = set()
+    first_entry, first_stress = set(), set()
     for entry in kern:
         key, _, tag = entry["name"].partition("[")
         runs = {name: accurate_runs[name][0][key]
@@ -5335,6 +5619,14 @@ def main():
                 runs = {n: c[key] for n, c in table.items() if c.get(key)}
                 if runs:
                     entry[field] = runs
+        # and in the stress sweep and the product-route check at its
+        # shapes, on the first entry of each launch count
+        skey = stress_key(entry["name"])
+        if skey not in first_stress:
+            first_stress.add(skey)
+            runs = {n: c[skey] for n, c in STRESS_RUNS.items() if c.get(skey)}
+            if runs:
+                entry["stress_launches"] = runs
     log(card)
     log(json.dumps({"kernels": kern}))
     print(json.dumps({"ok": True, "device": {

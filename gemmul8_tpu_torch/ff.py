@@ -1,16 +1,22 @@
 """CRT epilogue in exact int32 fixed-point limbs.
 
-The PyTorch counterpart of gemmul8_tpu/ff.py (production matrix plan only).
-The CRT sum t = sum_i qPi * r_i is accumulated in 16-bit int32 limbs on a
-static power-of-two grid, the wrap quotient rint(t / P) is estimated from the
-top limbs after a balanced carry, P * quot is folded back in and the limbs are
-carried again. Each limb is then scaled by its exact power of two and the
-limbs are summed in the output dtype. The only approximations are the static
-sub-base cutoff and the final roundings into the output dtype.
+The PyTorch counterpart of gemmul8_tpu/ff.py. On the production path, the
+matrix plan (crt_limbs_matrix), the CRT sum t = sum_i qPi * r_i is
+accumulated in 16-bit int32 limbs on a static power-of-two grid, the wrap
+quotient rint(t / P) is estimated from the top limbs after a balanced
+carry, P * quot is folded back in and the limbs are carried again. Each
+limb is then scaled by its exact power of two and the limbs are summed in
+the output dtype. The only approximations are the static sub-base cutoff
+and the final roundings into the output dtype.
 
 The JAX twin forms the limb sums as an f32 product against 8-bit columns of
 qPi; here they are int32 multiply-adds against the 16-bit limb weights (the
 fused kernel's form). Both give the same exact integers.
+
+crt_limbs (20-bit limbs built from 12-bit pieces of the qPi tables' f32
+expansions) is kept, as in JAX, as an independent cross-check of
+crt_limbs_matrix and is on no production route; two_prod_const, like
+JAX's, serves the tests.
 """
 from __future__ import annotations
 
@@ -28,6 +34,49 @@ def two_sum(a, b):
     t = s - a
     e = (a - (s - t)) + (b - t)
     return s, e
+
+
+_SPLIT = np.float32((1 << 12) + 1)
+LIMB_BITS = 20
+_LIMB = 1 << LIMB_BITS
+
+
+def two_prod_const(c_np, x):
+    """Error-free c * x = p + e for an f32 CONSTANT c (host-side Veltkamp
+    split) times an f32 tensor x (runtime Dekker split). Each step is its
+    own rounded f32 operation, as in eager JAX (no fused multiply-add)."""
+    c_np = np.float32(c_np)
+    ch, cl = (float(v) for v in _split12_const(c_np))
+    cx = x * float(_SPLIT)
+    xh = cx - (cx - x)
+    xl = x - xh
+    p = x * float(c_np)
+    e = ((xh * ch - p) + xl * ch + xh * cl) + xl * cl
+    return p, e
+
+
+def _split12_const(v):
+    """Veltkamp split of an f32 constant into (hi, lo), each with <= 12
+    significant bits, computed in exact f32 host arithmetic."""
+    v = np.float32(v)
+    c = np.float32(_SPLIT * v)
+    hi = np.float32(c - np.float32(c - v))
+    lo = np.float32(v - hi)
+    return hi, lo
+
+
+def _int_pieces(value_f64: float, max_bits: int = 12):
+    """Decompose an exact f64 (24-bit-mantissa component) into signed integer
+    pieces m * 2^g with |m| < 2^max_bits. Exact (host numpy, as in JAX)."""
+    pieces = []
+    v = np.float64(value_f64)
+    while v != 0.0:
+        g = int(np.floor(np.log2(abs(v)))) - (max_bits - 1)
+        m = v * (2.0 ** -g)
+        m_int = int(np.floor(m))  # may leave a remainder piece
+        pieces.append((m_int, g))
+        v = v - m_int * (2.0 ** g)
+    return pieces
 
 
 @functools.lru_cache(maxsize=None)
@@ -131,6 +180,112 @@ def fold_quotient(limbs, p16, invp_top):
         if p16[li]:
             limbs[li] = limbs[li] - quot * p16[li]
     return _carry16(limbs)
+
+
+@functools.lru_cache(maxsize=None)
+def _crt_plan(num_moduli: int, backend: str, out_bits: int):
+    """Static 20-bit limb-accumulation plan of crt_limbs.
+
+    Returns (base, L, terms, invp_top, p_terms):
+      base     -- exponent of limb 0's unit (limb li has unit 2^(base+20*li))
+      L        -- number of limbs
+      terms    -- ((plane_index, m_int, limb_idx, offset), ...): for each
+                  12-bit qPi piece, where its (m*r) product lands
+      invp_top -- f32 constant: invP * 2^(base + 20*(L-3)) for the quotient
+                  estimate from the top three limbs
+      p_terms  -- ((m_int, limb_idx, offset), ...) integer pieces of P
+                  (stored negative) for folding P*quot into the limbs
+    """
+    qp = np.asarray(tables.qPi_f32x(num_moduli, backend), np.float64)  # (nu,4)
+    p_hi = abs(tables.P_dd(num_moduli, backend)[0])
+    ptop = int(np.floor(np.log2(p_hi)))
+    # pieces cut below `base` contribute error <= 2^(base+11) each, so base
+    # sits 11 bits under the target floor; with the qPi tables' own ~96-bit
+    # truncation the absolute error stays within ~P * 2^-80 (f64 outputs)
+    lo_bits = 95 if out_bits == 53 else 56
+    base = ptop - lo_bits
+    top = ptop + 16
+    L = -(-(top - base) // LIMB_BITS) + 1
+
+    def place(m_int, g):
+        d = g - base
+        li, off = divmod(d, LIMB_BITS)
+        return (m_int, li, off)
+
+    terms = []
+    for i in range(num_moduli):
+        for j in range(qp.shape[1]):
+            for m_int, g in _int_pieces(qp[i, j]):
+                if g + 23 < base or m_int == 0:
+                    continue
+                if g < base:      # partial: fold what remains above base
+                    m_int = m_int >> (base - g)
+                    g = base
+                if m_int:
+                    terms.append((i,) + place(m_int, g))
+    pexp = np.asarray(tables.P_f32x(num_moduli, backend), np.float64)
+    p_terms = []
+    for v in pexp:
+        for m_int, g in _int_pieces(v):
+            if g + 26 < base or m_int == 0:
+                continue
+            if g < base:
+                m_int = m_int >> (base - g)
+                g = base
+            if m_int:
+                p_terms.append(place(m_int, g))
+    invp_top = np.float32(np.float64(tables.invP(num_moduli, backend))
+                          * 2.0 ** (base + LIMB_BITS * (L - 3)))
+    return base, L, tuple(terms), invp_top, tuple(p_terms)
+
+
+def _add_to_limbs(limbs: list, prod, li: int, off: int):
+    """Fold an int32 product (|prod| < 2^26) into limbs li/li+1 at bit offset
+    off (static). Floor-division split keeps the low part non-negative."""
+    if off == 0:
+        limbs[li] = limbs[li] + prod
+        return
+    hi = prod >> (LIMB_BITS - off)                    # arithmetic shift: floor
+    lo = prod - (hi << (LIMB_BITS - off))
+    limbs[li] = limbs[li] + (lo << off)
+    if li + 1 < len(limbs):
+        limbs[li + 1] = limbs[li + 1] + hi
+
+
+def crt_limbs(c_mid: torch.Tensor, num_moduli: int, backend: str,
+              out_bits: int):
+    """Exact CRT accumulate + wrap into carry-normalized int32 limbs, on
+    c_mid's device.
+
+    c_mid: (nu, m, n) wrapped residues. Returns (limbs, base): limbs is a
+    list of L int32 tensors with t = sum_li limbs[li] * 2^(base + 20*li),
+    |t| < P/2, every limb in [-2^19, 2^19) except the (signed) top limb.
+    """
+    base, L, terms, invp_top, p_terms = _crt_plan(num_moduli, backend, out_bits)
+    planes = [c_mid[i].to(torch.int32) for i in range(num_moduli)]
+
+    shape = c_mid.shape[1:]
+    limbs = [torch.zeros(shape, dtype=torch.int32, device=c_mid.device)
+             for _ in range(L)]
+    for i, m_int, li, off in terms:
+        _add_to_limbs(limbs, planes[i] * m_int, li, off)
+
+    # wrap: quot = rint(t * invP) from the top three limbs (f32; |quot|<2^14)
+    t_top = (limbs[L - 1].to(torch.float32) * float(_LIMB)
+             + limbs[L - 2].to(torch.float32)) * float(_LIMB) \
+        + limbs[L - 3].to(torch.float32)
+    quot = torch.round(t_top * float(invp_top)).to(torch.int32)
+    for m_int, li, off in p_terms:
+        _add_to_limbs(limbs, quot * m_int, li, off)
+
+    # one balanced carry pass, low -> high: limbs in [-2^19, 2^19), so a
+    # small-magnitude t leaves the high limbs at zero
+    half = 1 << (LIMB_BITS - 1)
+    for li in range(L - 1):
+        c = (limbs[li] + half) >> LIMB_BITS
+        limbs[li] = limbs[li] - (c << LIMB_BITS)
+        limbs[li + 1] = limbs[li + 1] + c
+    return limbs, base
 
 
 def pow2_f32(e: torch.Tensor) -> torch.Tensor:

@@ -26,7 +26,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import tables
+from . import _tables_data, tables
 
 #: K chunk bound for exact f32 accumulation of fp8-plane products
 #: (max |plane| = 16 -> max product 256; 256 * 2^16 = 2^24)
@@ -36,9 +36,9 @@ _FP8 = tables.Backend.FP8
 
 
 def _sqrt_moduli() -> tuple[int, ...]:
-    """Integer square roots of the perfect-square FP8 moduli."""
-    mods = tables.moduli(_FP8)[: tables.NOT_KARATSUBA]
-    return tuple(int(np.sqrt(p) + 0.5) for p in mods)
+    """Integer square roots of the perfect-square FP8 moduli (the table's
+    row, reference: table.hpp:56-62 sqrt_moduli)."""
+    return tuple(_tables_data.SQRT_MODULI_FP8)
 
 
 def split_planes(res: torch.Tensor, num_moduli: int) -> torch.Tensor:

@@ -18,6 +18,15 @@ the five benchmarks
   solver_flops  benchmarks/solver_flops.py  getrf, potrf, geqrf TFLOP/s
                                             beside cuSOLVER's
 
+the public API's on-hardware checks
+
+  device_stress  tools/device_stress.py      random gemm and gemm_planar
+                                             trials against the host f64
+                                             product (--against-cpu: and
+                                             the CPU path's bits)
+  blas3_perf     tools/probe_blas3_perf.py   syr2k and her2k against the
+                                             naive two-GEMM forms, timed
+
 and, with no tool behind it,
 
   epilogue_tiles                     the design choices of K2, K4, K6
@@ -27,7 +36,8 @@ and, with no tool behind it,
                                      module, no table of its own)
 
 Each runs as `python -m gemmul8_tpu_torch.probes.<name>` on a CUDA card and
-prints a table (the benchmarks write their CSV under
-gemmul8_tpu_torch/_results/, power prints JSON); chip_smoke.py drives the
-tools' and the benchmarks' functions and reads the rows they return.
+prints a table (the benchmarks and blas3_perf write their CSV under
+gemmul8_tpu_torch/_results/, power prints JSON; device_stress prints a
+line a trial and exits 1 on a failure); chip_smoke.py drives the tools'
+and the benchmarks' functions and reads the rows they return.
 """
