@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from . import core, fp8, kernels, quantize, tables
+from .spans import span
 
 _COMPLEX_NAME = {torch.float32: "complex64", torch.float64: "complex128",
                  torch.complex64: "complex64", torch.complex128: "complex128"}
@@ -69,6 +70,7 @@ def _crop(out, m, n):
 # shifts, lanes, recombine
 # ---------------------------------------------------------------------------
 
+@span("shifts")
 def _shift_complex_fast(re, im, num_moduli, backend, reduce_axis,
                         variant="reference"):
     """One shift per row/column from Re and Im concatenated along the reduce
@@ -141,6 +143,7 @@ def accurate_combine(d, ext, num_moduli, backend):
                                  backend)
 
 
+@span("shifts")
 def shifts(a, b, num_moduli, fastmode, backend):
     """(sft_a, sft_b) of A's rows and B's columns from the (Re, Im) pairs a
     and b, in the given mode as core.shifts; b=None stands for A^H."""
@@ -156,6 +159,7 @@ def shifts(a, b, num_moduli, fastmode, backend):
                                       variant=var)
 
 
+@span("lanes")
 def _quantize_complex(re, im, sft, scale_axis, num_moduli, backend, conj):
     """The three lane plane sets (Re, Im, (Re+Im) mod p) of one operand:
     INT8 (3, nu, r, c) int8, each lane in the layout encode_planes returns
@@ -270,6 +274,7 @@ def _complex_product(pa, pb, sft_a, sft_b, num_moduli, backend, out_dtype,
 # op(A) @ op(B)
 # ---------------------------------------------------------------------------
 
+@span("entry")
 def _emulate(ar, ai, br, bi, num_moduli, fastmode, backend, conj_a, conj_b,
              epilogue, out_dtype):
     _check_backend(backend)
@@ -302,6 +307,7 @@ def emulate_matmul_complex_planar(ar, ai, br, bi, *, num_moduli: int,
                     conj_b, epilogue, ar.dtype)
 
 
+@span("entry")
 def emulate_matmul_complex(a, b, *, num_moduli: int, fastmode=True,
                            backend: str = tables.Backend.INT8,
                            conj_a: bool = False, conj_b: bool = False,
@@ -326,6 +332,7 @@ def _cmul(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
                          torch.addcmul(xr * yi, xi, yr))
 
 
+@span("alpha_beta")
 def _gemm_cplx(a, b, c, alpha, beta, *, num_moduli, fastmode, backend,
                op_a, op_b, has_c, epilogue, trivial_alpha, beta_kind):
     if op_a in ("T", "C"):
@@ -369,6 +376,7 @@ def _operand(x, device) -> torch.Tensor:
     return core._as_tensor(x, device).resolve_conj().resolve_neg()
 
 
+@span("entry")
 def gemm_complex(a, b, *, num_moduli: int = 8, fastmode=True,
                  backend: str = tables.Backend.INT8, alpha=1.0, beta=0.0,
                  c=None, trans_a="N", trans_b="N", epilogue: str = "auto",

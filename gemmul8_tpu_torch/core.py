@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from . import ff, fp8, kernels, quantize, tables
+from .spans import span
 
 # int32 accumulation of int8 residue products is exact up to this K
 # (|r| <= 128 -> product <= 2^14; 2^14 * 2^17 = 2^31)
@@ -36,6 +37,7 @@ K_CHUNK = 1 << 17
 _DTYPE_NAMES = {torch.float32: "float32", torch.float64: "float64"}
 
 
+@span("products")
 def residue_matmul(a_planes: torch.Tensor, b_planes: torch.Tensor,
                    out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(nu, m, k) int8 @ (nu, k, n) int8 -> (nu, m, n) int32, exact: one
@@ -65,6 +67,7 @@ def mod_reduce(c_hi: torch.Tensor, num_moduli: int, backend: str) -> torch.Tenso
                         for i, p in enumerate(mods)])
 
 
+@span("products")
 def _chunked_residue_acc(a_planes, b_planes, num_moduli, backend):
     """K-chunked int32 residue accumulator: the sum of per-chunk [0, p)
     partial residues (exact; <= n_chunks * p < 2^31)."""
@@ -189,6 +192,7 @@ def fast_shift(x, num_moduli, fastmode, backend, reduce_axis):
                                reduce_axis=reduce_axis, variant=var)
 
 
+@span("shifts")
 def shifts(a, b, num_moduli, fastmode, backend):
     """(sft_a, sft_b) of A's rows and B's columns. Fast mode: independent
     norm-based shifts (scaling_fast_real.hpp); fastmode="robust" takes the
@@ -289,6 +293,7 @@ def _emulated_product(a_planes, sft_a, b_planes, sft_b, num_moduli, backend,
                              out_dtype, epilogue)
 
 
+@span("entry")
 def _pad128(x: torch.Tensor, axes) -> torch.Tensor:
     """Zero-pad the given axes up to multiples of 128 (exactness-preserving:
     zero rows/cols give zero planes, zero products and sft=0)."""
@@ -299,6 +304,7 @@ def _pad128(x: torch.Tensor, axes) -> torch.Tensor:
     return torch.nn.functional.pad(x, pad) if any(pad) else x
 
 
+@span("entry")
 def emulate_matmul(a: torch.Tensor, b: torch.Tensor, *, num_moduli: int,
                    fastmode=True, backend: str = tables.Backend.INT8,
                    epilogue: str = "auto") -> torch.Tensor:
@@ -322,6 +328,7 @@ def emulate_matmul(a: torch.Tensor, b: torch.Tensor, *, num_moduli: int,
     return out
 
 
+@span("alpha_beta")
 def ab_epilogue(ab, c, alpha, beta, *, has_c, epilogue, trivial_alpha,
                 beta_kind):
     """alpha * ab + beta * c as the JAX package's jitted _gemm_real computes
@@ -388,6 +395,7 @@ def _check_nu(dtype, num_moduli) -> None:
             f"num_moduli={num_moduli} out of range [{lo},{hi}] for {dtype}")
 
 
+@span("entry")
 def gemm(a, b, *, num_moduli: int = 8, fastmode=True,
          backend: str = tables.Backend.INT8, alpha=1.0, beta=0.0, c=None,
          trans_a=False, trans_b=False, epilogue: str = "auto",
@@ -680,6 +688,7 @@ def _stripe_operand(x, sft, scale_axis, num_moduli, backend):
     return encode_side(x, sft, scale_axis, num_moduli, backend), sft
 
 
+@span("entry")
 def emulate_matmul_blocked(a: torch.Tensor, b: torch.Tensor, *,
                            num_moduli: int, fastmode=True,
                            backend: str = tables.Backend.INT8,

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from . import _tables_data, tables
+from .spans import span
 
 #: K chunk bound for exact f32 accumulation of fp8-plane products
 #: (max |plane| = 16 -> max product 256; 256 * 2^16 = 2^24)
@@ -97,6 +98,7 @@ def lhs_to_rhs_stack(stack3: torch.Tensor, num_moduli: int) -> torch.Tensor:
     return stack3[torch.tensor(idx, device=stack3.device)]
 
 
+@span("products")
 def residue_matmul_fp8(a3: torch.Tensor, b3: torch.Tensor) -> torch.Tensor:
     """(3nu, m, k) @ (3nu, k, n) e4m3 planes -> (3nu, m, n) f32 exact integer
     products, k <= K_CHUNK_FP8.
@@ -134,6 +136,7 @@ def _reassemble(c3: torch.Tensor, num_moduli: int) -> torch.Tensor:
     return torch.stack(outs)
 
 
+@span("products")
 def _chunked_residue_acc(a3: torch.Tensor, b3: torch.Tensor,
                          num_moduli: int) -> torch.Tensor:
     """K-chunked int32 residue accumulator: sums of per-chunk wrapped

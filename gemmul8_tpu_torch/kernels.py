@@ -54,6 +54,7 @@ import numpy as np
 import torch
 
 from . import ff, fp8, quantize, tables
+from .spans import span
 
 LAUNCHES = {"encode_planes": 0, "encode_planes_fp8": 0,
             "encode_lanes_fp8": 0, "fused_epilogue": 0,
@@ -281,6 +282,7 @@ def encode_planes_plain(x, sft, scale_axis, num_moduli, backend):
                                      backend).to(torch.int8)
 
 
+@span("encode")
 def encode_planes(x: torch.Tensor, sft: torch.Tensor, scale_axis: int,
                   num_moduli: int, backend: str,
                   out: torch.Tensor | None = None) -> torch.Tensor:
@@ -387,6 +389,7 @@ def encode_planes_fp8_plain(x, sft, scale_axis, num_moduli):
                            "lhs" if scale_axis == 0 else "rhs")
 
 
+@span("encode")
 def encode_planes_fp8(x: torch.Tensor, sft: torch.Tensor, scale_axis: int,
                       num_moduli: int,
                       out: torch.Tensor | None = None) -> torch.Tensor:
@@ -442,6 +445,7 @@ def encode_lanes_fp8_plain(re, im, sft, scale_axis, num_moduli, conj=False):
                         for x in (rr, ri, s)])
 
 
+@span("encode")
 def encode_lanes_fp8(re: torch.Tensor, im: torch.Tensor, sft: torch.Tensor,
                      scale_axis: int, num_moduli: int, conj: bool = False,
                      out: torch.Tensor | None = None) -> torch.Tensor:
@@ -584,6 +588,7 @@ def fused_epilogue_plain(c_hi, sft_a, sft_b, num_moduli, backend, out_dtype):
                                    sft_a, sft_b, num_moduli, backend, out_dtype)
 
 
+@span("epilogue")
 def fused_epilogue(c_hi: torch.Tensor, sft_a: torch.Tensor,
                    sft_b: torch.Tensor, num_moduli: int, backend: str,
                    out_dtype: torch.dtype) -> torch.Tensor:
@@ -670,6 +675,7 @@ def fused_epilogue_fp8_plain(c3, sft_a, sft_b, num_moduli, out_dtype):
                                    out_dtype)
 
 
+@span("epilogue")
 def fused_epilogue_fp8(c3: torch.Tensor, sft_a: torch.Tensor,
                        sft_b: torch.Tensor, num_moduli: int,
                        out_dtype: torch.dtype) -> torch.Tensor:
@@ -701,6 +707,7 @@ def reassemble_fp8_plain(c3, num_moduli):
     return fp8._reassemble(c3.to(torch.int32), num_moduli)
 
 
+@span("epilogue")
 def reassemble_fp8(c3: torch.Tensor, num_moduli: int,
                    out: torch.Tensor | None = None,
                    accumulate: bool = False) -> torch.Tensor:
@@ -770,6 +777,7 @@ def fused_recombine_3m_plain(c_hi3, num_moduli, backend):
     return re.to(RECOMBINE_DTYPE[backend]), im.to(RECOMBINE_DTYPE[backend])
 
 
+@span("epilogue")
 def fused_recombine_3m(c_hi3: torch.Tensor, num_moduli: int, backend: str):
     """(3nu, m, n) int32 lane products Crr | Cii | Crii (or their K-chunked
     residue sums, or any int32) -> (re, im), each (nu, m, n) wrapped
@@ -803,6 +811,7 @@ def fused_epilogue_complex_plain(c_hi3, sft_a, sft_b, num_moduli, backend,
     return torch.complex(re, im) if out_dtype.is_complex else (re, im)
 
 
+@span("epilogue")
 def fused_epilogue_complex(c_hi3: torch.Tensor, sft_a: torch.Tensor,
                            sft_b: torch.Tensor, num_moduli: int, backend: str,
                            out_dtype: torch.dtype):

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from . import tables
+from .spans import span
 
 # round-up-biased half used by the reference for log2 terms (0x1.000006p-1)
 LOG2_HALF_RU = float.fromhex("0x1.000006p-1")
@@ -111,6 +112,7 @@ def ilogb(a: torch.Tensor) -> torch.Tensor:
 # shift computation (fast mode)  [reference: scaling_fast_real.hpp:6-22]
 # ---------------------------------------------------------------------------
 
+@span("shifts")
 def shift_fast(x: torch.Tensor, num_moduli: int, backend: str, reduce_axis: int,
                variant: str = "reference") -> torch.Tensor:
     """Per-row (reduce_axis=1) or per-column (reduce_axis=0) quantization shift.
