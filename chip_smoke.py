@@ -141,6 +141,8 @@ MXU_KEY = "fused_epilogue_mxu[pair nu=16]"
 # FP8 kernels (K6c, K3r): phase 2 sums up their registers and spills
 REDESIGNED = ("encode_fp8.cu", "epilogue_mxu.cu", "epilogue_fp8.cu")
 COMPLEX_FP8_SOURCES = ("encode_lanes_fp8.cu", "reassemble_fp8.cu")
+# K10's launches in one call: A's rows one, B's columns two (herk: A alone)
+SHIFT_LAUNCHES = {"gemm": 3, "herk": 1}
 PROBE_NU, PROBE_M = 16, 4096          # the product probes' own size
 T0 = time.perf_counter()
 
@@ -271,13 +273,15 @@ def run_counted(fn):
     after; torch._int_mm and torch._scaled_mm calls (the library products)
     are counted by wrappers around them, the _int_mm calls made inside
     accurate mode's estimation products apart as "estimate_int_mm", and the
-    fast shifts' calls (quantize.shift_fast, plain torch) as "shift_fast"."""
+    fast shifts' calls (quantize.shift_fast) as "shift_fast_calls" beside
+    K10's launches ("shift_fast"): each call on the card must launch K10
+    once (rows) or twice (columns)."""
     from gemmul8_tpu_torch import kernels, quantize
     names = ("_int_mm", "_scaled_mm")
     orig = {name: getattr(torch, name) for name in names}
     orig_estimate = quantize.estimate_gemm
     orig_shift = quantize.shift_fast
-    calls = dict.fromkeys(names + ("estimate_int_mm", "shift_fast"), 0)
+    calls = dict.fromkeys(names + ("estimate_int_mm", "shift_fast_calls"), 0)
 
     def counted(name):
         def call(*a, **k):
@@ -292,8 +296,13 @@ def run_counted(fn):
         return out
 
     def shift(*a, **k):
-        calls["shift_fast"] += 1
-        return orig_shift(*a, **k)
+        calls["shift_fast_calls"] += 1
+        n0 = kernels.LAUNCHES["shift_fast"]
+        out = orig_shift(*a, **k)
+        n = kernels.LAUNCHES["shift_fast"] - n0
+        check(n in (1, 2) if out.device.type == "cuda" else n == 0,
+              f"quantize.shift_fast on {out.device}: {n} K10 launches")
+        return out
 
     kernels.reset_launches()
     for name in names:
@@ -337,6 +346,11 @@ def log_build_report(kernels):
             f"{min(r for _, r, _, _ in rows)}-{max(r for _, r, _, _ in rows)}, "
             f"spill bytes stored/loaded {sum(st for *_, st, _ in rows)}/"
             f"{sum(ld for *_, ld in rows)}")
+    rows = kernels.ptxas_report(kernels.BUILD_LOG["shift.cu"])
+    log(f"ptxas shift.cu (K10): {len(rows)} kernels, registers "
+        f"{min(r for _, r, _, _ in rows)}-{max(r for _, r, _, _ in rows)}, "
+        f"spill bytes stored/loaded {sum(st for *_, st, _ in rows)}/"
+        f"{sum(ld for *_, ld in rows)}")
     # K4 and K5 on the FP8 plan: the same instantiations as on the INT8 one
     # (K4 per limb count: the FP8 plan takes L 3-7 for f64 out, 3-5 for f32
     # out; K5 per output type, int32 new for FP8)
@@ -570,6 +584,199 @@ def complex_cases(rng):
                             chi, sa, sb, nu, "INT8", real_dt),
                         (got.real, got.imag),
                         f"planar vs complex output {what}", count=False)
+
+
+# ---------------------------------------------------------------------------
+# K10, the fast shifts: rows (one launch) and columns (two), f64 and f32, one
+# lane and two, against the plain version on the card
+# ---------------------------------------------------------------------------
+
+# (rows, cols) of K10's operands: widths off its 16-byte vectors (1, 3, 5,
+# 13, 263) and whole ones on both routes, f64 rows past the registers
+# (17000), long columns (several slices)
+SHIFT_SHAPES = ((1, 1), (9, 3), (11, 5), (13, 130), (8, 263), (130, 13),
+                (263, 8), (40, 1000), (1000, 40), (9, 17000), (3000, 70),
+                (96, 8192))
+
+
+def shift_operand(rng, shape, dt, reduce_axis):
+    """Values spanning many binades with, along the reduce axis, a zero row,
+    a subnormal row, a row of one nonzero, rows of 2^-120 and, for f64, rows
+    above 2^126 (one up to 1.7e308) and near 2^-1000 (as
+    tests/test_torch_shift_kernel.py's edge_operand)."""
+    x = phi_matrix(rng, *(shape if reduce_axis == 1 else shape[::-1]), 4.0,
+                   dt)
+    n, w = x.shape
+    rows = {0: np.zeros(w), 1: rng.standard_normal(w) * (
+        1e-310 if dt == np.float64 else 1e-40), 2: np.zeros(w),
+        6: np.full(w, 2.0 ** -120)}
+    if dt == np.float64:
+        rows[4] = x[4 % n] * 2.0 ** 900
+        rows[5] = x[5 % n] * 2.0 ** -1000
+    for i, v in rows.items():
+        if i < n:
+            x[i] = v
+    if n > 2:
+        x[2, -1] = -3.0
+    if n > 4 and dt == np.float64:
+        x[4, 0] = 1.7e308
+    return np.ascontiguousarray(x if reduce_axis == 1 else x.T)
+
+
+def shift_cases(rng):
+    """K10 against its plain version on the card, bit for bit: every shape of
+    SHIFT_SHAPES on both routes, f64 and f32, one lane and two (Re, Im), the
+    variants and backends in turn, every fourth case misaligned (one element
+    into a buffer: no 16-byte loads); then the layouts quantize.shift_fast
+    hands it (a transposed view, a column strip, every other row, every
+    other column). Fails unless the cases took the row route (one launch)
+    and both column launches, f64 and f32, one and two lanes, with rows
+    above 2^126 and zero rows."""
+    from gemmul8_tpu_torch import kernels, quantize
+    seen, i = set(), 0
+    plans = {np.float64: ((16, "INT8"), (8, "INT8"), (14, "FP8")),
+             np.float32: ((8, "INT8"), (13, "INT8"), (7, "FP8"))}
+    for dt in (np.float64, np.float32):
+        tag = "f64" if dt == np.float64 else "f32"
+        for shape in SHIFT_SHAPES:
+            for axis in (1, 0):
+                for lanes in (1, 2):
+                    i += 1
+                    variant = ("reference", "invariant")[i % 2]
+                    nu, backend = plans[dt][i % 3]
+                    mis = i % 4 == 3
+                    x, im = (on_card(shift_operand(rng, shape, dt, axis), mis)
+                             for _ in range(2))
+                    im = im if lanes == 2 else None
+                    n0 = kernels.LAUNCHES["shift_fast"]
+                    got = kernels.shift_fast(x, nu, backend, axis, variant,
+                                             im)
+                    n = kernels.LAUNCHES["shift_fast"] - n0
+                    compare(f"shift_fast[{tag}]", got, kernels.shift_fast_plain(
+                        x, nu, backend, axis, variant, im),
+                        f"K10 {tag} {shape} axis={axis} lanes={lanes} "
+                        f"{variant} {backend} nu={nu} misaligned={mis}")
+                    amax = x.abs().amax(dim=axis)
+                    seen.add((n, tag, lanes))
+                    seen |= {"big"} if bool((amax > 2.0 ** 126).any()) else set()
+                    seen |= {"zero"} if bool((amax == 0).any()) else set()
+        base = on_card(shift_operand(rng, (300, 264), dt, 1))
+        for view in (base.T, base[:, 3:200], base[::2], base[:, ::2]):
+            for axis in (0, 1):
+                compare(f"shift_fast[{tag}]",
+                        quantize.shift_fast(view, 16 if tag == "f64" else 8,
+                                            "INT8", axis),
+                        kernels.shift_fast_plain(
+                            view, 16 if tag == "f64" else 8, "INT8", axis),
+                        f"K10 {tag} view {tuple(view.shape)} "
+                        f"strides {view.stride()} axis={axis}")
+    want = {(n, tag, lanes) for n in (1, 2) for tag in ("f64", "f32")
+            for lanes in (1, 2)} | {"big", "zero"}
+    check(want <= seen, f"K10 cases missed {want - seen}")
+    log(f"K10 vs plain on the card, bit-equal: {CASES['shift_fast[f64]']} f64 "
+        f"and {CASES['shift_fast[f32]']} f32 cases, both routes, both lanes")
+
+
+# seeds of the cells' operands on which K10 is held to its plain version at
+# the cells' shapes (phase 6; the first is also timed), and of the operands
+# moved to the floor's edge, on which flips are counted
+SHIFT_CELL_SEEDS = 24
+SHIFT_EDGE_SEEDS = 8
+
+
+def to_floor_edge(x, im, axis, nu, gen):
+    """x and im with each row (axis=1) or column (axis=0) scaled by 2^u, u
+    in [0, 1) chosen so that the reference shift's f32 floor argument lands
+    within about 2^-16 of an integer: where two orders of the sum of squares
+    can floor to shifts one apart. Scaling by 2^u moves log2 of the sum of
+    squares by 2u and so the argument by about u."""
+    from gemmul8_tpu_torch import quantize, tables
+    s2 = (x * x).sum(dim=axis) + (0 if im is None else (im * im).sum(dim=axis))
+    arg = (tables.log2P(nu, "INT8") - 1.5 - quantize.SFT_MARGIN
+           - quantize.LOG2_HALF_RU * (torch.log2(s2) + 2.0 ** -18))
+    off = (torch.rand(s2.shape, generator=gen, device=x.device,
+                      dtype=torch.float64) - 0.5) * 2.0 ** -15
+    scale = torch.exp2(torch.remainder(arg - torch.floor(arg) + off, 1.0))
+    scale = scale.unsqueeze(axis)
+    return x * scale, None if im is None else im * scale
+
+
+def shift_times(card):
+    """K10 at the cells' operands (standard normal, as h100bench's). Per
+    side, on SHIFT_CELL_SEEDS seeds: K10's shifts against its plain version
+    on the card, bit for bit as shift_fast[f64] cases (the phase fails on
+    any difference, after counting them all); on the first seed its time
+    (CUDA events, median of 10), launches, the plain version's time (median
+    of 3) and its bound, the side's bytes read once at 3.35 TB/s (B's second
+    read not counted). Then, on SHIFT_EDGE_SEEDS seeds, the same operands
+    moved to the floor's edge (to_floor_edge): the shifts that flip there
+    are counted, not failed, since the two sums of squares add in different
+    orders, and each must be a flip by one."""
+    from gemmul8_tpu_torch import kernels
+    rows, differ, edge, counts = [], [], [], {"cells": 0, "edge": 0}
+    for cell, (m, k, n), lanes in (("dgemm sq8192", (8192, 8192, 8192), 1),
+                                   ("zgemm sq8192", (8192, 8192, 8192), 2),
+                                   ("dgemm sq4096", (4096, 4096, 4096), 1),
+                                   ("dgemm upd8192k512", (8192, 512, 8192), 1)):
+        for side, shape, axis in (("A", (m, k), 1), ("B", (k, n), 0)):
+            for j in range(SHIFT_CELL_SEEDS + SHIFT_EDGE_SEEDS):
+                at_edge = j >= SHIFT_CELL_SEEDS
+                seed = SEED + 19 + 1000 * j
+                gen = torch.Generator(device="cuda").manual_seed(seed)
+                x, im = (torch.randn(shape, generator=gen, device="cuda",
+                                     dtype=torch.float64) for _ in range(2))
+                im = im if lanes == 2 else None
+                if at_edge:
+                    x, im = to_floor_edge(x, im, axis, 16, gen)
+                n0 = kernels.LAUNCHES["shift_fast"]
+                got = kernels.shift_fast(x, 16, "INT8", axis, im=im)
+                launches = kernels.LAUNCHES["shift_fast"] - n0
+                ref = kernels.shift_fast_plain(x, 16, "INT8", axis, im=im)
+                found = [dict(cell=cell, side=side, seed=seed, index=i,
+                              k10=int(got[i]), plain=int(ref[i]))
+                         for i in torch.nonzero(got != ref).flatten().tolist()]
+                counts["edge" if at_edge else "cells"] += got.numel()
+                if at_edge:
+                    edge += found
+                    continue
+                differ += found
+                CASES["shift_fast[f64]"] = CASES.get("shift_fast[f64]", 0) + 1
+                MAX_ABS_ERR["shift_fast[f64]"] = max(
+                    MAX_ABS_ERR.get("shift_fast[f64]", 0.0),
+                    float((got - ref).abs().max()))
+                if j > 0:
+                    continue
+                ms = cuda_ms(lambda: kernels.shift_fast(x, 16, "INT8", axis,
+                                                        im=im), reps=10)
+                plain_ms = cuda_ms(lambda: kernels.shift_fast_plain(
+                    x, 16, "INT8", axis, im=im), reps=3)
+                bound_ms = x.numel() * 8 * lanes / PEAK_BYTES * 1e3
+                check(bound_ms <= ms,
+                      f"K10 {cell} {side} faster than its bound")
+                rows.append(dict(cell=cell, side=side, shape=list(shape),
+                                 lanes=lanes, launches=launches, ms=ms,
+                                 bound_ms=bound_ms, share=bound_ms / ms,
+                                 plain_ms=plain_ms))
+                log(f"times {card} | K10 {cell} {side} {shape[0]}x{shape[1]} "
+                    f"f64 lanes={lanes}: {ms:.4f} ms ({launches} launches), "
+                    f"bound {bound_ms:.4f} ms ({100 * bound_ms / ms:.1f} %), "
+                    f"plain {plain_ms:.4f} ms")
+            del x, im, got, ref
+    torch.cuda.empty_cache()
+    log(json.dumps({"shift_cells": {"seeds": SHIFT_CELL_SEEDS,
+                                    "shifts": counts["cells"],
+                                    "differ": len(differ)},
+                    "shift_floor_edge": {"seeds": SHIFT_EDGE_SEEDS,
+                                         "shifts": counts["edge"],
+                                         "flipped": len(edge)},
+                    "flips": (differ + edge)[:20]}))
+    check(not differ, f"K10 differs from its plain version at the cells' "
+          f"operands in {len(differ)} of {counts['cells']} shifts: "
+          f"{differ[:5]}")
+    check(all(abs(f["k10"] - f["plain"]) == 1 for f in edge),
+          f"K10 differs from its plain version by more than a flip at the "
+          f"floor's edge: {edge[:5]}")
+    return rows, counts
 
 
 def fp8_encode_cases(rng):
@@ -1231,9 +1438,10 @@ def real_main_path(a, b, nu, backend):
                                             backend=backend))
     keys, want = ((COUNT_KEYS, (2, nu, 0, 0, 1)) if backend == "INT8" else
                   (FP8_COUNT_KEYS, (2, 3 * nu, 1, 0, 0, 0)))
-    check(tuple(counts[k] for k in keys) == want,
+    check(tuple(counts[k] for k in keys) == want
+          and counts["shift_fast"] == SHIFT_LAUNCHES["gemm"],
           f"{backend} main path {dt} nu={nu} launches {counts}, want "
-          f"{dict(zip(keys, want))}")
+          f"{dict(zip(keys, want))} and {SHIFT_LAUNCHES['gemm']} K10")
     check(c.shape == (FULL, FULL) and c.dtype == dt
           and bool(torch.isfinite(c).all()), f"main path {dt} output")
     if dt not in ORACLES:
@@ -1420,8 +1628,9 @@ def complex_main_paths(A, B):
         else:
             c, counts = run_counted(lambda: gt.herk(a, num_moduli=nu))
         got = tuple(counts[k] for k in COUNT_KEYS)
-        check(got == want, f"{name} launches {counts}, want "
-              f"{dict(zip(COUNT_KEYS, want))}")
+        check(got == want and counts["shift_fast"] == SHIFT_LAUNCHES[entry],
+              f"{name} launches {counts}, want {dict(zip(COUNT_KEYS, want))}"
+              f" and {SHIFT_LAUNCHES[entry]} K10")
         launches[name] = counts
         check(c.shape == (FULL, FULL) and c.dtype == dt
               and bool(torch.isfinite(torch.view_as_real(c)).all()),
@@ -1846,7 +2055,7 @@ def accurate_card_vs_cpu(rng):
 ENTRY_RUNS: dict = {}
 # the launches that tell the entry-point paths apart: shifts (the fast
 # shifts' calls, counted by run_counted), K1, K6, the products, K2, K3, K4
-ENTRY_KEYS = ("shift_fast", "encode_planes", "encode_planes_fp8", "_int_mm",
+ENTRY_KEYS = ("shift_fast_calls", "encode_planes", "encode_planes_fp8", "_int_mm",
               "_scaled_mm", "fused_epilogue", "fused_epilogue_fp8",
               "fused_epilogue_complex")
 LD = FULL + 64                        # the compat buffers' leading dimension
@@ -1867,7 +2076,7 @@ def entry_counted(name, tag, fn, want):
 
 def int8_call(nu, sides=2, tiles=1):
     """The launches of one INT8 product from `sides` raw operands."""
-    return {"shift_fast": sides, "encode_planes": sides,
+    return {"shift_fast_calls": sides, "encode_planes": sides,
             "_int_mm": nu * tiles, "fused_epilogue": tiles}
 
 
@@ -1882,7 +2091,7 @@ def precomputed_paths(a64, b64, card):
         product = ({"_scaled_mm": 3 * nu, "fused_epilogue_fp8": 1} if fp8
                    else {"_int_mm": nu, "fused_epilogue": 1})
         ref = gt.gemm(a64, b64, num_moduli=nu, backend=backend)
-        pre = {"shift_fast": 1, enc: 1}
+        pre = {"shift_fast_calls": 1, enc: 1}
         qa = entry_counted(f"precompute A {backend} nu={nu}", "f64",
                            lambda: gt.precompute(a64, "A", num_moduli=nu,
                                                  backend=backend), pre)
@@ -1955,7 +2164,7 @@ def blocked_paths(a64, b64, card):
     torch.cuda.reset_peak_memory_stats()
     c = entry_counted(f"gemm striped f64 {m}x{n}x{k} nu={nu}", "f64",
                       lambda: gt.gemm(a, b, num_moduli=nu),
-                      {"shift_fast": 1 + tiles, "encode_planes": 1 + tiles,
+                      {"shift_fast_calls": 1 + tiles, "encode_planes": 1 + tiles,
                        "_int_mm": nu * tiles, "fused_epilogue": tiles})
     peak = torch.cuda.max_memory_allocated()
     check(c.shape == (m, n) and bool(torch.isfinite(c).all()),
@@ -2015,9 +2224,9 @@ def phases_paths(a64, b64, card):
     beside the call. One warm-up and one timed run: each launch twice."""
     import gemmul8_tpu_torch as gt
     for backend, nu, want in (
-            ("INT8", 16, {"shift_fast": 4, "encode_planes": 4, "_int_mm": 32,
+            ("INT8", 16, {"shift_fast_calls": 4, "encode_planes": 4, "_int_mm": 32,
                           "fused_epilogue": 2}),
-            ("FP8", 14, {"shift_fast": 4, "encode_planes_fp8": 4,
+            ("FP8", 14, {"shift_fast_calls": 4, "encode_planes_fp8": 4,
                          "_scaled_mm": 6 * 14, "fused_epilogue": 2})):
         c, phases = entry_counted(
             f"gemm_with_phases {backend} f64 8192^3 nu={nu}", "f64",
@@ -2067,9 +2276,9 @@ def compat_paths(a64, b64, card):
         entries = (("gemmLt", compat.gemmLt), ("gemm", compat.gemm))
         for name, fn in entries[:1 if backend == "FP8" else 2]:
             cview.copy_(c0)
-            call = {"shift_fast": 2, "_int_mm": nu, "fused_epilogue": 1,
+            call = {"shift_fast_calls": 2, "_int_mm": nu, "fused_epilogue": 1,
                     "encode_planes": 2} if backend == "INT8" else {
-                "shift_fast": 2, "encode_planes_fp8": 2,
+                "shift_fast_calls": 2, "encode_planes_fp8": 2,
                 "_scaled_mm": 3 * nu, "fused_epilogue_fp8": 1}
             entry_counted(f"compat.{name} {backend} TN f64 8192^3 nu={nu}",
                           "f64", lambda: fn(None, *args, nu, True,
@@ -2094,7 +2303,7 @@ def compat_paths(a64, b64, card):
     cview.copy_(c0)
     entry_counted("compat.gemm skip_scalB f64 8192^3 nu=16", "f64",
                   lambda: compat.gemm(h, *args, 16, True, skip_scalB=True),
-                  dict(int8_call(16), shift_fast=1, encode_planes=1))
+                  dict(int8_call(16), shift_fast_calls=1, encode_planes=1))
     assert_bits_equal(cview, want, "compat.gemm skip_scalB")
     t = dict(
         gemmLt_ms=cuda_ms(lambda: compat.gemmLt(None, *args, 16, True),
@@ -2157,7 +2366,7 @@ def interposer_paths(a64, b64, A, B, card):
     with gt.emulate(num_moduli=16):
         z = entry_counted("hook A @ B c128 8192^3 nu=16", "c128",
                           lambda: A @ B,
-                          {"shift_fast": 2, "encode_planes": 4,
+                          {"shift_fast_calls": 2, "encode_planes": 4,
                            "_int_mm": 48, "fused_epilogue_complex": 1})
     assert_bits_equal(z, zref, "hook ZGEMM vs gt.gemm")
     del z, zref, ref
@@ -2186,7 +2395,7 @@ def interposer_paths(a64, b64, A, B, card):
         before = hook.COUNTS["emulated"]
         n1, l1, g1 = entry_counted(
             "hook MLP f32 8192-8192-8192 batch 8192 nu=8 forward+backward",
-            "f32", step, int8_call(8, tiles=5) | {"shift_fast": 10,
+            "f32", step, int8_call(8, tiles=5) | {"shift_fast_calls": 10,
                                                   "encode_planes": 10})
         emulated = hook.COUNTS["emulated"] - before
         n2, l2, g2 = step()
@@ -5263,6 +5472,8 @@ def main():
     mxu_ragged_cases(rrng)
     # the complex FP8 kernels, on a stream of their own
     complex_fp8_cases(np.random.default_rng(SEED + 15))
+    # K10, the fast shifts, on a stream of their own
+    shift_cases(np.random.default_rng(SEED + 19))
     log(f"kernels vs plain, small shapes, all bit-equal: {CASES}")
     log_phase("phase 3 (kernels vs plain, FP8 product exactness)")
     if args.quick:
@@ -5491,11 +5702,25 @@ def main():
     log(json.dumps({"fp8_products_exact_chunks": fp8_exact}))
     probe_runs = probe_paths()
     ptiming = probe_times(a64, b64, card)
+    stiming, shift_counts = shift_times(card)
     log_phase("phase 6 (times)")
 
     # one entry per kernel and main path: launches are that path's own gemm
     # call's, times and bounds are at that path's shapes
     kern = []
+    sq = [r for r in stiming if r["cell"] == "dgemm sq8192"]
+    kern.append(dict(
+        name="shift_fast[f64]", route="cuda",
+        source="gemmul8_tpu_torch/csrc/shift.cu",
+        replaces="none: gemmul8_tpu/quantize.py shift_fast is jnp",
+        launches=main_launches[torch.float64]["shift_fast"],
+        max_abs_err=MAX_ABS_ERR["shift_fast[f64]"],
+        cases=CASES["shift_fast[f64]"] + CASES["shift_fast[f32]"],
+        cell_shifts_compared=shift_counts["cells"],
+        ms=sum(r["ms"] for r in sq), plain_ms=sum(r["plain_ms"] for r in sq),
+        bound_ms=sum(r["bound_ms"] for r in sq), bound_by="bytes",
+        library_ms=None, path="gemm f64 8192^3 nu=16",
+        shape="A (rows) and B (columns) 8192x8192 f64", cells=stiming))
     for dt, nu in PATHS:
         t, tag = timing[dt], TAG[dt]
         kern += [

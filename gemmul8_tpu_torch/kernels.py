@@ -2,6 +2,11 @@
 
 The counterpart of gemmul8_tpu/pallas_kernels.py:
 
+  shift_fast              csrc/shift.cu         (no Pallas counterpart: the
+                          JAX package computes the fast shifts in jnp,
+                          gemmul8_tpu/quantize.py; K10, added to take their
+                          plain-torch passes and host synchronises off the
+                          card's path)
   encode_planes           csrc/encode.cu        replaces encode_planes_tiles
   encode_planes_fp8       csrc/encode_fp8.cu    replaces encode_planes_fp8_tiles
   encode_lanes_fp8        csrc/encode_lanes_fp8.cu  (no Pallas counterpart: the
@@ -56,7 +61,7 @@ import torch
 from . import ff, fp8, quantize, tables
 from .spans import span
 
-LAUNCHES = {"encode_planes": 0, "encode_planes_fp8": 0,
+LAUNCHES = {"shift_fast": 0, "encode_planes": 0, "encode_planes_fp8": 0,
             "encode_lanes_fp8": 0, "fused_epilogue": 0,
             "fused_epilogue_fp8": 0, "reassemble_fp8": 0,
             "fused_epilogue_complex": 0,
@@ -77,8 +82,19 @@ PTXAS_FLAGS = ["-Xptxas", "-v"]
 BUILD_LOG: dict[str, str] = {}
 _LIB: ctypes.CDLL | None = None
 _P, _I = ctypes.c_void_p, ctypes.c_int
+_L, _F = ctypes.c_longlong, ctypes.c_float
 # the C entry points' signatures (csrc/*.cu)
 _ARGTYPES = {
+    # x0, x1, out, is_f64, rows, cols, ld, lanes, threads, vec, log2p,
+    # invariant, stream
+    "shift_rows": [_P, _P, _P, _I, _I, _I, _L, _I, _I, _I, _F, _I, _P],
+    # x0, x1, scratch, is_f64, rows, cols, ld, lanes, slice_len, slices, vec,
+    # stream
+    "shift_cols_max": [_P, _P, _P, _I, _I, _I, _L, _I, _I, _I, _I, _P],
+    # x0, x1, scratch, out, is_f64, rows, cols, ld, lanes, slice_len, slices,
+    # vec, log2p, invariant, stream
+    "shift_cols_sum": [_P, _P, _P, _P, _I, _I, _I, _L, _I, _I, _I, _I, _F,
+                       _I, _P],
     # x, sft, out, plan, is_f64, scale_axis, rows, cols, vec, stream
     "encode_planes": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # x, sft, out, plan, is_f64, scale_axis, rows, cols, vec, stream
@@ -223,6 +239,203 @@ def _launch(name: str, *args, count: str | None = None) -> None:
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
     LAUNCHES[count or name] += 1
+
+
+# ---------------------------------------------------------------------------
+# fast-mode shifts (K10): per row or column, one pass over the operand
+# ---------------------------------------------------------------------------
+
+SHIFT_VPT = 8            # csrc/shift.cu: kVPT, 16-byte vectors a thread holds
+SHIFT_COL_WARPS = 8      # kColWarps: a column block's warps, on every 8th row
+_SHIFT_THREADS = (32, 1024)   # a row block's least and most threads
+_SHIFT_BLOCKS = 512      # the column route's aim: about four blocks an SM
+_SHIFT_SLICE_MIN = 64    # and at least 8 rows a warp in each slice
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def shift_width(dtype: torch.dtype) -> int:
+    """Elements in one of K10's 16-byte vectors."""
+    return 2 if dtype == torch.float64 else 4
+
+
+def shift_row_threads(length: int, width: int) -> int:
+    """The row route's block size for rows of `length` elements: the power
+    of two (32 to 1024) of threads that holds the row in SHIFT_VPT vectors
+    each, where one can. It fixes the order of the row's sum."""
+    per = _cdiv(_cdiv(length, width), SHIFT_VPT)
+    lo, hi = _SHIFT_THREADS
+    return min(hi, max(lo, 1 << (per - 1).bit_length()))
+
+
+def shift_col_slices(length: int, cols: int, width: int) -> tuple[int, int]:
+    """The column route's (slice_len, slices): columns of `length` elements
+    cut into slices of slice_len rows (a multiple of SHIFT_COL_WARPS), enough
+    for about _SHIFT_BLOCKS blocks over the strips of 32 vectors of columns.
+    It fixes the order of each column's sum."""
+    slices = max(1, min(_cdiv(_SHIFT_BLOCKS, _cdiv(cols, 32 * width)),
+                        _cdiv(length, _SHIFT_SLICE_MIN)))
+    slice_len = _cdiv(_cdiv(length, slices), SHIFT_COL_WARPS) * SHIFT_COL_WARPS
+    return slice_len, _cdiv(length, slice_len)
+
+
+def shift_scratch_bytes(cols: int, slices: int, width: int) -> int:
+    """The column route's scratch (csrc/shift.cu, ColScratch): each slice's
+    column maxima (8 bytes) and partial sums (4), and a counter a strip."""
+    return slices * cols * 12 + 4 * _cdiv(cols, 32 * width)
+
+
+def shift_fast_plain(x, num_moduli, backend, reduce_axis,
+                     variant="reference", im=None):
+    """Plain version of K10: quantize.shift_fast's formula in torch
+    operators, in the JAX twin's order of operations (with im, on
+    torch.cat([x, im], dim=reduce_axis))."""
+    if im is not None:
+        x = torch.cat([x, im], dim=reduce_axis)
+    z, amax0, E = shift_terms(x, reduce_axis)
+    return shift_from_sum(torch.sum(z * z, dim=reduce_axis), amax0, E,
+                          num_moduli, backend, variant)
+
+
+def shift_terms(x, reduce_axis):
+    """The first steps of the plain shifts: (z, amax0, E), z the operand
+    scaled so that each row's (column's) largest |z| is below 2, whose
+    squares the shift sums, amax0 the largest |f32 of the pre-scaled row|
+    and E its exponent."""
+    q = quantize
+    if x.dtype == torch.float64:
+        # IEEE f64: |x| may exceed f32's max. Pre-scale only the overflowing
+        # rows by an exact power of two and fold the exponent back in after.
+        amax_nat = torch.amax(torch.abs(x), dim=reduce_axis)
+        E0 = torch.where(amax_nat > 2.0 ** 126,
+                         q.ilogb(torch.where(amax_nat > 0, amax_nat,
+                                             torch.ones_like(amax_nat))),
+                         torch.zeros_like(amax_nat, dtype=torch.int32))
+        x = q.pow2_scale(x, -E0.unsqueeze(reduce_axis))
+        c0 = torch.abs(x.to(torch.float32))
+    else:
+        E0 = None
+        c0 = torch.abs(x)
+    amax0 = torch.amax(c0, dim=reduce_axis)
+    safe = torch.where(amax0 > 0, amax0, torch.ones_like(amax0))
+    # inflation keeps E an upper bound when the |c1| tail pushes |x| across a
+    # power of two (a larger E only shrinks sft: the safe side)
+    E_loc = q.ilogb(safe * q._f32(1.0 + 2.0 ** -22, safe))
+    E = E_loc + E0 if E0 is not None else E_loc
+    # overflow-safe norm: scale the row to ~[0,1] first
+    return q.pow2_scale(c0, -E_loc.unsqueeze(reduce_axis)), amax0, E
+
+
+def shift_from_sum(s2, amax0, E, num_moduli, backend, variant):
+    """The last steps of the plain shifts: the shift of each row (column)
+    from its f32 sum of squares s2 and shift_terms' amax0 and E."""
+    q = quantize
+
+    def f32(v):
+        return q._f32(v, s2)
+
+    log2vsum = ((torch.log2(torch.maximum(s2, f32(2.0 ** -120)))
+                 + f32(2.0) * E.to(torch.float32))
+                + f32(2.0 ** -18))
+    log2vnrm = f32(q.LOG2_HALF_RU) * log2vsum
+    log2p = f32(tables.log2P(num_moduli, backend))
+    if variant == "invariant":
+        exp1 = ((log2p - f32(1.5)) - log2vnrm) - f32(q.SFT_MARGIN)
+        sft = torch.floor(exp1).to(torch.int32)
+    else:
+        exp1 = (((log2p - f32(1.5))
+                 - torch.maximum(f32(1.0), log2vnrm))
+                - f32(q.SFT_MARGIN))
+        sft = torch.floor(exp1).to(torch.int32) - E
+    return torch.where(amax0 > 0, sft, torch.zeros_like(sft))
+
+
+def _rows_contiguous(t: torch.Tensor) -> bool:
+    return t.stride(1) == 1 or t.shape[1] <= 1
+
+
+def shift_operands(x, im, reduce_axis):
+    """(x, im, reduce_axis) laid out as K10 reads them, each row contiguous
+    and im strided as x: a transposed view is read as its transpose along
+    the other axis, any other layout is copied."""
+    if x.dim() != 2 or (im is not None and im.shape != x.shape):
+        return x, im, reduce_axis       # shift_fast refuses them
+    pair = (x,) if im is None else (x, im)
+    for ts, axis in ((pair, reduce_axis),
+                     (tuple(t.T for t in pair), 1 - reduce_axis)):
+        if (all(_rows_contiguous(t) for t in ts)
+                and all(t.stride() == ts[0].stride() for t in ts)):
+            return ts[0], ts[1] if im is not None else None, axis
+    return x.contiguous(), None if im is None else im.contiguous(), reduce_axis
+
+
+def _check_shift(x, im, reduce_axis, variant):
+    """The checks K10's wrapper makes, the device last (so that tensors on
+    the meta device show each refusal)."""
+    if x.dim() != 2 or x.dtype not in (torch.float32, torch.float64):
+        raise ValueError("shift_fast: x must be a 2-D f32 or f64 tensor")
+    if reduce_axis not in (0, 1):
+        raise ValueError("shift_fast: reduce_axis must be 0 or 1")
+    if variant not in ("reference", "invariant"):
+        raise ValueError("shift_fast: variant must be 'reference' or "
+                         f"'invariant', got {variant!r}")
+    if im is not None and (im.shape != x.shape or im.dtype != x.dtype
+                           or im.device != x.device):
+        raise ValueError("shift_fast: im must have x's shape, dtype and "
+                         "device")
+    if x.shape[reduce_axis] == 0:
+        raise ValueError("shift_fast: the reduce axis is empty")
+    if x.device.type != "cuda":
+        raise ValueError(f"shift_fast: unsupported device {x.device}")
+
+
+def shift_fast(x: torch.Tensor, num_moduli: int, backend: str,
+               reduce_axis: int, variant: str = "reference",
+               im: torch.Tensor | None = None) -> torch.Tensor:
+    """Fast mode's int32 shift of each row (reduce_axis=1) or column
+    (reduce_axis=0) of x, f32 or f64, in either variant; with im, of each
+    row (column) of x and im together, as of torch.cat([x, im],
+    dim=reduce_axis) (complex_gemm._shift_complex_fast).
+
+    On the card the operands are first laid out as K10 reads them
+    (shift_operands). Rows take one launch of K10, columns two; the device
+    is never synchronised."""
+    if x.device.type == "cpu":
+        return shift_fast_plain(x, num_moduli, backend, reduce_axis, variant,
+                                im)
+    x, im, reduce_axis = shift_operands(x, im, reduce_axis)
+    _check_shift(x, im, reduce_axis, variant)
+    rows, cols = x.shape
+    lanes = 1 if im is None else 2
+    n_out, length = ((rows, cols * lanes) if reduce_axis == 1
+                     else (cols, rows * lanes))
+    out = torch.empty(n_out, dtype=torch.int32, device=x.device)
+    if n_out == 0:
+        return out
+    width = shift_width(x.dtype)
+    ld = x.stride(0) if rows > 1 else cols
+    x1 = x.data_ptr() if im is None else im.data_ptr()
+    vec = (cols % width == 0 and ld % width == 0
+           and x.data_ptr() % 16 == 0 and x1 % 16 == 0)
+    log2p = float(np.float32(tables.log2P(num_moduli, backend)))
+    head = (x.data_ptr(), x1)
+    shape = (int(x.dtype == torch.float64), rows, cols, ld, lanes)
+    tail = (log2p, int(variant == "invariant"), _stream(x))
+    if reduce_axis == 1:
+        _launch("shift_rows", *head, out.data_ptr(), *shape,
+                shift_row_threads(length, width), int(vec), *tail,
+                count="shift_fast")
+        return out
+    slice_len, slices = shift_col_slices(length, cols, width)
+    scratch = torch.empty(shift_scratch_bytes(cols, slices, width),
+                          dtype=torch.uint8, device=x.device)
+    _launch("shift_cols_max", *head, scratch.data_ptr(), *shape, slice_len,
+            slices, int(vec), _stream(x), count="shift_fast")
+    _launch("shift_cols_sum", *head, scratch.data_ptr(), out.data_ptr(),
+            *shape, slice_len, slices, int(vec), *tail, count="shift_fast")
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -114,55 +114,27 @@ def ilogb(a: torch.Tensor) -> torch.Tensor:
 
 @span("shifts")
 def shift_fast(x: torch.Tensor, num_moduli: int, backend: str, reduce_axis: int,
-               variant: str = "reference") -> torch.Tensor:
+               variant: str = "reference",
+               im: torch.Tensor | None = None) -> torch.Tensor:
     """Per-row (reduce_axis=1) or per-column (reduce_axis=0) quantization shift.
 
     variant="reference": sft = floor(log2P - 1.5 - max(1, ~0.5*log2(sum x^2)))
     - ilogb(amax). variant="invariant" (fastmode="robust"): the amax term is
     dropped, sft = floor(log2P' - 1.5 - ~0.5*log2(sum x^2)), which bounds the
     quantized norm at every input scale. Zero rows get sft=0. See the JAX
-    twin for the derivation.
+    twin for the derivation. With `im`, x and im are the real and imaginary
+    parts: one shift per row (column) of both, that of
+    torch.cat([x, im], dim=reduce_axis).
+
+    On the CPU this is kernels.shift_fast_plain, the JAX twin's order of
+    operations; on the card, kernel K10 (kernels.shift_fast).
 
     The f32 log2 and the f32 row sum may differ from XLA's in the last bit,
     so a row whose value falls within about an ulp of an integer can floor
     the other way; everything downstream is exact given the shifts.
     """
-    if x.dtype == torch.float64:
-        # IEEE f64: |x| may exceed f32's max. Pre-scale only the overflowing
-        # rows by an exact power of two and fold the exponent back in after.
-        amax_nat = torch.amax(torch.abs(x), dim=reduce_axis)
-        E0 = torch.where(amax_nat > 2.0 ** 126,
-                         ilogb(torch.where(amax_nat > 0, amax_nat,
-                                           torch.ones_like(amax_nat))),
-                         torch.zeros_like(amax_nat, dtype=torch.int32))
-        x = pow2_scale(x, -E0.unsqueeze(reduce_axis))
-        c0 = torch.abs(x.to(torch.float32))
-    else:
-        E0 = None
-        c0 = torch.abs(x)
-    amax0 = torch.amax(c0, dim=reduce_axis)
-    safe = torch.where(amax0 > 0, amax0, torch.ones_like(amax0))
-    # inflation keeps E an upper bound when the |c1| tail pushes |x| across a
-    # power of two (a larger E only shrinks sft: the safe side)
-    E_loc = ilogb(safe * _f32(1.0 + 2.0 ** -22, safe))
-    E = E_loc + E0 if E0 is not None else E_loc
-    # overflow-safe norm: scale the row to ~[0,1] first
-    z = pow2_scale(c0, -E_loc.unsqueeze(reduce_axis))
-    s2 = torch.sum(z * z, dim=reduce_axis)
-    log2vsum = ((torch.log2(torch.maximum(s2, _f32(2.0 ** -120, s2)))
-                 + _f32(2.0, s2) * E.to(torch.float32))
-                + _f32(2.0 ** -18, s2))
-    log2vnrm = _f32(LOG2_HALF_RU, s2) * log2vsum
-    log2p = _f32(tables.log2P(num_moduli, backend), s2)
-    if variant == "invariant":
-        exp1 = ((log2p - _f32(1.5, s2)) - log2vnrm) - _f32(SFT_MARGIN, s2)
-        sft = torch.floor(exp1).to(torch.int32)
-    else:
-        exp1 = (((log2p - _f32(1.5, s2))
-                 - torch.maximum(_f32(1.0, s2), log2vnrm))
-                - _f32(SFT_MARGIN, s2))
-        sft = torch.floor(exp1).to(torch.int32) - E
-    return torch.where(amax0 > 0, sft, torch.zeros_like(sft))
+    from . import kernels
+    return kernels.shift_fast(x, num_moduli, backend, reduce_axis, variant, im)
 
 
 # ---------------------------------------------------------------------------
