@@ -83,17 +83,21 @@ FP8_PATHS = ((torch.float64, 14), (torch.float32, 7))
 TAG = {torch.float64: "f64", torch.float32: "f32",
        torch.complex128: "c128", torch.complex64: "c64"}
 # complex main paths: name, dtype, nu, entry, and the launches of one call
-# (encode kernel, int8 products, complex epilogue, recombine, real epilogue)
-CPATHS = (("zgemm16", torch.complex128, 16, "gemm", (4, 48, 1, 0, 0)),
-          ("cgemm8", torch.complex64, 8, "gemm", (4, 24, 1, 0, 0)),
-          ("zgemm20", torch.complex128, 20, "gemm", (4, 60, 0, 1, 2)),
-          ("herk16", torch.complex128, 16, "herk", (2, 48, 1, 0, 0)))
-COUNT_KEYS = ("encode_planes", "_int_mm", "fused_epilogue_complex",
-              "fused_recombine_3m", "fused_epilogue")
+# (encode kernel, the wgmma product kernel's launches -- one for the 3nu
+# planes --, complex epilogue, recombine, real epilogue, torch._int_mm
+# calls and transposing passes: none on a main path)
+CPATHS = (("zgemm16", torch.complex128, 16, "gemm", (4, 1, 1, 0, 0, 0, 0)),
+          ("cgemm8", torch.complex64, 8, "gemm", (4, 1, 1, 0, 0, 0, 0)),
+          ("zgemm20", torch.complex128, 20, "gemm", (4, 1, 0, 1, 2, 0, 0)),
+          ("herk16", torch.complex128, 16, "herk", (2, 1, 1, 0, 0, 0, 0)))
+COUNT_KEYS = ("encode_planes", "matmul_i8_wgmma_kloop",
+              "fused_epilogue_complex", "fused_recombine_3m",
+              "fused_epilogue", "_int_mm", "transpose_i8")
 # an FP8 path's launches: FP8 encodes, FP8 products, FP8 epilogue, and none
 # of the INT8 path's (encode, int8 products, real epilogue)
 FP8_COUNT_KEYS = ("encode_planes_fp8", "_scaled_mm", "fused_epilogue_fp8",
-                  "encode_planes", "_int_mm", "fused_epilogue")
+                  "encode_planes", "matmul_i8_wgmma_kloop", "fused_epilogue",
+                  "_int_mm")
 # the probe tools' int8 products: kernels entry, probes module and function,
 # the kernel's schedule and K stage depth, and the Pallas function replaced.
 # The functions take the wgmma kernel wherever TMA can address the operands
@@ -275,7 +279,10 @@ def run_counted(fn):
     accurate mode's estimation products apart as "estimate_int_mm", and the
     fast shifts' calls (quantize.shift_fast) as "shift_fast_calls" beside
     K10's launches ("shift_fast"): each call on the card must launch K10
-    once (rows) or twice (columns)."""
+    once (rows) or twice (columns). A main path's int8 products are the
+    wgmma kernel's launches ("matmul_i8_wgmma_kloop", one a product call
+    and K chunk); its "_int_mm" calls are the estimates' alone, and it
+    launches no transposing pass ("transpose_i8")."""
     from gemmul8_tpu_torch import kernels, quantize
     names = ("_int_mm", "_scaled_mm")
     orig = {name: getattr(torch, name) for name in names}
@@ -320,6 +327,17 @@ def run_counted(fn):
     counts = dict(kernels.LAUNCHES)
     counts.update(calls)
     return out, counts
+
+
+def check_products_route(counts, what):
+    """A run of main paths (run_counted's counts): its int8 products took
+    the wgmma kernel alone, with no torch._int_mm call but accurate mode's
+    estimates and no transposing pass."""
+    check(counts["_int_mm"] == counts["estimate_int_mm"]
+          and counts["transpose_i8"] == 0,
+          f"{what}: {counts['_int_mm']} torch._int_mm calls "
+          f"({counts['estimate_int_mm']} of them estimates), "
+          f"{counts['transpose_i8']} transposing passes")
 
 
 def log_build_report(kernels):
@@ -923,10 +941,10 @@ def full_size_probe_cases(a64, b64):
     """The probe kernels on the DGEMM 8192^3 nu=16 path's own inputs: the
     int8 products (the wgmma kernel's two schedules, the mma.sync kernel's
     three instantiations) on the path's planes (A from encode_planes, B
-    k-contiguous) against core.residue_matmul (16 x torch._int_mm); K2 on the
-    wgmma kernel's C_hi against gt.gemm's bits; K8 on the
-    path's C_hi and shifts against its plain version and K2's plain pair (in
-    row blocks), and at 24 bits hi + lo against K2's f32 output."""
+    k-contiguous) against the library's product (core.int_mm_stack: 16 x
+    torch._int_mm); K2 on the wgmma kernel's C_hi against gt.gemm's bits; K8
+    on the path's C_hi and shifts against its plain version and K2's plain
+    pair (in row blocks), and at 24 bits hi + lo against K2's f32 output."""
     import gemmul8_tpu_torch as gt
     from gemmul8_tpu_torch import core, kernels, quantize
     from gemmul8_tpu_torch.probes.epilogue import k2_pair_plain
@@ -935,13 +953,13 @@ def full_size_probe_cases(a64, b64):
     sb = quantize.shift_fast(b64, nu, "INT8", 0)
     ap = kernels.encode_planes(a64, sa, 0, nu, "INT8")
     bp = kernels.encode_planes(b64, sb, 1, nu, "INT8")
-    c_hi = core.residue_matmul(ap, bp)
+    c_hi = core.int_mm_stack(ap, bp)
     check(kernels._product_route(ap, bp) == "wgmma",
           "the DGEMM planes do not take the wgmma route")
     for schedule in ("kloop", "astat"):           # the wgmma kernel
         c = kernels.matmul_i8(ap, bp, schedule)
         assert_equal_device(c, c_hi, f"int8 product wgmma {schedule} vs "
-                            "core.residue_matmul at 8192^3 nu=16")
+                            "16 x torch._int_mm at 8192^3 nu=16")
         for p in PROBE_PRODUCTS:
             if p[3] == schedule:
                 CASES[p[0]] = CASES.get(p[0], 0) + 1
@@ -949,7 +967,7 @@ def full_size_probe_cases(a64, b64):
     for entry, schedule, bk, *_ in MMA_SYNC:
         c = kernels.matmul_i8(ap, bp, schedule, bk, "mma_sync")
         assert_equal_device(c, c_hi, f"int8 product {entry} vs "
-                            "core.residue_matmul at 8192^3 nu=16")
+                            "16 x torch._int_mm at 8192^3 nu=16")
         CASES[entry] = CASES.get(entry, 0) + 1
         del c
     c = kernels.matmul_i8(ap, bp, "kloop")
@@ -977,6 +995,76 @@ def full_size_probe_cases(a64, b64):
         del got
     del c_hi, blk
     torch.cuda.empty_cache()
+
+
+# the main path's int8 products (core.residue_matmul) at each benchmark
+# cell's product shape, and K-chunked: name, lead planes (the complex lanes'
+# (3, 16) stack is reshaped to 48 planes as complex_gemm._complex_product
+# does), m, k, n, and planes of +-127 only
+MAIN_PRODUCTS = (
+    ("dgemm 8192^3 nu=16", (16,), FULL, FULL, FULL, False),
+    ("zgemm lanes 48 x 8192^3", (3, 16), FULL, FULL, FULL, False),
+    ("4096^3 nu=16", (16,), FULL // 2, FULL // 2, FULL // 2, False),
+    ("upd 8192 x 512 x 8192 nu=16", (16,), FULL, 512, FULL, False),
+    ("chunked k=2^17+128 +-127", (2,), 256, (1 << 17) + 128, 384, True))
+
+
+def main_path_product_cases():
+    """Phase 4: core.residue_matmul on planes laid out as the main path lays
+    them out (kernels.plane_buffer: A row-major, B k-contiguous), from SEED +
+    21, at MAIN_PRODUCTS' shapes, bit for bit against the library's product
+    (core.int_mm_stack: a torch._int_mm a plane), its route read from
+    kernels.LAUNCHES: the wgmma kernel once for the whole stack (per K chunk
+    in core._chunked_residue_acc, which reads the chunks in place), no
+    transposing pass and no torch._int_mm."""
+    from gemmul8_tpu_torch import core, kernels, tables
+    g = torch.Generator(device="cuda").manual_seed(SEED + 21)
+    for name, lead, m, k, n, extreme in MAIN_PRODUCTS:
+        planes = []
+        for rows, cols, axis in ((m, k, 0), (k, n, 1)):
+            x = kernels.plane_buffer(lead, rows, cols, axis, "cuda")
+            if extreme:
+                x.copy_(torch.randint(0, 2, x.shape, device="cuda",
+                                      generator=g) * 254 - 127)
+            else:
+                x.copy_(torch.randint(-127, 128, x.shape, dtype=torch.int8,
+                                      device="cuda", generator=g))
+            planes.append(x.reshape(-1, rows, cols))
+            check(planes[-1].data_ptr() == x.data_ptr(),
+                  f"{name}: the planes were copied")
+        a, b = planes
+        nu = a.shape[0]
+        chunks = range(0, k, core.K_CHUNK)
+        kernels.reset_launches()
+        if k > core.K_CHUNK:
+            got = core._chunked_residue_acc(a, b, nu, "INT8")
+        else:
+            got = core.residue_matmul(a, b)
+        torch.cuda.synchronize()
+        counts = {key: v for key, v in kernels.LAUNCHES.items() if v}
+        want = {"matmul_i8_wgmma_kloop": len(chunks)}
+        check(counts == want, f"residue_matmul {name}: launches {counts}, "
+              f"want {want}")
+        if k > core.K_CHUNK:
+            mods = tables.moduli("INT8")[:nu]
+            ref = None
+            for lo in chunks:
+                sl = slice(lo, min(lo + core.K_CHUNK, k))
+                c = core.int_mm_stack(a[:, :, sl].contiguous(),
+                                b[:, sl, :].contiguous())
+                part = torch.stack([torch.remainder(c[i], p)
+                                    for i, p in enumerate(mods)])
+                ref = part if ref is None else ref + part
+                del c, part
+        else:
+            ref = core.int_mm_stack(a, b)
+        assert_equal_device(got, ref, f"residue_matmul {name} vs "
+                            f"{nu} x torch._int_mm")
+        CASES["residue_matmul"] = CASES.get("residue_matmul", 0) + 1
+        log(f"residue_matmul {name}: bit-equal to torch._int_mm x {nu}, "
+            f"launches {counts}")
+        del a, b, planes, got, ref
+        torch.cuda.empty_cache()
 
 
 def fp8_product_cases(k=1 << 16, m=128, n=128):
@@ -1436,8 +1524,8 @@ def real_main_path(a, b, nu, backend):
     dt = a.dtype
     c, counts = run_counted(lambda: gt.gemm(a, b, num_moduli=nu,
                                             backend=backend))
-    keys, want = ((COUNT_KEYS, (2, nu, 0, 0, 1)) if backend == "INT8" else
-                  (FP8_COUNT_KEYS, (2, 3 * nu, 1, 0, 0, 0)))
+    keys, want = ((COUNT_KEYS, (2, 1, 0, 0, 1, 0, 0)) if backend == "INT8"
+                  else (FP8_COUNT_KEYS, (2, 3 * nu, 1, 0, 0, 0, 0)))
     check(tuple(counts[k] for k in keys) == want
           and counts["shift_fast"] == SHIFT_LAUNCHES["gemm"],
           f"{backend} main path {dt} nu={nu} launches {counts}, want "
@@ -1664,33 +1752,34 @@ def complex_main_paths(A, B):
 # paths with their launch counts, accuracy, shift gain and times
 # ---------------------------------------------------------------------------
 
-# the launches one call makes: K1, _int_mm (products and estimates), K2, K6,
-# _scaled_mm, K3, K4, K5, and apart the _int_mm calls of the estimates
-ACCURATE_KEYS = ("encode_planes", "_int_mm", "fused_epilogue",
+# the launches one call makes: K1, the wgmma product kernel, K2, K6,
+# _scaled_mm, K3, K4, K5, the _int_mm calls of the estimates, all _int_mm
+# calls (the estimates' alone) and the transposing passes (none)
+ACCURATE_KEYS = ("encode_planes", "matmul_i8_wgmma_kloop", "fused_epilogue",
                  "encode_planes_fp8", "_scaled_mm", "fused_epilogue_fp8",
                  "fused_epilogue_complex", "fused_recombine_3m",
-                 "estimate_int_mm")
+                 "estimate_int_mm", "_int_mm", "transpose_i8")
 BATCH = 8          # gemm_batched: 8 x (FULL/4)^3 = 8 x 2048^3
 # name, dtype, nu, backend, entry, fastmode, launches of one call
 APATHS = (
     ("dgemm16 accurate", torch.float64, 16, "INT8", "gemm", False,
-     (2, 17, 1, 0, 0, 0, 0, 0, 1)),
+     (2, 1, 1, 0, 0, 0, 0, 0, 1, 1, 0)),
     ("sgemm8 accurate", torch.float32, 8, "INT8", "gemm", False,
-     (2, 9, 1, 0, 0, 0, 0, 0, 1)),
+     (2, 1, 1, 0, 0, 0, 0, 0, 1, 1, 0)),
     ("fp8 dgemm14 accurate", torch.float64, 14, "FP8", "gemm", False,
-     (0, 4, 0, 2, 42, 1, 0, 0, 4)),
+     (0, 0, 0, 2, 42, 1, 0, 0, 4, 4, 0)),
     ("zgemm16 accurate", torch.complex128, 16, "INT8", "gemm", False,
-     (4, 51, 0, 0, 0, 0, 1, 0, 3)),
+     (4, 1, 0, 0, 0, 0, 1, 0, 3, 3, 0)),
     ("herk16 accurate", torch.complex128, 16, "INT8", "herk", False,
-     (2, 51, 0, 0, 0, 0, 1, 0, 3)),
+     (2, 1, 0, 0, 0, 0, 1, 0, 3, 3, 0)),
     ("syrk16 robust", torch.float64, 16, "INT8", "syrk", "robust",
-     (1, 16, 1, 0, 0, 0, 0, 0, 0)),
+     (1, 1, 1, 0, 0, 0, 0, 0, 0, 0, 0)),
     ("syrk16 accurate", torch.float64, 16, "INT8", "syrk", False,
-     (1, 17, 1, 0, 0, 0, 0, 0, 1)),
+     (1, 1, 1, 0, 0, 0, 0, 0, 1, 1, 0)),
     ("fp8 syrk14 accurate", torch.float64, 14, "FP8", "syrk", False,
-     (0, 4, 0, 1, 42, 1, 0, 0, 4)),
+     (0, 0, 0, 1, 42, 1, 0, 0, 4, 4, 0)),
     ("batched 8x2048^3 nu=16 accurate", torch.float64, 16, "INT8", "batched",
-     False, (2 * BATCH, 17 * BATCH, BATCH, 0, 0, 0, 0, 0, BATCH)),
+     False, (2 * BATCH, BATCH, BATCH, 0, 0, 0, 0, 0, BATCH, BATCH, 0)),
 )
 
 
@@ -2054,10 +2143,13 @@ def accurate_card_vs_cpu(rng):
 # each entry-point run's dtype tag and launch counts, for the kernels line
 ENTRY_RUNS: dict = {}
 # the launches that tell the entry-point paths apart: shifts (the fast
-# shifts' calls, counted by run_counted), K1, K6, the products, K2, K3, K4
-ENTRY_KEYS = ("shift_fast_calls", "encode_planes", "encode_planes_fp8", "_int_mm",
-              "_scaled_mm", "fused_epilogue", "fused_epilogue_fp8",
-              "fused_epilogue_complex")
+# shifts' calls, counted by run_counted), K1, K6, the products (the wgmma
+# kernel, _scaled_mm), K2, K3, K4, and the torch._int_mm calls (accurate
+# mode's estimates alone) and transposing passes (none)
+ENTRY_KEYS = ("shift_fast_calls", "encode_planes", "encode_planes_fp8",
+              "matmul_i8_wgmma_kloop", "_scaled_mm", "fused_epilogue",
+              "fused_epilogue_fp8", "fused_epilogue_complex", "_int_mm",
+              "transpose_i8")
 LD = FULL + 64                        # the compat buffers' leading dimension
 
 
@@ -2074,10 +2166,11 @@ def entry_counted(name, tag, fn, want):
     return out
 
 
-def int8_call(nu, sides=2, tiles=1):
-    """The launches of one INT8 product from `sides` raw operands."""
+def int8_call(sides=2, tiles=1):
+    """The launches of one INT8 product from `sides` raw operands: a wgmma
+    kernel launch and an epilogue a tile."""
     return {"shift_fast_calls": sides, "encode_planes": sides,
-            "_int_mm": nu * tiles, "fused_epilogue": tiles}
+            "matmul_i8_wgmma_kloop": tiles, "fused_epilogue": tiles}
 
 
 def precomputed_paths(a64, b64, card):
@@ -2089,7 +2182,7 @@ def precomputed_paths(a64, b64, card):
         fp8 = backend == "FP8"
         enc = "encode_planes_fp8" if fp8 else "encode_planes"
         product = ({"_scaled_mm": 3 * nu, "fused_epilogue_fp8": 1} if fp8
-                   else {"_int_mm": nu, "fused_epilogue": 1})
+                   else {"matmul_i8_wgmma_kloop": 1, "fused_epilogue": 1})
         ref = gt.gemm(a64, b64, num_moduli=nu, backend=backend)
         pre = {"shift_fast_calls": 1, enc: 1}
         qa = entry_counted(f"precompute A {backend} nu={nu}", "f64",
@@ -2165,7 +2258,8 @@ def blocked_paths(a64, b64, card):
     c = entry_counted(f"gemm striped f64 {m}x{n}x{k} nu={nu}", "f64",
                       lambda: gt.gemm(a, b, num_moduli=nu),
                       {"shift_fast_calls": 1 + tiles, "encode_planes": 1 + tiles,
-                       "_int_mm": nu * tiles, "fused_epilogue": tiles})
+                       "matmul_i8_wgmma_kloop": tiles,
+                       "fused_epilogue": tiles})
     peak = torch.cuda.max_memory_allocated()
     check(c.shape == (m, n) and bool(torch.isfinite(c).all()),
           "striped output")
@@ -2210,7 +2304,7 @@ def blocked_paths(a64, b64, card):
         "gemm accurate 4096x4096 tiles f64 8192^3 nu=16", "f64",
         lambda: gt.gemm(a64, b64, num_moduli=nu, fastmode=False,
                         m_block=FULL // 2, n_block=FULL // 2),
-        {"encode_planes": 2 + 4, "_int_mm": 4 + 4 * nu,
+        {"encode_planes": 2 + 4, "matmul_i8_wgmma_kloop": 4, "_int_mm": 4,
          "fused_epilogue": 4})
     assert_bits_equal(got, want, "accurate tiles vs unstriped")
     del got, want
@@ -2224,8 +2318,8 @@ def phases_paths(a64, b64, card):
     beside the call. One warm-up and one timed run: each launch twice."""
     import gemmul8_tpu_torch as gt
     for backend, nu, want in (
-            ("INT8", 16, {"shift_fast_calls": 4, "encode_planes": 4, "_int_mm": 32,
-                          "fused_epilogue": 2}),
+            ("INT8", 16, {"shift_fast_calls": 4, "encode_planes": 4,
+                          "matmul_i8_wgmma_kloop": 2, "fused_epilogue": 2}),
             ("FP8", 14, {"shift_fast_calls": 4, "encode_planes_fp8": 4,
                          "_scaled_mm": 6 * 14, "fused_epilogue": 2})):
         c, phases = entry_counted(
@@ -2276,7 +2370,8 @@ def compat_paths(a64, b64, card):
         entries = (("gemmLt", compat.gemmLt), ("gemm", compat.gemm))
         for name, fn in entries[:1 if backend == "FP8" else 2]:
             cview.copy_(c0)
-            call = {"shift_fast_calls": 2, "_int_mm": nu, "fused_epilogue": 1,
+            call = {"shift_fast_calls": 2, "matmul_i8_wgmma_kloop": 1,
+                    "fused_epilogue": 1,
                     "encode_planes": 2} if backend == "INT8" else {
                 "shift_fast_calls": 2, "encode_planes_fp8": 2,
                 "_scaled_mm": 3 * nu, "fused_epilogue_fp8": 1}
@@ -2298,12 +2393,12 @@ def compat_paths(a64, b64, card):
     entry_counted("compat.gemm enable_skip_scalB f64 8192^3 nu=16", "f64",
                   lambda: compat.gemm(h, *args, 16, True,
                                       enable_skip_scalB=True),
-                  int8_call(16))
+                  int8_call())
     assert_bits_equal(cview, want, "compat.gemm enable_skip_scalB")
     cview.copy_(c0)
     entry_counted("compat.gemm skip_scalB f64 8192^3 nu=16", "f64",
                   lambda: compat.gemm(h, *args, 16, True, skip_scalB=True),
-                  dict(int8_call(16), shift_fast_calls=1, encode_planes=1))
+                  dict(int8_call(), shift_fast_calls=1, encode_planes=1))
     assert_bits_equal(cview, want, "compat.gemm skip_scalB")
     t = dict(
         gemmLt_ms=cuda_ms(lambda: compat.gemmLt(None, *args, 16, True),
@@ -2348,7 +2443,7 @@ def interposer_paths(a64, b64, A, B, card):
     ref = gt.gemm(a64, b64, num_moduli=16)
     with gt.emulate(num_moduli=16) as mode:
         c = entry_counted("hook a @ b f64 8192^3 nu=16", "f64",
-                          lambda: a64 @ b64, int8_call(16))
+                          lambda: a64 @ b64, int8_call())
     check(mode.intercepted == 1, f"hook intercepted {mode.intercepted}")
     assert_bits_equal(c, ref, "hook a @ b vs gt.gemm")
     del c
@@ -2367,7 +2462,8 @@ def interposer_paths(a64, b64, A, B, card):
         z = entry_counted("hook A @ B c128 8192^3 nu=16", "c128",
                           lambda: A @ B,
                           {"shift_fast_calls": 2, "encode_planes": 4,
-                           "_int_mm": 48, "fused_epilogue_complex": 1})
+                           "matmul_i8_wgmma_kloop": 1,
+                           "fused_epilogue_complex": 1})
     assert_bits_equal(z, zref, "hook ZGEMM vs gt.gemm")
     del z, zref, ref
     torch.cuda.empty_cache()
@@ -2395,7 +2491,7 @@ def interposer_paths(a64, b64, A, B, card):
         before = hook.COUNTS["emulated"]
         n1, l1, g1 = entry_counted(
             "hook MLP f32 8192-8192-8192 batch 8192 nu=8 forward+backward",
-            "f32", step, int8_call(8, tiles=5) | {"shift_fast_calls": 10,
+            "f32", step, int8_call(tiles=5) | {"shift_fast_calls": 10,
                                                   "encode_planes": 10})
         emulated = hook.COUNTS["emulated"] - before
         n2, l2, g2 = step()
@@ -2738,20 +2834,22 @@ def complex_card_vs_cpu(rng):
 # launches of one gt.gemm call in CFP8_COUNT_KEYS' order (nu=14 and nu=7:
 # log2P 64.33 and 33.02, the FP8 counts matched to INT8 nu=16 and 8, as for
 # the real paths; nu=18 the K5 + 2 x K2 split; accurate mode's estimates,
-# 4 int8 products a lane, counted apart)
+# 4 int8 products a lane, torch._int_mm calls counted apart; no wgmma
+# kernel launch)
 CFP8_COUNT_KEYS = ("encode_lanes_fp8", "_scaled_mm", "reassemble_fp8",
                    "fused_epilogue_complex", "fused_recombine_3m",
                    "fused_epilogue", "encode_planes", "encode_planes_fp8",
-                   "fused_epilogue_fp8", "_int_mm", "estimate_int_mm")
+                   "fused_epilogue_fp8", "_int_mm", "estimate_int_mm",
+                   "matmul_i8_wgmma_kloop")
 CFP8_PATHS = (
     ("zgemm_fp8_14", torch.complex128, 14, True,
-     (2, 126, 3, 1, 0, 0, 0, 0, 0, 0, 0)),
+     (2, 126, 3, 1, 0, 0, 0, 0, 0, 0, 0, 0)),
     ("cgemm_fp8_7", torch.complex64, 7, True,
-     (2, 63, 3, 1, 0, 0, 0, 0, 0, 0, 0)),
+     (2, 63, 3, 1, 0, 0, 0, 0, 0, 0, 0, 0)),
     ("zgemm_fp8_18", torch.complex128, 18, True,
-     (2, 162, 3, 0, 1, 2, 0, 0, 0, 0, 0)),
+     (2, 162, 3, 0, 1, 2, 0, 0, 0, 0, 0, 0)),
     ("zgemm_fp8_14_accurate", torch.complex128, 14, False,
-     (2, 126, 3, 1, 0, 0, 0, 0, 0, 12, 12)),
+     (2, 126, 3, 1, 0, 0, 0, 0, 0, 12, 12, 0)),
 )
 CFP8_RUNS: dict = {}          # name -> that path's counts
 
@@ -2867,7 +2965,9 @@ def os1_path(a64, b64, card):
     n = FULL // 2
     a, b = a64[:n, :n].contiguous(), b64[:n, :n].contiguous()
     c, counts = run_counted(lambda: gt.compare.matmul_os1_int8(a, b))
-    check(counts["_int_mm"] == 36, f"os1 int8 products {counts['_int_mm']}")
+    check(counts["_int_mm"] == 36 and counts["matmul_i8_wgmma_kloop"] == 0,
+          f"os1 int8 products: {counts['_int_mm']} torch._int_mm, "
+          f"{counts['matmul_i8_wgmma_kloop']} wgmma launches")
     check(c.shape == (n, n) and c.dtype == torch.float64
           and bool(torch.isfinite(c).all()), "os1 output")
     a8, b_np = a[:8].cpu().numpy(), b.cpu().numpy()
@@ -2881,7 +2981,7 @@ def os1_path(a64, b64, card):
                   "matmul": lambda: torch.matmul(a, b)}, reps=3)
     log(f"os1 int8 4096^3 d=8 rows 0-7: max relative error {err:.3e} "
         f"(emulated DGEMM nu=16 {eerr:.3e}, torch.matmul {nerr:.3e}); "
-        f"launches {counts['_int_mm']} _int_mm")
+        f"launches {counts['_int_mm']} torch._int_mm")
     log(f"times {card} | 4096^3: os1_int8_ms {t['os1'][0]:.3f}, gemm nu=16 "
         f"{t['gemm'][0]:.3f}, torch.matmul {t['matmul'][0]:.3f}")
     check(err < 1e-9, f"os1 error {err}")
@@ -3425,6 +3525,8 @@ def complex_times(name, dt, nu, entry, A, B, card):
         ar, ai, sa, 0, nu, "INT8", False))
     t["products_ms"] = cuda_ms(lambda: core.residue_matmul(
         pa.reshape(3 * nu, *pa.shape[2:]), pb.reshape(3 * nu, *pb.shape[2:])))
+    t["int_mm_ms"] = cuda_ms(lambda: core.int_mm_stack(
+        pa.reshape(3 * nu, *pa.shape[2:]), pb.reshape(3 * nu, *pb.shape[2:])))
     del pa, pb
     out_bits = 53 if real_dt == torch.float64 else 24
     if nu <= 16:
@@ -3521,10 +3623,14 @@ def probe_times(a64, b64, card):
     the probes' size (the same planes the probe tables draw); on the DGEMM
     8192^3 nu=16 path's planes the product kernels in turns
     (probes.fused.product_rows: torch._int_mm x 16, the wgmma kernel's
-    rasters, the mma.sync kernel's three instantiations); K8 (out_bits 53) on the path's C_hi and shifts against
+    rasters, the mma.sync kernel's three instantiations), then the wgmma
+    kernel's kloop raster (the main path's product) and torch._int_mm x 16
+    over 10 s each, in turns, with the SM clock and power draw
+    (probes.fused.sustained_rows); K8 (out_bits 53) on the path's C_hi and shifts against
     K2 (f64 out), and K8's plain version."""
     from gemmul8_tpu_torch import core, kernels, quantize
-    from gemmul8_tpu_torch.probes.fused import product_rows, random_planes
+    from gemmul8_tpu_torch.probes.fused import (product_rows, random_planes,
+                                                sustained_rows)
     from gemmul8_tpu_torch.probes.timing import k_contiguous
     a, b = random_planes(PROBE_NU, PROBE_M, PROBE_M, PROBE_M, 0)
     t = dict(product_plain_ms=cuda_ms(lambda: kernels.matmul_i8_plain(a, b),
@@ -3543,6 +3649,19 @@ def probe_times(a64, b64, card):
     check(all(r["ok"] for r in rows.values()),
           "a product differs from torch._int_mm on the DGEMM planes")
     t["main_rows"] = rows
+    # the main path's product against the library's over whole seconds:
+    # does the burst's time hold under the power limit?
+    sus = sustained_rows(
+        {"torch._int_mm x nu": lambda: core.int_mm_stack(ap, bp),
+         "wgmma kloop": lambda: kernels.matmul_i8(ap, bp)}, seconds=10.0,
+        index=ap.device.index)
+    t["main_sustained"] = sus
+    for name, r in sus.items():
+        log(f"sustained {card} {name}: {r['ms']:.3f} ms a call over "
+            f"{r['seconds']:.1f} s ({r['calls']} calls; burst "
+            f"{rows[name]['ms']:.3f} ms, so it "
+            f"{'holds' if r['ms'] <= 1.05 * rows[name]['ms'] else 'does not hold'}"
+            f"), SM {r['sm_mhz']:.0f} MHz, {r['watts']:.1f} W")
     t["main_int_mm_ms"] = rows["torch._int_mm x nu"]["ms"]
     for schedule in ("kloop", "astat"):
         t[f"main_wgmma_{schedule}_ms"] = rows[f"wgmma {schedule}"]["ms"]
@@ -3574,7 +3693,7 @@ def probe_times(a64, b64, card):
         "torch._int_mm")
     log(f"times {card} | probe kernels: " + ", ".join(
         f"{k_} {v:.4f}" if isinstance(v, float) else f"{k_} {v}"
-        for k_, v in t.items() if k_ != "main_rows"))
+        for k_, v in t.items() if k_ not in ("main_rows", "main_sustained")))
     return t
 
 
@@ -3736,8 +3855,8 @@ SOLVE_NU = 6          # solve: a cheap factorization, then 2 refinement steps
 # rounds), too long for its repeats in this run's time
 EIG_N = FULL // 4
 COMPLEX_N = FULL // 2  # the complex solve and qr at 4096^2
-SOLVER_KEYS = ("encode_planes", "_int_mm", "fused_epilogue",
-               "fused_epilogue_complex")
+SOLVER_KEYS = ("encode_planes", "matmul_i8_wgmma_kloop", "fused_epilogue",
+               "fused_epilogue_complex", "_int_mm", "transpose_i8")
 # the JAX tests' bounds: reconstruction (tests/test_solvers.py:148-161),
 # residuals (:162-178), eigenvalues and singular values relative to ||A||
 # (tests/test_eig.py:75-86), the Jacobi vectors (tests/test_eig.py:23-33),
@@ -3792,19 +3911,20 @@ def product_log(calls):
 
 def product_launches(calls):
     """The launches the logged products imply: a real INT8 product 2 K1 +
-    nu _int_mm + 1 K2 (syrk: 1 K1); a complex one (nu <= 16) 4 K1 + 3nu
-    _int_mm + 1 K4 (herk: 2 K1); a batch's per element."""
+    one wgmma kernel launch + 1 K2 (syrk: 1 K1); a complex one (nu <= 16)
+    4 K1 + one wgmma launch for the 3nu planes + 1 K4 (herk: 2 K1); a
+    batch's per element; no torch._int_mm and no transposing pass."""
     want = dict.fromkeys(SOLVER_KEYS, 0)
     for kind, nu, cplx, count in calls:
         one_side = kind in ("syrk", "herk")
         if cplx:
             check(nu <= 16, f"complex nu={nu} takes the K5 split")
             want["encode_planes"] += count * (2 if one_side else 4)
-            want["_int_mm"] += count * 3 * nu
+            want["matmul_i8_wgmma_kloop"] += count
             want["fused_epilogue_complex"] += count
         else:
             want["encode_planes"] += count * (1 if one_side else 2)
-            want["_int_mm"] += count * nu
+            want["matmul_i8_wgmma_kloop"] += count
             want["fused_epilogue"] += count
     return want
 
@@ -3831,7 +3951,8 @@ def solver_counted(name, tag, fn, want_products, extra=()):
     check(launches == product_launches(calls),
           f"{name} launches {launches}, its products imply "
           f"{product_launches(calls)}")
-    check(launches["encode_planes"] > 0 and launches["_int_mm"] > 0
+    check(launches["encode_planes"] > 0
+          and launches["matmul_i8_wgmma_kloop"] > 0
           and launches["fused_epilogue"] + launches[
               "fused_epilogue_complex"] > 0, f"{name}: a kernel not launched")
     SOLVER_RUNS[name] = (tag, counts)
@@ -4507,9 +4628,10 @@ def solver_times(x, card):
 # card over gloo, the card against the CPU path, and times
 # ---------------------------------------------------------------------------
 
-SUMMA_KEYS = ("encode_planes", "_int_mm", "fused_epilogue",
+SUMMA_KEYS = ("encode_planes", "matmul_i8_wgmma_kloop", "fused_epilogue",
               "encode_planes_fp8", "_scaled_mm", "fused_epilogue_fp8",
-              "reassemble_fp8", "fused_epilogue_complex", "estimate_int_mm")
+              "reassemble_fp8", "fused_epilogue_complex", "estimate_int_mm",
+              "_int_mm", "transpose_i8")
 SUMMA_PANEL = 2048                     # k_panel of the 8192^3 streams: 4 steps
 SUMMA_RUNS: dict = {}                  # case -> (dtype tag, launch counts)
 SUMMA_MESHES: dict = {}                # device type -> its 1x1 mesh
@@ -4517,27 +4639,27 @@ SUMMA_MESHES: dict = {}                # device type -> its 1x1 mesh
 # the launches one call makes (SUMMA_KEYS order)
 SUMMA_PATHS = (
     ("dgemm16 gather", torch.float64, dict(num_moduli=16),
-     (2, 16, 1, 0, 0, 0, 0, 0, 0)),
+     (2, 1, 1, 0, 0, 0, 0, 0, 0, 0, 0)),
     ("dgemm16 stream ring", torch.float64,
-     dict(num_moduli=16, k_panel=SUMMA_PANEL), (2, 64, 1, 0, 0, 0, 0, 0, 0)),
+     dict(num_moduli=16, k_panel=SUMMA_PANEL), (2, 4, 1, 0, 0, 0, 0, 0, 0, 0, 0)),
     ("dgemm16 stream psum", torch.float64,
      dict(num_moduli=16, k_panel=SUMMA_PANEL, bcast="psum"),
-     (2, 64, 1, 0, 0, 0, 0, 0, 0)),
+     (2, 4, 1, 0, 0, 0, 0, 0, 0, 0, 0)),
     ("dgemm16 robust", torch.float64, dict(num_moduli=16, fastmode="robust"),
-     (2, 16, 1, 0, 0, 0, 0, 0, 0)),
+     (2, 1, 1, 0, 0, 0, 0, 0, 0, 0, 0)),
     ("dgemm16 accurate", torch.float64, dict(num_moduli=16, fastmode=False),
-     (2, 17, 1, 0, 0, 0, 0, 0, 1)),
+     (2, 1, 1, 0, 0, 0, 0, 0, 1, 1, 0)),
     ("sgemm8 gather", torch.float32, dict(num_moduli=8),
-     (2, 8, 1, 0, 0, 0, 0, 0, 0)),
+     (2, 1, 1, 0, 0, 0, 0, 0, 0, 0, 0)),
     ("fp8 dgemm14 gather", torch.float64, dict(num_moduli=14, backend="FP8"),
-     (0, 0, 0, 2, 42, 1, 0, 0, 0)),
+     (0, 0, 0, 2, 42, 1, 0, 0, 0, 0, 0)),
     ("fp8 dgemm14 stream", torch.float64,
      dict(num_moduli=14, backend="FP8", k_panel=SUMMA_PANEL),
-     (0, 0, 1, 2, 168, 0, 4, 0, 0)),
+     (0, 0, 1, 2, 168, 0, 4, 0, 0, 0, 0)),
     ("zgemm16 planar gather", torch.complex128, dict(num_moduli=16),
-     (4, 48, 0, 0, 0, 0, 0, 1, 0)),
+     (4, 1, 0, 0, 0, 0, 0, 1, 0, 0, 0)),
     ("zgemm16 planar stream", torch.complex128,
-     dict(num_moduli=16, k_panel=SUMMA_PANEL), (4, 192, 0, 0, 0, 0, 0, 1, 0)),
+     dict(num_moduli=16, k_panel=SUMMA_PANEL), (4, 4, 0, 0, 0, 0, 0, 1, 0, 0, 0)),
 )
 SUMMA_HOLD_ROWS = 1024
 
@@ -4925,20 +5047,20 @@ def summa_times(a64, b64, card):
 # each example (gemmul8_tpu_torch/examples) and the launches its run must
 # show: its main path's kernels and library products
 EXAMPLES = (
-    ("dgemm_int8", ("encode_planes", "_int_mm", "fused_epilogue")),
+    ("dgemm_int8", ("encode_planes", "matmul_i8_wgmma_kloop", "fused_epilogue")),
     ("fp8_backend", ("encode_planes_fp8", "_scaled_mm", "fused_epilogue_fp8")),
-    ("planar_complex", ("encode_planes", "_int_mm",
+    ("planar_complex", ("encode_planes", "matmul_i8_wgmma_kloop",
                         "fused_epilogue_complex")),
-    ("compat_gemmlt", ("encode_planes", "_int_mm", "fused_epilogue",
+    ("compat_gemmlt", ("encode_planes", "matmul_i8_wgmma_kloop", "fused_epilogue",
                        "encode_planes_fp8", "_scaled_mm",
                        "fused_epilogue_fp8")),
-    ("blas3_tour", ("encode_planes", "_int_mm", "fused_epilogue",
+    ("blas3_tour", ("encode_planes", "matmul_i8_wgmma_kloop", "fused_epilogue",
                     "fused_epilogue_complex")),
-    ("iterative_refinement", ("encode_planes", "_int_mm", "fused_epilogue")),
-    ("lu_solver", ("encode_planes", "_int_mm", "fused_epilogue")),
-    ("dense_linalg", ("encode_planes", "_int_mm", "fused_epilogue")),
-    ("hook_training", ("encode_planes", "_int_mm", "fused_epilogue")),
-    ("distributed_summa", ("encode_planes", "_int_mm", "fused_epilogue",
+    ("iterative_refinement", ("encode_planes", "matmul_i8_wgmma_kloop", "fused_epilogue")),
+    ("lu_solver", ("encode_planes", "matmul_i8_wgmma_kloop", "fused_epilogue")),
+    ("dense_linalg", ("encode_planes", "matmul_i8_wgmma_kloop", "fused_epilogue")),
+    ("hook_training", ("encode_planes", "matmul_i8_wgmma_kloop", "fused_epilogue")),
+    ("distributed_summa", ("encode_planes", "matmul_i8_wgmma_kloop", "fused_epilogue",
                            "estimate_int_mm")),
 )
 EXAMPLE_RUNS: dict = {}       # example -> (launch counts, seconds)
@@ -4963,6 +5085,7 @@ def example_paths():
         for key in want:
             check(launched.get(key, 0) > 0,
                   f"example {name}: no {key} launch ({launched})")
+        check_products_route(counts, f"example {name}")
         EXAMPLE_RUNS[name] = (launched, secs)
         EXAMPLE_OUT[name] = out
         log(f"example {name}: {secs:.3f} s, launches {launched}")
@@ -5050,7 +5173,9 @@ def benchmark_paths(card):
         epilogue = ("fused_epilogue_complex" if name == "flops c128"
                     else "fused_epilogue")
         check(all(counts.get(key, 0) > 0
-                  for key in ("encode_planes", "_int_mm", epilogue)),
+                  for key in ("encode_planes", "matmul_i8_wgmma_kloop",
+                              epilogue))
+              and counts["transpose_i8"] == 0,
               f"benchmark {name}: launches {counts}")
     return out
 
@@ -5151,7 +5276,7 @@ STRESS_TRIALS = 40            # tools/device_stress.py's default
 STRESS_RUNS: dict = {}        # run -> launch counts
 # the sweep's launches: the INT8 real trials' (K1, products, K2), the FP8
 # ones' (K6, FP8 products, K3) and the planar trials' (K4)
-STRESS_WANT = ("encode_planes", "_int_mm", "fused_epilogue",
+STRESS_WANT = ("encode_planes", "matmul_i8_wgmma_kloop", "fused_epilogue",
                "encode_planes_fp8", "_scaled_mm", "fused_epilogue_fp8",
                "fused_epilogue_complex")
 # the product kernels at each trial's shape: (kernel, schedule, bk, B
@@ -5178,8 +5303,8 @@ def stress_paths(card):
     products (kernels.matmul_i8, both routes, both schedules, both B
     layouts) at every trial's (m, k, n) from SEED + 20, against their plain
     version: the random check of _product_route's TMA -> mma.sync fallback
-    (gemm's own products are torch._int_mm on operands padded to 128, so
-    the sweep does not reach it)."""
+    (gemm's own products are the wgmma kernel's on operands padded to 128,
+    so the sweep does not reach it)."""
     from gemmul8_tpu_torch import kernels
     from gemmul8_tpu_torch.probes import device_stress
     t0 = time.perf_counter()
@@ -5193,6 +5318,7 @@ def stress_paths(card):
     counts = STRESS_RUNS["device_stress"]
     for key in STRESS_WANT:
         check(counts.get(key, 0) > 0, f"stress: no {key} launch ({counts})")
+    check_products_route(counts, "stress")
     log(f"stress sweep {card}: {len(recs)} trials within tolerance in "
         f"{time.perf_counter() - t0:.1f} s, worst err/tol "
         f"{max(r['err'] / r['tol'] for r in recs):.3g}, launches "
@@ -5322,7 +5448,7 @@ def crt_value_gap(limbs20, base20, limbs16, base16, P):
 
 def crt_residues(a64, b64, backend, nu):
     """The wrapped residues C_mid (nu, 8192, 8192) of the 8192^3 path's own
-    products: K1's planes through torch._int_mm, mod-reduced (the INT8
+    products: K1's planes through core.residue_matmul, mod-reduced (the INT8
     DGEMM), or K6's stacks through the FP8 products, reassembled (the FP8
     DGEMM), in row blocks."""
     from gemmul8_tpu_torch import core, fp8, kernels, quantize
@@ -5493,6 +5619,8 @@ def main():
     full_size_probe_cases(a64, b64)
     log(f"probe kernels bit-equal at the DGEMM path's inputs: {CASES}")
     log_phase("phase 4 (probe kernels at the DGEMM path's inputs)")
+    main_path_product_cases()
+    log_phase("phase 4 (main path's int8 products at the cells' shapes)")
     full_size_fp8_cases(a64, b64)
     log(f"kernels vs plain, all bit-equal, FP8 full size included: {CASES}")
     fp8_launches = {dt: real_main_path(a64.to(dt), b64.to(dt), nu, "FP8")
@@ -5619,6 +5747,7 @@ def main():
             encode_b_ms=cuda_ms(lambda: kernels.encode_planes(b, sb, 1, nu,
                                                               "INT8")),
             products_ms=cuda_ms(lambda: core.residue_matmul(ap, bp)),
+            int_mm_ms=cuda_ms(lambda: core.int_mm_stack(ap, bp)),
             epilogue_ms=cuda_ms(lambda: kernels.fused_epilogue(
                 c_hi, sa, sb, nu, "INT8", dt)),
             library_ms=cuda_ms(lambda: torch.matmul(a, b)),
@@ -5771,6 +5900,28 @@ def main():
                  bound_by=t["k3_bound"][1],
                  shape=f"C3 {3 * nu}x8192x8192 f32 -> {tag}"),
         ]
+    # the main path's int8 products (core.residue_matmul): launches of the
+    # DGEMM and ZGEMM calls of phase 4, times on their planes in phase 6,
+    # torch._int_mm a plane on the same planes as the library's; the cases
+    # are main_path_product_cases' (bit-equal, or the run stops there)
+    t, zt = timing[torch.float64], ctiming["zgemm16"]
+    k7 = dict(route="cuda", source="gemmul8_tpu_torch/csrc/matmul_i8_wgmma.cu",
+              replaces="gemmul8_tpu/core.py:33 (XLA batched dot_general)",
+              max_abs_err=0.0, cases=CASES["residue_matmul"], plain_ms=None,
+              bound_by="ops")
+    kern += [
+        dict(k7, name="matmul_i8_wgmma_kloop[f64]",
+             launches=main_launches[torch.float64]["matmul_i8_wgmma_kloop"],
+             ms=t["products_ms"], bound_ms=t["products_bound_ms"],
+             library_ms=t["int_mm_ms"], path="gemm f64 8192^3 nu=16",
+             shape="16 x (8192^3) int8, B k-contiguous"),
+        dict(k7, name="matmul_i8_wgmma_kloop[c128]",
+             launches=complex_launches["zgemm16"]["matmul_i8_wgmma_kloop"],
+             ms=zt["products_ms"],
+             bound_ms=3 * 16 * 2.0 * FULL ** 3 / PEAK_INT8_OPS * 1e3,
+             library_ms=zt["int_mm_ms"], path="gemm c128 8192^3 nu=16",
+             shape="48 x (8192^3) int8 (3 lanes x 16), B k-contiguous"),
+    ]
     complex_entry = dict(route="cuda", library_ms=None)
     for name, dt, nu, *_ in CPATHS[:2]:           # the two K4 paths
         t, tag = ctiming[name], TAG[dt]

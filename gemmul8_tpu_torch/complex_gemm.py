@@ -9,7 +9,8 @@ The counterpart of gemmul8_tpu/complex_gemm.py:
     and a balanced wrap. FP8: one lane encoder launch that reads Re and Im
     once and writes the three lanes' e4m3 split stacks;
   * the lane products Crr = Ar.Br, Cii = Ai.Bi, Crii = (Ar+Ai).(Br+Bi):
-    3nu exact int8 products (torch._int_mm), or on FP8 three 3nu-plane
+    3nu exact int8 products (core.residue_matmul: on the card one launch
+    of the wgmma kernel for the 3nu planes), or on FP8 three 3nu-plane
     stacks of e4m3 products (torch._scaled_mm), one lane at a time, each
     lane's f32 products reassembled into its wrapped int32 residues by a
     kernel before the next lane's are made;

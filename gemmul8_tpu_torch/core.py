@@ -8,11 +8,13 @@ operands go to complex_gemm (the 3M scheme).
 The counterpart of gemmul8_tpu/core.py. INT8 backend: one int8 plane and one
 exact int8 product per modulus. FP8 backend (fp8.py): three e4m3 planes per
 modulus and side and three FP8 products, reassembled mod p. On the card the
-planes come from the encode kernels, the products from torch._int_mm or
-torch._scaled_mm (the vendor products, as the JAX package leaves its dots to
+planes come from the encode kernels, the INT8 products from one launch of
+the wgmma + TMA product kernel (csrc/matmul_i8_wgmma.cu), the FP8 products
+from
+torch._scaled_mm (the vendor product, as the JAX package leaves its dots to
 XLA) and the "ff" epilogue from one fused kernel; on the CPU the same code
-runs each kernel's plain version. Results are bit-equal to the JAX package on
-the CPU.
+runs each kernel's plain version (torch._int_mm for the INT8 products).
+Results are bit-equal to the JAX package on the CPU.
 
 Each `x + y*z` that XLA:CPU contracts to an FMA under jit is written as
 torch.addcmul, which computes the fused result, so the "f64" epilogue and the
@@ -40,8 +42,32 @@ _DTYPE_NAMES = {torch.float32: "float32", torch.float64: "float64"}
 @span("products")
 def residue_matmul(a_planes: torch.Tensor, b_planes: torch.Tensor,
                    out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """(nu, m, k) int8 @ (nu, k, n) int8 -> (nu, m, n) int32, exact: one
-    torch._int_mm per modulus into a preallocated C_hi (`out` if given)."""
+    """(nu, m, k) int8 @ (nu, k, n) int8 -> (nu, m, n) int32, exact, into a
+    preallocated C_hi (`out` if given: contiguous). On the card one launch
+    of the wgmma kernel for the whole stack, which needs planes TMA can
+    address (kernels._product_route: the main path's A and k-contiguous B,
+    their K slices and the complex lanes' 3nu stack, all padded to 128);
+    other planes raise ValueError there. On the CPU one torch._int_mm per
+    modulus (int_mm_stack). Both are exact int32 sums: the bits are the
+    same."""
+    if a_planes.device.type == "cpu":
+        return int_mm_stack(a_planes, b_planes, out)
+    if kernels._product_route(a_planes, b_planes) != "wgmma":
+        raise ValueError(
+            "residue_matmul: on the card the planes must be TMA-addressable "
+            "(k a multiple of 16, 16-byte aligned bases and row and plane "
+            "strides, B row-major or k-contiguous), as the entries' planes "
+            f"padded to 128 are; got A {tuple(a_planes.shape)} strides "
+            f"{a_planes.stride()}, B {tuple(b_planes.shape)} strides "
+            f"{b_planes.stride()}")
+    return kernels.matmul_i8(a_planes, b_planes, out=out)
+
+
+def int_mm_stack(a_planes: torch.Tensor, b_planes: torch.Tensor,
+                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The library's product of a plane stack: one torch._int_mm per modulus
+    into a preallocated (nu, m, n) int32 C_hi (`out` if given); the CPU's
+    products, and the reference the card's are held to."""
     nu, m, _ = a_planes.shape
     n = b_planes.shape[2]
     c_hi = out if out is not None else torch.empty(

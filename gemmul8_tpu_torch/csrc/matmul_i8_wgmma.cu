@@ -1,6 +1,8 @@
 // Exact batched int8 product on Hopper's warpgroup tensor-core path:
 // C[u] = A[u] @ B[u], (nu, m, k) s8 x (nu, k, n) s8 -> (nu, m, n) s32, with
 // int32 sums that wrap (no .satfinite), as torch._int_mm's and XLA's do.
+// The main path's int8 products (core.residue_matmul: the nu or 3nu residue
+// planes of a call in one launch), and the probe tools' products.
 //
 // Replaces, as matmul_i8.cu does and with the same function, the Pallas
 // products of the probe tools:
@@ -9,14 +11,18 @@
 //   tools/probe_matmul3.py  mm_flat_kloop           -> kloop (flat views)
 //                           mm_flat_fullk           -> astat (flat views)
 //                           mm_flat_kloop_multidot  -> kloop
-// (the flat views are the same memory as the batched ones). matmul_i8.cu's
-// mma.sync kernel stays the route for shapes TMA cannot address.
+// (the flat views are the same memory as the batched ones), and the JAX
+// package's int8 dot of the main path (gemmul8_tpu/core.py, left to XLA).
+// matmul_i8.cu's mma.sync kernel stays the route for shapes TMA cannot
+// address.
 //
 // Bound on the H100: operations. 2 * nu * m * n * k int8 operations at the
 // dense 1,979 T/s (8.889 ms at 8192^3, nu=16), against nu * (m*k + k*n)
 // bytes read and 4 * nu * m * n written (1.6 ms at 8192^3). The tensor
 // cores reach that rate only through wgmma fed from shared memory, which
-// mma.sync with fragments loaded into registers (matmul_i8.cu) cannot.
+// mma.sync with fragments loaded into registers (matmul_i8.cu) cannot. At
+// short K the int32 stores bound it instead (1.28 ms of writes at 8192 x
+// 512 x 8192, nu=16, against 0.56 ms of operations).
 //
 // Design (hopper-kernels guide, section 1):
 //  - wgmma.mma_async m64n256k32 s32.s8.s8 from shared-memory descriptors.
@@ -25,13 +31,16 @@
 //    byte-transposed by transpose_i8_kernel below into a k-contiguous scratch
 //    the wrapper allocates.
 //  - TMA loads with 3-D tensor maps (k, rows, plane), so that no box straddles
-//    two planes, 128-byte boxes in k with the 128-byte swizzle that the
+//    two planes, built from the operands' row and plane strides in bytes, so
+//    that a K slice of a wider stack (the K-chunked products) is read in place,
+//    128-byte boxes in k with the 128-byte swizzle that the
 //    descriptors' layout type names; TMA zero-fills the ragged m, n and k
 //    edges and always delivers the full box's bytes, so each stage's mbarrier
 //    expects a constant transaction count. The maps are encoded on the host
 //    with cuTensorMapEncodeTiled through the runtime's driver entry point (no
-//    link flag) and passed as __grid_constant__ parameters. TMA needs k % 16
-//    == 0 (16-byte row strides) and 16-byte-aligned bases.
+//    link flag) and passed as __grid_constant__ parameters. TMA needs strides
+//    that are multiples of 16 bytes and 16-byte-aligned bases; the wrapper
+//    also asks k % 16 == 0.
 //  - A 128 x 256 output tile per block, K in 128-byte stages through a ring
 //    of 4 (A 16 KB + B 32 KB each, 192 KB), full/empty mbarrier pairs whose
 //    parity flips once per pass around the ring.
@@ -376,21 +385,30 @@ EncodeTiled encode_tiled() {
     return fn;
 }
 
-// the 3-D map (k, rows, nu) of a contiguous (nu, rows, k) int8 stack, boxes
-// of 128 bytes of k by box_rows rows of one plane, 128-byte swizzle
+// the 3-D map (k, rows, nu) of a (nu, rows, k) int8 stack whose k axis is
+// contiguous, with rows `row_pitch` and planes `plane_pitch` bytes apart
+// (multiples of 16: a K slice of a wider stack is read in place); boxes of
+// 128 bytes of k by box_rows rows of one plane, 128-byte swizzle. TMA
+// zero-fills past k, so a slice's box never reads its neighbour's bytes.
 bool make_map(CUtensorMap* map, const void* ptr, int nu, int rows, int k,
-              int box_rows) {
+              long long row_pitch, long long plane_pitch, int box_rows) {
     EncodeTiled fn = encode_tiled();
     if (fn == nullptr) return false;
     const cuuint64_t dims[3] = {(cuuint64_t)k, (cuuint64_t)rows,
                                 (cuuint64_t)nu};
-    const cuuint64_t strides[2] = {(cuuint64_t)k, (cuuint64_t)k * rows};
+    const cuuint64_t strides[2] = {(cuuint64_t)row_pitch,
+                                   (cuuint64_t)plane_pitch};
     const cuuint32_t box[3] = {(cuuint32_t)BK, (cuuint32_t)box_rows, 1};
     const cuuint32_t elem[3] = {1, 1, 1};
     return fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, const_cast<void*>(ptr),
               dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
               CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// a TMA stride: a multiple of 16 bytes below 2^40
+bool pitch_ok(long long pitch) {
+    return pitch >= 16 && pitch % 16 == 0 && pitch < (1LL << 40);
 }
 
 template <bool ASTAT>
@@ -407,20 +425,26 @@ int launch(const CUtensorMap& ma, const CUtensorMap& mb, int* c, int nu,
 
 }  // namespace
 
-// a: (nu, m, k) int8 row-major; b: (nu, n, k) int8 row-major (B's planes
-// k-contiguous); c: (nu, m, n) int32. astat selects the row-block raster,
-// else the grouped one. Needs k % 16 == 0, k > 0 and 16-byte-aligned a and
-// b. Returns the CUDA error (0 on success).
+// a: (nu, m, k) int8 with k contiguous, rows a_row and planes a_plane bytes
+// apart; b: (nu, n, k) int8 likewise (B's planes k-contiguous); c: (nu, m,
+// n) int32, contiguous. astat selects the row-block raster, else the
+// grouped one. Needs k % 16 == 0, k > 0, 16-byte-aligned a and b, and
+// pitches that are multiples of 16. Returns the CUDA error (0 on success).
 extern "C" int g8_matmul_i8_wgmma(const void* a, const void* b, void* c,
-                                  int nu, int m, int n, int k, int astat,
-                                  void* stream) {
+                                  int nu, int m, int n, int k,
+                                  long long a_row, long long a_plane,
+                                  long long b_row, long long b_plane,
+                                  int astat, void* stream) {
     if (nu < 1 || m < 1 || n < 1 || k < 16 || k % 16 != 0
         || (uintptr_t)a % 16 != 0 || (uintptr_t)b % 16 != 0
+        || !pitch_ok(a_row) || !pitch_ok(a_plane) || !pitch_ok(b_row)
+        || !pitch_ok(b_plane)
         || (long long)nu * ((m + BM - 1) / BM) * ((n + BN - 1) / BN)
                > 0x7fffffffLL)
         return (int)cudaErrorInvalidValue;
     CUtensorMap ma, mb;
-    if (!make_map(&ma, a, nu, m, k, BM) || !make_map(&mb, b, nu, n, k, BN))
+    if (!make_map(&ma, a, nu, m, k, a_row, a_plane, BM)
+        || !make_map(&mb, b, nu, n, k, b_row, b_plane, BN))
         return (int)cudaErrorInvalidValue;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     int* cp = static_cast<int*>(c);

@@ -116,8 +116,9 @@ _ARGTYPES = {
     "fused_recombine_3m": [_P, _P, _P, _I, _I, _I, _P, _P],
     # a, b, c, nu, m, n, k, b_kcontig, astat, bk, a_vec, b_vec, stream
     "matmul_i8": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    # a, b (k-contiguous), c, nu, m, n, k, astat, stream
-    "matmul_i8_wgmma": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # a, b (k-contiguous), c, nu, m, n, k, a_row, a_plane, b_row, b_plane
+    # (bytes), astat, stream
+    "matmul_i8_wgmma": [_P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _L, _I, _P],
     # src (nu, k, n), dst (nu, n, k), nu, k, n, stream
     "transpose_i8": [_P, _P, _I, _I, _I, _P],
     # c_hi, sft_a, sft_b, hi, lo, m, n, vec, plan, stream
@@ -1066,7 +1067,8 @@ def fused_epilogue_complex(c_hi3: torch.Tensor, sft_a: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# exact int8 products on the tensor cores (the probe tools' Pallas products)
+# exact int8 products on the tensor cores (the main path's products, and the
+# probe tools' Pallas products)
 # ---------------------------------------------------------------------------
 
 # the schedules and, per schedule, the K depths of a staged tile the
@@ -1088,33 +1090,54 @@ def matmul_i8_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def _b_layout(b: torch.Tensor) -> bool:
-    """True if B's planes are k-contiguous (the (nu, n, k) storage that
-    plane_buffer and encode_planes give B), False if n-contiguous ((nu, k, n)
-    row-major, the probe tools' layout); raises on any other layout."""
+    """True if B's planes are k-contiguous (unit stride along k: the (nu, n,
+    k) storage that plane_buffer and encode_planes give B, or a K slice of
+    it), False if n-contiguous ((nu, k, n) row-major, the probe tools'
+    layout); raises on any other layout."""
     if b.is_contiguous():
         return False
-    if b.transpose(-1, -2).is_contiguous():
+    if b.stride(-2) == 1:
         return True
     raise ValueError("matmul_i8: b must be (nu, k, n) row-major or a "
-                     "transposed view of (nu, n, k) row-major storage")
+                     "transposed view of (nu, n, k) storage with k "
+                     "contiguous")
+
+
+def _tma_pitches(x: torch.Tensor) -> tuple[int, int] | None:
+    """The row and plane strides in bytes of a (nu, rows, k) int8 view whose
+    k axis is contiguous, if TMA can address it (both multiples of 16, the
+    base 16-byte aligned), else None. A stride of a dimension of size 1 is
+    never followed and is taken as the dense one."""
+    nu, rows, k = x.shape
+    if x.data_ptr() % 16 or (k > 1 and x.stride(2) != 1):
+        return None
+    row = x.stride(1) if rows > 1 else k
+    plane = x.stride(0) if nu > 1 else rows * row
+    if row % 16 or plane % 16 or not (0 < row and 0 < plane):
+        return None
+    return row, plane
 
 
 def _product_route(a: torch.Tensor, b: torch.Tensor,
                    kernel: str = "auto") -> str:
     """The kernel that computes a @ b: "wgmma" where TMA can address the
-    operands -- k a multiple of 16 (16-byte row strides), k > 0, A's base and
-    (if B is k-contiguous) B's 16-byte aligned; n-contiguous B goes through a
-    transposed scratch that is aligned -- else "mma_sync", as it is for
-    kernel="mma_sync"."""
+    operands -- k a multiple of 16, k > 0, A's and (if B is k-contiguous)
+    B's row and plane strides multiples of 16 bytes and their bases 16-byte
+    aligned, as in-place K slices of such stacks are; contiguous n-major B
+    goes through a transposed scratch that is aligned -- else "mma_sync", as
+    it is for kernel="mma_sync"."""
     if kernel not in MATMUL_KERNELS:
         raise ValueError(f"matmul_i8: kernel must be one of {MATMUL_KERNELS}, "
                          f"got {kernel!r}")
-    if kernel == "mma_sync":
-        return kernel
     k = a.shape[-1]
-    tma = (k > 0 and k % 16 == 0 and a.data_ptr() % 16 == 0
-           and (not _b_layout(b) or b.data_ptr() % 16 == 0))
-    return "wgmma" if tma else "mma_sync"
+    if (kernel == "mma_sync" or k <= 0 or k % 16
+            or _tma_pitches(a) is None):
+        return "mma_sync"
+    if b.is_contiguous():
+        return "wgmma"
+    if b.stride(-2) == 1 and _tma_pitches(b.transpose(-1, -2)) is not None:
+        return "wgmma"
+    return "mma_sync"
 
 
 def transpose_i8(b: torch.Tensor) -> torch.Tensor:
@@ -1132,21 +1155,26 @@ def transpose_i8(b: torch.Tensor) -> torch.Tensor:
 
 
 def matmul_i8(a: torch.Tensor, b: torch.Tensor, schedule: str = "kloop",
-              bk: int = 64, kernel: str = "auto") -> torch.Tensor:
+              bk: int = 64, kernel: str = "auto",
+              out: torch.Tensor | None = None) -> torch.Tensor:
     """(nu, m, k) int8 @ (nu, k, n) int8 -> (nu, m, n) int32, exact while no
     sum leaves int32 (past that it wraps, as torch._int_mm's does).
 
     kernel (MATMUL_KERNELS): "auto" takes the wgmma + TMA kernel wherever TMA
     can address the operands (_product_route), else the mma.sync one, which
-    "mma_sync" takes on any operands. schedule "kloop": K innermost, tiles in
-    a grouped raster (wgmma) or one thread block per output tile (mma.sync)
-    -- the probes' K-sequential and flat K-loop products; "astat": every
-    column tile of a row block in turn, so that its rows of A are re-read
-    from L2 (the A-stationary and full-K ones). bk is the mma.sync kernel's
-    K depth of a staged tile (MATMUL_BK; the wgmma kernel stages 128 bytes
-    of K whatever bk is). A is row-major; B is n-contiguous or k-contiguous
-    (_b_layout), the latter as the main path's planes come; the wgmma kernel
-    reads n-contiguous B through transpose_i8's scratch."""
+    "mma_sync" takes on any contiguous operands. schedule "kloop": K
+    innermost, tiles in a grouped raster (wgmma) or one thread block per
+    output tile (mma.sync) -- the probes' K-sequential and flat K-loop
+    products; "astat": every column tile of a row block in turn, so that its
+    rows of A are re-read from L2 (the A-stationary and full-K ones). bk is
+    the mma.sync kernel's K depth of a staged tile (MATMUL_BK; the wgmma
+    kernel stages 128 bytes of K whatever bk is). A has k contiguous; B is
+    n-contiguous or k-contiguous (_b_layout), the latter as the main path's
+    planes come. The wgmma kernel reads A and k-contiguous B in place, K
+    slices of wider stacks included, and n-contiguous B through
+    transpose_i8's scratch. The mma.sync kernel reads contiguous stacks
+    only. `out`, if given, is a contiguous int32 (nu, m, n) tensor on a's
+    device that is written and returned."""
     if bk not in MATMUL_BK.get(schedule, ()):
         raise ValueError(f"matmul_i8: no {schedule!r} kernel with bk={bk}; "
                          f"built: {MATMUL_BK}")
@@ -1158,22 +1186,35 @@ def matmul_i8(a: torch.Tensor, b: torch.Tensor, schedule: str = "kloop",
     if b.shape[0] != nu or b.shape[1] != k:
         raise ValueError(f"matmul_i8: shapes {tuple(a.shape)} and "
                          f"{tuple(b.shape)} do not chain")
-    if not a.is_contiguous():
-        raise ValueError("matmul_i8: a must be contiguous")
+    n = b.shape[2]
+    if out is not None and (out.shape != (nu, m, n) or out.dtype != torch.int32
+                            or out.device != a.device
+                            or not out.is_contiguous()):
+        raise ValueError(f"matmul_i8: out must be a contiguous int32 "
+                         f"({nu}, {m}, {n}) tensor on {a.device}")
+    b_kcontig = _b_layout(b)
     route = _product_route(a, b, kernel)
+    if route == "mma_sync" and not (
+            a.is_contiguous() and (not b_kcontig
+                                   or b.transpose(-1, -2).is_contiguous())):
+        raise ValueError("matmul_i8: the mma.sync kernel reads contiguous "
+                         "planes only")
     if a.device.type == "cpu":
-        return matmul_i8_plain(a, b)
+        c = matmul_i8_plain(a, b)
+        return c if out is None else out.copy_(c)
     if a.device.type != "cuda":
         raise ValueError(f"matmul_i8: unsupported device {a.device}")
-    n = b.shape[2]
-    b_kcontig = _b_layout(b)
-    c = torch.empty((nu, m, n), dtype=torch.int32, device=a.device)
+    c = out if out is not None else torch.empty(
+        (nu, m, n), dtype=torch.int32, device=a.device)
     if not c.numel():
         return c
     if route == "wgmma":
         bt = b if b_kcontig else transpose_i8(b)
+        a_row, a_plane = _tma_pitches(a)
+        b_row, b_plane = _tma_pitches(bt.transpose(-1, -2))
         _launch("matmul_i8_wgmma", a.data_ptr(), bt.data_ptr(), c.data_ptr(),
-                nu, m, n, k, int(schedule == "astat"), _stream(a),
+                nu, m, n, k, a_row, a_plane, b_row, b_plane,
+                int(schedule == "astat"), _stream(a),
                 count=f"matmul_i8_wgmma_{schedule}")
         return c
     if max(nu, -(-m // 128)) > 65535:

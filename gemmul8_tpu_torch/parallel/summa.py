@@ -24,12 +24,12 @@ DTensor, made without communication.
 The collectives run on the mesh's process groups: NCCL moves device
 tensors, gloo moves host tensors (a CUDA block is copied to the host and
 back), chosen by the group's backend. The local work is the port's
-single-device pipeline: the encode kernels, torch._int_mm or
-torch._scaled_mm, and the epilogue kernels (INT8 stream: the raw int32
-panel products summed while exact, then the epilogue kernel, whose wrap
-takes any int32; FP8 stream: each panel's products reassembled into the
-int32 accumulator by the reassembly kernel). On the CPU every kernel runs
-its plain version. On the card, A's rows and B's columns are zero-padded to
+single-device pipeline: the encode kernels, the int8 products
+(core.residue_matmul: the wgmma kernel on the card) or torch._scaled_mm,
+and the epilogue kernels (INT8 stream: the raw int32 panel products summed
+while exact, then the epilogue kernel, whose wrap takes any int32; FP8
+stream: each panel's products reassembled into the int32 accumulator by the
+reassembly kernel). On the CPU every kernel runs its plain version. On the card, A's rows and B's columns are zero-padded to
 multiples of 128 before the shifts, and the gathered k axis (or a panel's)
 after the collectives, as the products need; zero rows, columns and planes
 change nothing.

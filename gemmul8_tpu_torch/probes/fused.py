@@ -3,8 +3,9 @@ product (nu, m, k) x (nu, k, n) -> (nu, m, n) int32, K-sequential
 (pallas_matmul_i8_seq) and A-stationary (pallas_matmul_i8_astat), through
 the hand-written tensor-core kernels: the wgmma + TMA one
 (csrc/matmul_i8_wgmma.cu, which the functions take wherever TMA can address
-the operands) and the mma.sync one (csrc/matmul_i8.cu), beside
-core.residue_matmul, one torch._int_mm per plane (the counterpart of "XLA
+the operands, and which core.residue_matmul takes on the main path) and the
+mma.sync one (csrc/matmul_i8.cu), beside core.int_mm_stack, one
+torch._int_mm per plane (the library's product: the counterpart of "XLA
 batched dot").
 
     python -m gemmul8_tpu_torch.probes.fused
@@ -18,13 +19,20 @@ against torch._int_mm. torch._int_mm's row takes B k-contiguous: the fair
 comparison is with the k-contiguous rows.
 
 product_rows times the same kernels in turns on given planes with B
-k-contiguous (chip_smoke.py: the DGEMM 8192^3 nu=16 path's own planes).
+k-contiguous (chip_smoke.py: the DGEMM 8192^3 nu=16 path's own planes);
+sustained_rows times them in turns over whole seconds with the card's SM
+clock and power draw sampled beside them, so that a burst's time can be
+held against what the card keeps up under its power limit.
 """
 from __future__ import annotations
+
+import statistics
+import time
 
 import torch
 
 from .. import core, kernels
+from .power import NvidiaSmiSampler, Poller
 from .timing import cuda_ms, in_turns, k_contiguous, launches, require_cuda
 
 
@@ -71,7 +79,7 @@ def product_fns(a, b):
     torch._int_mm x nu: the wgmma kernel's two rasters (the route of such
     planes, kernels._product_route) and the mma.sync kernel's
     instantiations."""
-    fns = {"torch._int_mm x nu": lambda: core.residue_matmul(a, b)}
+    fns = {"torch._int_mm x nu": lambda: core.int_mm_stack(a, b)}
     for schedule in ("kloop", "astat"):
         fns[f"wgmma {schedule}"] = (
             lambda s=schedule: kernels.matmul_i8(a, b, s))
@@ -91,7 +99,7 @@ def product_rows(a, b, reps=5, check_rows=256):
                          "route")
     nu, m, k = a.shape
     ops = 2.0 * nu * m * b.shape[2] * k
-    ref = core.residue_matmul(a[:, :check_rows].contiguous(), b)
+    ref = core.int_mm_stack(a[:, :check_rows].contiguous(), b)
     fns = product_fns(a, b)
     ok = {}
     for name, fn in fns.items():
@@ -106,6 +114,64 @@ def product_rows(a, b, reps=5, check_rows=256):
     return rows
 
 
+def sustained_rows(fns: dict, seconds: float = 10.0, turns: int = 2,
+                   index: int | None = None):
+    """Each fn() called back to back for `seconds` in all, in `turns` turns
+    of the dict's order and its reverse in alternation, each call timed by
+    CUDA events and waited for; the SM clock and power draw of card `index`
+    (by default the current one) sampled beside by one streaming nvidia-smi
+    every 100 ms (power.NvidiaSmiSampler). Returns {name: dict(ms,
+    first_ms, last_ms, calls, seconds, sm_mhz, watts)}: the median ms a
+    call over all its turns and over its first and last turn, and the mean
+    clock and draw of the samples read while it ran."""
+    out = {name: dict(times=[], spans=[]) for name in fns}
+    if index is None:
+        index = torch.cuda.current_device()
+    smi = Poller(NvidiaSmiSampler(index, 0.1, ("clocks.sm", "power.draw")),
+                 0.1).start()
+    try:
+        for turn in range(turns):
+            order = list(fns) if turn % 2 == 0 else list(reversed(fns))
+            for name in order:
+                fns[name]()
+                torch.cuda.synchronize()
+                t0, times = time.time(), []
+                while time.time() - t0 < seconds / turns:
+                    s = torch.cuda.Event(enable_timing=True)
+                    e = torch.cuda.Event(enable_timing=True)
+                    s.record()
+                    fns[name]()
+                    e.record()
+                    e.synchronize()
+                    times.append(s.elapsed_time(e))
+                out[name]["times"].append(times)
+                out[name]["spans"].append((t0, time.time()))
+                torch.cuda.empty_cache()
+    finally:
+        samples = smi.stop()
+    rows = {}
+    for name, r in out.items():
+        inside = [(t, *v) for t, v in samples
+                  if isinstance(v, tuple) and all(x == x for x in v)
+                  and any(t0 <= t <= t1 for t0, t1 in r["spans"])]
+        flat = [t for ts in r["times"] for t in ts]
+        rows[name] = dict(
+            ms=statistics.median(flat),
+            first_ms=statistics.median(r["times"][0]),
+            last_ms=statistics.median(r["times"][-1]), calls=len(flat),
+            seconds=sum(t1 - t0 for t0, t1 in r["spans"]),
+            sm_mhz=(statistics.mean(x[1] for x in inside) if inside
+                    else float("nan")),
+            watts=(statistics.mean(x[2] for x in inside) if inside
+                   else float("nan")))
+        print(f"sustained {name}: {rows[name]['ms']:9.3f} ms a call "
+              f"(first turn {rows[name]['first_ms']:.3f}, last "
+              f"{rows[name]['last_ms']:.3f}), {rows[name]['calls']} calls in "
+              f"{rows[name]['seconds']:.1f} s, SM {rows[name]['sm_mhz']:.0f} "
+              f"MHz, {rows[name]['watts']:.1f} W", flush=True)
+    return rows
+
+
 def main(nu=16, m=4096, seed=0, reps=5):
     """Both sweeps at nu planes of m x m x m; returns the rows (name, ms,
     tops, ok, launches)."""
@@ -113,10 +179,10 @@ def main(nu=16, m=4096, seed=0, reps=5):
     print("device:", torch.cuda.get_device_name(0), flush=True)
     a, b = random_planes(nu, m, m, m, seed)
     b_kc = k_contiguous(b)
-    ref = core.residue_matmul(a[:, :256].contiguous(), b_kc)
+    ref = core.int_mm_stack(a[:, :256].contiguous(), b_kc)
     ops = 2.0 * nu * m ** 3
     rows = []
-    report(rows, "torch._int_mm x nu", lambda: core.residue_matmul(a, b_kc),
+    report(rows, "torch._int_mm x nu", lambda: core.int_mm_stack(a, b_kc),
            256, ref, ops, reps)
     for layout, bb in (("B n-contiguous", b), ("B k-contiguous", b_kc)):
         report(rows, f"seq {layout}", lambda bb=bb: matmul_i8_seq(a, bb),

@@ -4,8 +4,8 @@ with a K loop (mm_flat_kloop), full-K cells (mm_flat_fullk) and a deeper K
 stage per step (mm_flat_kloop_multidot), through the hand-written
 tensor-core kernels (csrc/matmul_i8_wgmma.cu wherever TMA can address the
 operands, and csrc/matmul_i8.cu's mma.sync kernel in the rows named so),
-beside core.residue_matmul (one torch._int_mm per plane, given B
-k-contiguous).
+beside core.int_mm_stack (one torch._int_mm per plane, given B
+k-contiguous: the library's product).
 
     python -m gemmul8_tpu_torch.probes.matmul3 [nu m]
 
@@ -59,11 +59,11 @@ def main(nu=16, m=4096, seed=0, reps=5):
     a3, b3 = random_planes(nu, m, k, n, seed)
     a2, b2 = a3.view(nu * m, k), b3.view(nu * k, n)
     b_kc = k_contiguous(b3)
-    ref = core.residue_matmul(a3[:, :256].contiguous(), b_kc)
+    ref = core.int_mm_stack(a3[:, :256].contiguous(), b_kc)
     ops = 2.0 * nu * m * n * k
     dims = dict(nu=nu, m=m, k=k, n=n)
     rows = []
-    report(rows, "torch._int_mm x nu", lambda: core.residue_matmul(a3, b_kc),
+    report(rows, "torch._int_mm x nu", lambda: core.int_mm_stack(a3, b_kc),
            256, ref, ops, reps)
     for kernel, prefix in (("auto", ""), ("mma_sync", "mma.sync ")):
         for name, fn in (("flat-kloop", mm_flat_kloop),

@@ -58,14 +58,19 @@ def parse_nvidia_smi_power(text: str) -> float:
 
 
 class NvidiaSmiSampler:
-    """One streaming nvidia-smi process for the card `index`; sample()
-    reads its next line, so it paces itself at nvidia-smi's period."""
+    """One streaming nvidia-smi process for the card `index`, querying
+    `fields` (power.draw alone by default); sample() reads its next line,
+    so it paces itself at nvidia-smi's period, and returns the watts, or
+    with more than one field the readings in the fields' order (NaN where
+    one reads "[N/A]")."""
 
     paced = True
 
-    def __init__(self, index: int = 0, period: float = 0.1):
+    def __init__(self, index: int = 0, period: float = 0.1,
+                 fields: tuple = ("power.draw",)):
+        self.fields = tuple(fields)
         self.proc = subprocess.Popen(
-            ["nvidia-smi", "--query-gpu=power.draw",
+            ["nvidia-smi", "--query-gpu=" + ",".join(self.fields),
              "--format=csv,noheader,nounits", "-i", str(index),
              "-lms", str(max(1, int(round(period * 1e3))))],
             stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
@@ -82,11 +87,12 @@ class NvidiaSmiSampler:
         except Exception:
             return False
 
-    def sample(self) -> float:
+    def sample(self):
         line = self.proc.stdout.readline()
         if not line:
             raise RuntimeError("the nvidia-smi stream ended")
-        return parse_nvidia_smi_power(line)
+        values = tuple(parse_nvidia_smi_power(v) for v in line.split(","))
+        return values[0] if len(self.fields) == 1 else values
 
     def close(self) -> None:
         if self.proc.poll() is None:

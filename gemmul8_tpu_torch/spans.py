@@ -11,8 +11,8 @@ The layers:
   shifts      the per-row and per-column shifts (fast, robust, accurate)
   encode      the residue-plane encoders (K1, K6, K6c)
   lanes       the complex (Re+Im) lane of the INT8 3M scheme
-  products    the exact low-precision products (torch._int_mm,
-              torch._scaled_mm) and their K-chunked sums
+  products    the exact low-precision products (INT8: the wgmma kernel K7;
+              FP8: torch._scaled_mm) and their K-chunked sums
   epilogue    the fused mod + CRT + descale kernels (K2, K3, K4, K5, K3r)
   alpha_beta  alpha op(A) op(B) + beta C
 
