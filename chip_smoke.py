@@ -31,7 +31,8 @@ nvidia-smi), each with its launches, and phase 5 holds their results
 against the CPU path. Then the device stress sweep (probes.device_stress:
 40 random real trials and 8 planar ones at shapes 8-399, each within the
 tool's tolerance and bit-equal to the CPU path, and the hand-written int8
-products at every trial's shape on both routes) and the rank-2k probe
+product at every trial's shape, or its refusal where TMA cannot address the
+planes) and the rank-2k probe
 (probes.blas3_perf: syr2k and her2k against two gemm calls at 4096, nu=16);
 phase 5 ends with ff.crt_limbs, the piece-wise CRT cross-check, on the
 8192^2 paths' own residues, bit-equal to the CPU path and within P * 2^-78
@@ -99,22 +100,21 @@ FP8_COUNT_KEYS = ("encode_planes_fp8", "_scaled_mm", "fused_epilogue_fp8",
                   "encode_planes", "matmul_i8_wgmma_kloop", "fused_epilogue",
                   "_int_mm")
 # the probe tools' int8 products: kernels entry, probes module and function,
-# the kernel's schedule and K stage depth, and the Pallas function replaced.
-# The functions take the wgmma kernel wherever TMA can address the operands
-# (kernels._product_route), as at the probes' own sizes; it stages 128 bytes
-# of K whatever the depth, so there mm_flat_kloop and mm_flat_kloop_multidot
-# make the same launch (their entries say so: same_launch_as).
+# the kernel's schedule, and the Pallas function replaced. All run the wgmma
+# kernel, which stages 128 bytes of K a step whatever the tool's depth, so
+# mm_flat_kloop and mm_flat_kloop_multidot make the same launch (their
+# entries say so: same_launch_as).
 PROBE_PRODUCTS = (
-    ("matmul_i8[seq]", "fused", "matmul_i8_seq", "kloop", 64,
+    ("matmul_i8[seq]", "fused", "matmul_i8_seq", "kloop",
      "tools/probe_fused.py:24"),
-    ("matmul_i8[astat]", "fused", "matmul_i8_astat", "astat", 64,
+    ("matmul_i8[astat]", "fused", "matmul_i8_astat", "astat",
      "tools/probe_fused.py:98"),
-    ("mm_flat[kloop]", "matmul3", "mm_flat_kloop", "kloop", 64,
+    ("mm_flat[kloop]", "matmul3", "mm_flat_kloop", "kloop",
      "tools/probe_matmul3.py:31"),
-    ("mm_flat[fullk]", "matmul3", "mm_flat_fullk", "astat", 64,
+    ("mm_flat[fullk]", "matmul3", "mm_flat_fullk", "astat",
      "tools/probe_matmul3.py:67"),
     ("mm_flat[kloop_multidot]", "matmul3", "mm_flat_kloop_multidot", "kloop",
-     128, "tools/probe_matmul3.py:90"),
+     "tools/probe_matmul3.py:90"),
 )
 # each entry's rows in its probe's table: the name prefix, and the row timed
 # for the entry (the tool's own layout, B n-contiguous)
@@ -123,23 +123,9 @@ PROBE_ROWS = {"matmul_i8[seq]": ("seq", "seq B n-contiguous"),
               "mm_flat[kloop]": ("flat-kloop", "flat-kloop"),
               "mm_flat[fullk]": ("flat-fullk", "flat-fullk"),
               "mm_flat[kloop_multidot]": ("flat-multidot", "flat-multidot")}
-# the mma.sync product kernel (csrc/matmul_i8.cu), reached by kernel=
-# "mma_sync" and by the shapes TMA cannot address: entry, schedule, K depth,
-# its rows in the probe tables ((probe, name prefix), ...) and the row timed
-MMA_SYNC = (
-    ("matmul_i8_mma_sync[kloop bk64]", "kloop", 64,
-     (("fused", "mma.sync seq bk64"), ("matmul3", "mma.sync flat-kloop")),
-     "mma.sync seq bk64 B n-contiguous"),
-    ("matmul_i8_mma_sync[kloop bk128]", "kloop", 128,
-     (("fused", "mma.sync seq bk128"), ("matmul3", "mma.sync flat-multidot")),
-     "mma.sync seq bk128 B n-contiguous"),
-    ("matmul_i8_mma_sync[astat bk64]", "astat", 64,
-     (("fused", "mma.sync astat"), ("matmul3", "mma.sync flat-fullk")),
-     "mma.sync astat B n-contiguous"),
-)
 TRANSPOSE_KEY = "transpose_i8[4096^2 nu=16]"
-PRODUCT_COUNTS = ("matmul_i8_kloop", "matmul_i8_astat", "matmul_i8_wgmma_kloop",
-                  "matmul_i8_wgmma_astat", "transpose_i8")
+PRODUCT_COUNTS = ("matmul_i8_wgmma_kloop", "matmul_i8_wgmma_astat",
+                  "transpose_i8")
 MXU_KEY = "fused_epilogue_mxu[pair nu=16]"
 # the sources of the kernels redesigned last (K6, K8, K3) and of the complex
 # FP8 kernels (K6c, K3r): phase 2 sums up their registers and spills
@@ -162,6 +148,15 @@ def log_phase(name):
 def check(cond, msg):
     if not cond:
         raise AssertionError(msg)
+
+
+def refused(fn, what):
+    """fn() must raise ValueError (it refuses its arguments)."""
+    try:
+        fn()
+    except ValueError:
+        return
+    raise AssertionError(f"{what}: not refused")
 
 
 # ---------------------------------------------------------------------------
@@ -939,8 +934,8 @@ def assert_equal_device(got, ref, what):
 
 def full_size_probe_cases(a64, b64):
     """The probe kernels on the DGEMM 8192^3 nu=16 path's own inputs: the
-    int8 products (the wgmma kernel's two schedules, the mma.sync kernel's
-    three instantiations) on the path's planes (A from encode_planes, B
+    int8 products (the wgmma kernel's two schedules) on the path's planes
+    (A from encode_planes, B
     k-contiguous) against the library's product (core.int_mm_stack: 16 x
     torch._int_mm); K2 on the wgmma kernel's C_hi against gt.gemm's bits; K8
     on the path's C_hi and shifts against its plain version and K2's plain
@@ -954,8 +949,8 @@ def full_size_probe_cases(a64, b64):
     ap = kernels.encode_planes(a64, sa, 0, nu, "INT8")
     bp = kernels.encode_planes(b64, sb, 1, nu, "INT8")
     c_hi = core.int_mm_stack(ap, bp)
-    check(kernels._product_route(ap, bp) == "wgmma",
-          "the DGEMM planes do not take the wgmma route")
+    check(kernels.tma_addressable(ap, bp),
+          "the DGEMM planes are not TMA-addressable")
     for schedule in ("kloop", "astat"):           # the wgmma kernel
         c = kernels.matmul_i8(ap, bp, schedule)
         assert_equal_device(c, c_hi, f"int8 product wgmma {schedule} vs "
@@ -963,12 +958,6 @@ def full_size_probe_cases(a64, b64):
         for p in PROBE_PRODUCTS:
             if p[3] == schedule:
                 CASES[p[0]] = CASES.get(p[0], 0) + 1
-        del c
-    for entry, schedule, bk, *_ in MMA_SYNC:
-        c = kernels.matmul_i8(ap, bp, schedule, bk, "mma_sync")
-        assert_equal_device(c, c_hi, f"int8 product {entry} vs "
-                            "16 x torch._int_mm at 8192^3 nu=16")
-        CASES[entry] = CASES.get(entry, 0) + 1
         del c
     c = kernels.matmul_i8(ap, bp, "kloop")
     del ap, bp
@@ -1150,21 +1139,19 @@ def product_call(entry, a, b, b_kcontig):
     3-D functions take B as given; the flat ones take the flat views of
     n-contiguous B, and for k-contiguous B (which has no flat view) the
     kernel runs with the function's schedule. Checks that the call launched
-    the kernel its route names (kernels._product_route)."""
+    the kernel with that schedule."""
     from gemmul8_tpu_torch import kernels
     from gemmul8_tpu_torch.probes import fused, matmul3
-    _, module, fn, schedule, bk, _ = next(p for p in PROBE_PRODUCTS
-                                          if p[0] == entry)
-    route = kernels._product_route(a, b)
-    key = (f"matmul_i8_wgmma_{schedule}" if route == "wgmma"
-           else f"matmul_i8_{schedule}")
+    _, module, fn, schedule, _ = next(p for p in PROBE_PRODUCTS
+                                      if p[0] == entry)
+    key = f"matmul_i8_wgmma_{schedule}"
     n0 = kernels.LAUNCHES[key]
     nu, m, k = a.shape
     n = b.shape[2]
     if module == "fused":
         c = getattr(fused, fn)(a, b)
     elif b_kcontig:
-        c = kernels.matmul_i8(a, b, schedule, bk)
+        c = kernels.matmul_i8(a, b, schedule)
     else:
         c = getattr(matmul3, fn)(a.view(nu * m, k), b.view(nu * k, n), nu=nu,
                                  m=m, k=k, n=n).view(nu, m, n)
@@ -1173,13 +1160,12 @@ def product_call(entry, a, b, b_kcontig):
 
 
 def product_cases(rng, rng2):
-    """The int8 product kernels against their plain version, B n- and
-    k-contiguous: through every probe function (the wgmma kernel where TMA
-    can address the operands, else the mma.sync one), and through the
-    mma.sync kernel by name on every case. From rng: random planes, odd
-    shapes (byte-loaded tiles, ragged edges, k = 97 and 33 on the mma.sync
-    route), K past one staged tile, and the +-127 extremes at k = 2^17 (sums
-    of +-2,114,060,288). From rng2, the wgmma route's edges: ragged m and n
+    """The int8 product kernel against its plain version, B n- and
+    k-contiguous, through every probe function. From rng: random planes,
+    odd shapes (ragged edges; k = 97 and 33, which TMA cannot address, must
+    be refused by kernels.matmul_i8 with no launch), K past one staged tile,
+    and the +-127 extremes at k = 2^17 (sums of +-2,114,060,288). From rng2,
+    the kernel's edges: ragged m and n
     (2 x 130 x 320 x 200, 1 x 17 x 48 x 5), k = 16 and k = 336 (multiples
     of 16, not of the 128-byte stage), and m = 200 (a row block that would
     straddle two planes in the flat view); and transpose_i8 (n-contiguous B
@@ -1205,28 +1191,35 @@ def product_cases(rng, rng2):
     for nu, m, k, n in ((2, 130, 320, 200), (1, 17, 48, 5), (2, 64, 16, 72),
                         (3, 100, 336, 264), (2, 200, 128, 300)):
         cases.append((f"random {nu}x{m}x{k}x{n}", *planes(rng2, nu, m, k, n)))
-    routes = {"wgmma": 0, "mma_sync": 0}
+    kinds = {"kernel": 0, "refused": 0}
     for what, a, b in cases:
-        ref = kernels.matmul_i8_plain(a, b)
         k = a.shape[2]
-        want = "wgmma" if k > 0 and k % 16 == 0 else "mma_sync"
+        want = k > 0 and k % 16 == 0
+        ref = kernels.matmul_i8_plain(a, b) if want else None
         for b_kcontig, bb in ((False, b), (True, k_contiguous(b))):
             layout = f"B {'k' if b_kcontig else 'n'}-contiguous"
-            route = kernels._product_route(a, bb)
-            check(route == want, f"{what} {layout}: route {route}, want {want}")
-            routes[route] += 1
+            ok = kernels.tma_addressable(a, bb)
+            check(ok == want, f"{what} {layout}: TMA-addressable {ok}, "
+                  f"want {want}")
+            if not ok:
+                n0 = sum(kernels.LAUNCHES.values())
+                for schedule in ("kloop", "astat"):
+                    refused(lambda s=schedule: kernels.matmul_i8(a, bb, s),
+                            f"matmul_i8 {schedule} {what} {layout}")
+                check(sum(kernels.LAUNCHES.values()) == n0,
+                      f"{what} {layout}: a refused product launched")
+                kinds["refused"] += 1
+                continue
+            kinds["kernel"] += 1
             for entry, *_ in PROBE_PRODUCTS:
                 compare(entry, product_call(entry, a, bb, b_kcontig), ref,
                         f"{entry} {what} {layout}")
-            for entry, schedule, bk, *_ in MMA_SYNC:
-                compare(entry, kernels.matmul_i8(a, bb, schedule, bk,
-                                                 "mma_sync"), ref,
-                        f"{entry} {what} {layout}")
-            if route == "wgmma" and not b_kcontig:
+            if not b_kcontig:
                 compare(TRANSPOSE_KEY, kernels.transpose_i8(bb), k_contiguous(bb),
                         f"transpose_i8 {what}")
-    log(f"product cases by route: {routes}")
-    check(all(routes.values()), f"a product route went untested: {routes}")
+    log(f"product cases: {kinds}")
+    check(all(kinds.values()), f"a kind of product case went untested: "
+          f"{kinds}")
 
 
 def mxu_epilogue_cases(rng):
@@ -3571,8 +3564,8 @@ def probe_paths():
     (probes.fused.main, probes.matmul3.main, probes.epilogue.main), each with
     its launch counts set to 0 just before and read just after; every row
     must be bit-ok, the rows' launches must add up to the run's, and each
-    probe function (on the wgmma kernel), each mma.sync instantiation and the
-    transposing pass must have launched. Returns {probe: (rows, counts)}."""
+    probe function (on the wgmma kernel) and the transposing pass must have
+    launched. Returns {probe: (rows, counts)}."""
     from gemmul8_tpu_torch.probes import epilogue, fused, matmul3
     runs = {}
     for name, main, keys in (
@@ -3587,7 +3580,7 @@ def probe_paths():
         log(f"probe {name} launches: {counts}")
         runs[name] = rows, counts
         torch.cuda.empty_cache()
-    for entry, *_ in PROBE_PRODUCTS + MMA_SYNC:
+    for entry, *_ in PROBE_PRODUCTS:
         check(probe_launches(runs, entry) > 0, f"{entry}: no launch")
     for entry, probe, _, schedule, *_ in PROBE_PRODUCTS:
         check(runs[probe][1][f"matmul_i8_wgmma_{schedule}"] > 0,
@@ -3604,11 +3597,9 @@ def probe_launches(runs, entry):
         return sum(runs[p][1]["transpose_i8"] for p in ("fused", "matmul3"))
     if entry == MXU_KEY:
         pairs = (("epilogue", "B mxu"),)
-    elif entry in PROBE_ROWS:
+    else:
         probe = next(p[1] for p in PROBE_PRODUCTS if p[0] == entry)
         pairs = ((probe, PROBE_ROWS[entry][0]),)
-    else:
-        pairs = next(p[3] for p in MMA_SYNC if p[0] == entry)
     return sum(r["launches"] for probe, prefix in pairs
                for r in runs[probe][0] if r["name"].startswith(prefix))
 
@@ -3623,7 +3614,7 @@ def probe_times(a64, b64, card):
     the probes' size (the same planes the probe tables draw); on the DGEMM
     8192^3 nu=16 path's planes the product kernels in turns
     (probes.fused.product_rows: torch._int_mm x 16, the wgmma kernel's
-    rasters, the mma.sync kernel's three instantiations), then the wgmma
+    rasters), then the wgmma
     kernel's kloop raster (the main path's product) and torch._int_mm x 16
     over 10 s each, in turns, with the SM clock and power draw
     (probes.fused.sustained_rows); K8 (out_bits 53) on the path's C_hi and shifts against
@@ -3665,8 +3656,6 @@ def probe_times(a64, b64, card):
     t["main_int_mm_ms"] = rows["torch._int_mm x nu"]["ms"]
     for schedule in ("kloop", "astat"):
         t[f"main_wgmma_{schedule}_ms"] = rows[f"wgmma {schedule}"]["ms"]
-    for entry, schedule, bk, *_ in MMA_SYNC:
-        t[f"main_{entry}_ms"] = rows[f"mma.sync {schedule} bk{bk}"]["ms"]
     t["main_products_bound"] = product_bound(nu, FULL, FULL, FULL)
     c_hi = core.residue_matmul(ap, bp)
     del ap, bp
@@ -3686,8 +3675,7 @@ def probe_times(a64, b64, card):
           "int8 products exceed the peak")
     best = min(t["main_wgmma_kloop_ms"], t["main_wgmma_astat_ms"])
     log(f"product on the DGEMM 8192^3 nu=16 planes {card}: wgmma {best:.3f} "
-        f"ms, torch._int_mm x 16 {t['main_int_mm_ms']:.3f} ms, mma.sync "
-        f"{min(t[f'main_{e[0]}_ms'] for e in MMA_SYNC):.3f} ms, bound "
+        f"ms, torch._int_mm x 16 {t['main_int_mm_ms']:.3f} ms, bound "
         f"{t['main_products_bound'][0]:.3f} ms: the wgmma kernel "
         f"{'beats' if best < t['main_int_mm_ms'] else 'does not beat'} "
         "torch._int_mm")
@@ -3702,9 +3690,8 @@ def probe_entries(runs, t):
     probe's run (the tool's own size and B layout; on the wgmma route the
     transposing pass included), with the same run's torch._int_mm x nu as
     library_ms; the products on the DGEMM path's planes and K8 on its C_hi
-    beside them; the mma.sync instantiations and the transposing pass. On
-    the wgmma route the two K-loop entries of matmul3 time one launch, and
-    the second names the first (same_launch_as)."""
+    beside them; the transposing pass. The two K-loop entries of matmul3
+    time one launch, and the second names the first (same_launch_as)."""
     entries = []
     common = dict(route="cuda", plain_ms=t["product_plain_ms"],
                   bound_ms=t["probe_products_bound"][0],
@@ -3712,22 +3699,19 @@ def probe_entries(runs, t):
                   main_path_library_ms=t["main_int_mm_ms"],
                   main_path_bound_ms=t["main_products_bound"][0],
                   main_path_shape="DGEMM 8192^3 nu=16 planes, B k-contiguous")
-    for entry, probe, fn, schedule, bk, replaces in PROBE_PRODUCTS:
+    for entry, probe, fn, schedule, replaces in PROBE_PRODUCTS:
         rows = runs[probe][0]
+        kc = None
         if probe == "fused":
             kc = probe_row(rows, f"{schedule if schedule == 'astat' else 'seq'}"
                            " B k-contiguous")["ms"]
-            mma = (f"mma.sync seq bk{bk} B n-contiguous" if schedule == "kloop"
-                   else "mma.sync astat B n-contiguous")
-        else:
-            kc, mma = None, "mma.sync " + PROBE_ROWS[entry][1]
         entries.append(dict(
             common, name=entry,
             source="gemmul8_tpu_torch/csrc/matmul_i8_wgmma.cu",
             replaces=replaces, launches=probe_launches(runs, entry),
             max_abs_err=MAX_ABS_ERR[entry], cases=CASES[entry],
             ms=probe_row(rows, PROBE_ROWS[entry][1])["ms"],
-            ms_b_kcontig=kc, mma_sync_ms=probe_row(rows, mma)["ms"],
+            ms_b_kcontig=kc,
             library_ms=probe_row(rows, "torch._int_mm x nu")["ms"],
             path=f"probes.{probe}.main, {fn}",
             shape=f"{PROBE_NU} x ({PROBE_M}^3) int8, B n-contiguous "
@@ -3735,21 +3719,6 @@ def probe_entries(runs, t):
             main_path_ms=t[f"main_wgmma_{schedule}_ms"],
             **({"same_launch_as": "mm_flat[kloop]"}
                if entry == "mm_flat[kloop_multidot]" else {})))
-    fused_rows = runs["fused"][0]
-    for entry, schedule, bk, _, row in MMA_SYNC:
-        entries.append(dict(
-            common, name=entry, source="gemmul8_tpu_torch/csrc/matmul_i8.cu",
-            replaces={("kloop", 64): "tools/probe_fused.py:24",
-                      ("kloop", 128): "tools/probe_matmul3.py:90",
-                      ("astat", 64): "tools/probe_fused.py:98"}[schedule, bk],
-            launches=probe_launches(runs, entry),
-            max_abs_err=MAX_ABS_ERR[entry], cases=CASES[entry],
-            ms=probe_row(fused_rows, row)["ms"],
-            library_ms=probe_row(fused_rows, "torch._int_mm x nu")["ms"],
-            path="probes.fused.main and probes.matmul3.main, kernel=mma_sync",
-            shape=f"{PROBE_NU} x ({PROBE_M}^3) int8, B n-contiguous, "
-                  f"schedule {schedule} bk{bk}",
-            main_path_ms=t[f"main_{entry}_ms"]))
     entries.append(dict(
         name=TRANSPOSE_KEY, route="cuda",
         source="gemmul8_tpu_torch/csrc/matmul_i8_wgmma.cu",
@@ -5279,12 +5248,8 @@ STRESS_RUNS: dict = {}        # run -> launch counts
 STRESS_WANT = ("encode_planes", "matmul_i8_wgmma_kloop", "fused_epilogue",
                "encode_planes_fp8", "_scaled_mm", "fused_epilogue_fp8",
                "fused_epilogue_complex")
-# the product kernels at each trial's shape: (kernel, schedule, bk, B
-# k-contiguous)
-STRESS_PRODUCTS = (("auto", "kloop", 64, False), ("auto", "astat", 64, True),
-                   ("mma_sync", "kloop", 64, False),
-                   ("mma_sync", "kloop", 128, True),
-                   ("mma_sync", "astat", 64, False))
+# the product kernel at each trial's shape: (schedule, B k-contiguous)
+STRESS_PRODUCTS = (("kloop", False), ("astat", True))
 BLAS3_N, BLAS3_NU = 4096, 16  # tools/probe_blas3_perf.py's defaults
 CRT_PATHS = (("INT8", 16), ("FP8", 14))   # DGEMM nu=16, FP8 DGEMM nu=14
 CRT_ROWS = 64                 # the CPU reruns' row blocks: cache-sized,
@@ -5300,11 +5265,11 @@ def stress_paths(card):
     tolerance of the host f64 product. First on the card alone through
     run_counted (the launches), then with --against-cpu: each trial rerun
     on the CPU path and held bit for bit. Then the hand-written int8
-    products (kernels.matmul_i8, both routes, both schedules, both B
-    layouts) at every trial's (m, k, n) from SEED + 20, against their plain
-    version: the random check of _product_route's TMA -> mma.sync fallback
-    (gemm's own products are the wgmma kernel's on operands padded to 128,
-    so the sweep does not reach it)."""
+    product (kernels.matmul_i8, both schedules, both B layouts) at every
+    trial's (m, k, n) from SEED + 20: where kernels.tma_addressable accepts
+    the planes, bit for bit against its plain version; where it rejects
+    them (k off 16), refused on the card (gemm's own products are on
+    operands padded to 128, so the sweep does not reach either edge)."""
     from gemmul8_tpu_torch import kernels
     from gemmul8_tpu_torch.probes import device_stress
     t0 = time.perf_counter()
@@ -5337,36 +5302,39 @@ def stress_paths(card):
     shapes += [(t["m"], t["k"], t["n"]) for t in
                device_stress.planar_trials(STRESS_TRIALS, rng)]
     prng = np.random.default_rng(SEED + 20)
-    cases, routes = [], {}
+    cases, n_refused = [], 0
     for m, k, n in shapes:
         a = torch.from_numpy(prng.integers(-128, 128, (2, m, k),
                                            dtype=np.int8)).cuda()
         b = torch.from_numpy(prng.integers(-128, 128, (2, k, n),
                                            dtype=np.int8)).cuda()
-        for kernel, schedule, bk, kcontig in STRESS_PRODUCTS:
+        for schedule, kcontig in STRESS_PRODUCTS:
             bb = b.transpose(1, 2).contiguous().transpose(1, 2) if kcontig \
                 else b
-            route = kernels._product_route(a, bb, kernel)
-            routes[route] = routes.get(route, 0) + 1
-            cases.append((a, bb, kernel, schedule, bk, (m, k, n), route))
+            if kernels.tma_addressable(a, bb):
+                cases.append((a, bb, schedule, (m, k, n)))
+            else:
+                refused(lambda a=a, bb=bb, s=schedule:
+                        kernels.matmul_i8(a, bb, s),
+                        f"stress matmul_i8 {schedule} {(m, k, n)}")
+                n_refused += 1
 
     def launch_all():
-        return [kernels.matmul_i8(a, bb, schedule, bk, kernel)
-                for a, bb, kernel, schedule, bk, _, _ in cases]
+        return [kernels.matmul_i8(a, bb, schedule)
+                for a, bb, schedule, _ in cases]
 
     outs, STRESS_RUNS["product_routes"] = run_counted(launch_all)
-    for got, (a, bb, kernel, schedule, bk, shape, route) in zip(outs, cases):
+    for got, (a, bb, schedule, shape) in zip(outs, cases):
         assert_bits_equal(got, kernels.matmul_i8_plain(a, bb),
-                          f"matmul_i8 {kernel} {schedule} bk{bk} {shape} "
-                          f"route {route}")
+                          f"matmul_i8 {schedule} {shape}")
     counts = {k: v for k, v in STRESS_RUNS["product_routes"].items() if v}
-    check(routes.get("wgmma", 0) > 0 and routes.get("mma_sync", 0) > 0,
-          f"stress products: routes {routes}")
-    check(sum(counts.get(k, 0) for k in PRODUCT_COUNTS[:4]) == len(cases),
+    check(len(cases) > 0 and n_refused > 0, f"stress products: {len(cases)} "
+          f"launched, {n_refused} refused")
+    check(sum(counts.get(k, 0) for k in PRODUCT_COUNTS[:2]) == len(cases),
           f"stress products: launches {counts} for {len(cases)} products")
-    log(f"stress products: {len(cases)} matmul_i8 calls at the {len(shapes)} "
-        f"trial shapes bit-equal to their plain version, routes {routes}, "
-        f"launches {counts}")
+    log(f"stress products at the {len(shapes)} trial shapes: {len(cases)} "
+        f"matmul_i8 calls bit-equal to their plain version, {n_refused} "
+        f"refused (not TMA-addressable), launches {counts}")
 
 
 def blas3_path(card):
@@ -5524,12 +5492,9 @@ def crt_limbs_card_vs_cpu(a64, b64, card):
 def stress_key(name):
     """The launch-count key of a kernels-line entry (the product entries
     count by route and schedule)."""
-    for entry, _, _, schedule, _, _ in PROBE_PRODUCTS:
+    for entry, _, _, schedule, _ in PROBE_PRODUCTS:
         if name == entry:
             return f"matmul_i8_wgmma_{schedule}"
-    for entry, schedule, *_ in MMA_SYNC:
-        if name == entry:
-            return f"matmul_i8_{schedule}"
     if name == TRANSPOSE_KEY:
         return "transpose_i8"
     return name.partition("[")[0]

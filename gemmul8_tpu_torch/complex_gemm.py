@@ -38,6 +38,9 @@ import numpy as np
 import torch
 
 from . import core, fp8, kernels, quantize, tables
+# complex_gemm's name too: parallel.summa and the tests read _recombine_3m
+# here
+from .quantize import _recombine_3m, _wrap
 from .spans import span
 
 _COMPLEX_NAME = {torch.float32: "complex64", torch.float64: "complex128",
@@ -183,23 +186,8 @@ def _quantize_complex(re, im, sft, scale_axis, num_moduli, backend, conj):
     # the (Re+Im) lane from the two wrapped lanes, in int16 (|sum| <= 256),
     # one modulus at a time so that the temporaries stay one plane large
     for i, p in enumerate(tables.moduli(backend)[:num_moduli]):
-        lanes[2, i] = core._wrap(lanes[0, i].to(torch.int16) + lanes[1, i],
-                                 p)
+        lanes[2, i] = _wrap(lanes[0, i].to(torch.int16) + lanes[1, i], p)
     return lanes
-
-
-def _recombine_3m(mids, num_moduli, backend):
-    """(3, nu, m, n) wrapped lane-product residues -> (re, im), each
-    (nu, m, n) wrapped residues, int8 for the INT8 moduli and int16 for the
-    FP8 ones: Re = Crr - Cii, Im = Crii - Crr - Cii, mod p (reference:
-    conv_hi2mid_complex.hpp:9-40)."""
-    mid_t = torch.int8 if backend == tables.Backend.INT8 else torch.int16
-    out_r, out_i = [], []
-    for i, p in enumerate(tables.moduli(backend)[:num_moduli]):
-        crr, cii, cri = (mids[lane, i].to(torch.int32) for lane in range(3))
-        out_r.append(core._wrap(crr - cii, p).to(mid_t))
-        out_i.append(core._wrap(cri - crr - cii, p).to(mid_t))
-    return torch.stack(out_r), torch.stack(out_i)
 
 
 def _fp8_lane_residues(pa, pb, num_moduli):
@@ -449,8 +437,8 @@ def _herk_rhs_lanes(pa, num_moduli, backend):
     for i, p in enumerate(tables.moduli(backend)[:num_moduli]):
         rr = pa[0, i].to(torch.int16)
         ri = pa[1, i].to(torch.int16)
-        neg_i.append(core._wrap(-ri, p).to(torch.int8))
-        diff.append(core._wrap(rr - ri, p).to(torch.int8))
+        neg_i.append(_wrap(-ri, p).to(torch.int8))
+        diff.append(_wrap(rr - ri, p).to(torch.int8))
     lanes = torch.stack([pa[0], torch.stack(neg_i), torch.stack(diff)])
     return lanes.transpose(-1, -2)
 

@@ -30,6 +30,9 @@ import numpy as np
 import torch
 
 from . import ff, fp8, kernels, quantize, tables
+# core's names too: parallel.summa, probes.epilogue and the tests read
+# mod_reduce here
+from .quantize import _wrap, mod_reduce  # noqa: F401
 from .spans import span
 
 # int32 accumulation of int8 residue products is exact up to this K
@@ -44,22 +47,12 @@ def residue_matmul(a_planes: torch.Tensor, b_planes: torch.Tensor,
                    out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(nu, m, k) int8 @ (nu, k, n) int8 -> (nu, m, n) int32, exact, into a
     preallocated C_hi (`out` if given: contiguous). On the card one launch
-    of the wgmma kernel for the whole stack, which needs planes TMA can
-    address (kernels._product_route: the main path's A and k-contiguous B,
-    their K slices and the complex lanes' 3nu stack, all padded to 128);
-    other planes raise ValueError there. On the CPU one torch._int_mm per
-    modulus (int_mm_stack). Both are exact int32 sums: the bits are the
-    same."""
+    of the wgmma kernel for the whole stack (kernels.matmul_i8, which
+    refuses planes TMA cannot address; the entries pad theirs to 128). On
+    the CPU one torch._int_mm per modulus (int_mm_stack). Both are exact
+    int32 sums: the bits are the same."""
     if a_planes.device.type == "cpu":
         return int_mm_stack(a_planes, b_planes, out)
-    if kernels._product_route(a_planes, b_planes) != "wgmma":
-        raise ValueError(
-            "residue_matmul: on the card the planes must be TMA-addressable "
-            "(k a multiple of 16, 16-byte aligned bases and row and plane "
-            "strides, B row-major or k-contiguous), as the entries' planes "
-            f"padded to 128 are; got A {tuple(a_planes.shape)} strides "
-            f"{a_planes.stride()}, B {tuple(b_planes.shape)} strides "
-            f"{b_planes.stride()}")
     return kernels.matmul_i8(a_planes, b_planes, out=out)
 
 
@@ -75,22 +68,6 @@ def int_mm_stack(a_planes: torch.Tensor, b_planes: torch.Tensor,
     for i in range(nu):
         quantize.int_mm(a_planes[i], b_planes[i], out=c_hi[i])
     return c_hi
-
-
-def _wrap(v: torch.Tensor, p: int) -> torch.Tensor:
-    r = torch.remainder(v, p)
-    return torch.where(2 * r >= p, r - p, r)
-
-
-def mod_reduce(c_hi: torch.Tensor, num_moduli: int, backend: str) -> torch.Tensor:
-    """C_mid[i] = wrap(C_hi[i] mod p_i) (reference: conv_hi2mid_real.hpp):
-    int8 for the INT8 moduli, int16 for the FP8 ones (up to 1089; an int8
-    cast would wrap them silently). C_hi may be int32 or already-wrapped
-    residues (on which this is the identity)."""
-    mods = tables.moduli(backend)[:num_moduli]
-    out = torch.int8 if backend == tables.Backend.INT8 else torch.int16
-    return torch.stack([_wrap(c_hi[i].to(torch.int32), p).to(out)
-                        for i, p in enumerate(mods)])
 
 
 @span("products")

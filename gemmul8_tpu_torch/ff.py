@@ -25,7 +25,7 @@ import functools
 import numpy as np
 import torch
 
-from . import tables
+from . import quantize, tables
 
 
 def two_sum(a, b):
@@ -302,7 +302,6 @@ def reconstruct_scale_ff(c_mid: torch.Tensor, sft_a: torch.Tensor,
     limbs are summed highest first (IEEE f64 on the CPU and the card).
     f32 out: the rank-1 pow2 descale with a compensated merge (descale_accel).
     """
-    from . import quantize
     out_bits = 53 if out_dtype == torch.float64 else 24
     limbs, base = crt_limbs_matrix(c_mid, num_moduli, backend, out_bits)
     lb = 16

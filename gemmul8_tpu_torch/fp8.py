@@ -26,7 +26,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import _tables_data, tables
+from . import _tables_data, quantize, tables
 from .spans import span
 
 #: K chunk bound for exact f32 accumulation of fp8-plane products
@@ -156,9 +156,8 @@ def residue_gemm_fp8(a3: torch.Tensor, b3: torch.Tensor,
     """Full-K exact FP8-backend residue GEMM of two (3nu, ...) stacks ->
     wrapped int16 C_mid (nu, m, n); K beyond K_CHUNK_FP8 is summed in
     residue space."""
-    from .core import mod_reduce
     if a3.shape[2] <= K_CHUNK_FP8:
         c3 = residue_matmul_fp8(a3, b3).to(torch.int32)
         return _reassemble(c3, num_moduli).to(torch.int16)
-    return mod_reduce(_chunked_residue_acc(a3, b3, num_moduli), num_moduli,
-                      _FP8)
+    return quantize.mod_reduce(_chunked_residue_acc(a3, b3, num_moduli),
+                               num_moduli, _FP8)

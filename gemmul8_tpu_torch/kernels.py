@@ -22,11 +22,11 @@ and of the int8 product and CRT-epilogue kernels of the probe tools
 (tools/probe_fused.py, tools/probe_matmul3.py, tools/probe_epilogue.py;
 run by gemmul8_tpu_torch/probes/):
 
-  matmul_i8               csrc/matmul_i8_wgmma.cu (wgmma + TMA) where TMA
-                          can address the operands, else csrc/matmul_i8.cu
-                          (mma.sync); replaces pallas_matmul_i8_seq,
-                          pallas_matmul_i8_astat, mm_flat_kloop,
-                          mm_flat_fullk, mm_flat_kloop_multidot
+  matmul_i8               csrc/matmul_i8_wgmma.cu (wgmma + TMA); replaces
+                          pallas_matmul_i8_seq, pallas_matmul_i8_astat,
+                          mm_flat_kloop, mm_flat_fullk,
+                          mm_flat_kloop_multidot (and is the main path's
+                          int8 product)
   fused_epilogue_mxu      csrc/epilogue_mxu.cu  replaces fused_epilogue_mxu
 
 (the encoders share csrc/encode.cuh's steps, the epilogues csrc/crt.cuh's).
@@ -65,8 +65,7 @@ LAUNCHES = {"shift_fast": 0, "encode_planes": 0, "encode_planes_fp8": 0,
             "encode_lanes_fp8": 0, "fused_epilogue": 0,
             "fused_epilogue_fp8": 0, "reassemble_fp8": 0,
             "fused_epilogue_complex": 0,
-            "fused_recombine_3m": 0, "matmul_i8_kloop": 0,
-            "matmul_i8_astat": 0, "matmul_i8_wgmma_kloop": 0,
+            "fused_recombine_3m": 0, "matmul_i8_wgmma_kloop": 0,
             "matmul_i8_wgmma_astat": 0, "transpose_i8": 0,
             "fused_epilogue_mxu": 0}
 _INT8, _FP8 = tables.Backend.INT8, tables.Backend.FP8
@@ -114,8 +113,6 @@ _ARGTYPES = {
                                _P],
     # c_hi3, out_re, out_im, out_i32, m, n, plan, stream
     "fused_recombine_3m": [_P, _P, _P, _I, _I, _I, _P, _P],
-    # a, b, c, nu, m, n, k, b_kcontig, astat, bk, a_vec, b_vec, stream
-    "matmul_i8": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # a, b (k-contiguous), c, nu, m, n, k, a_row, a_plane, b_row, b_plane
     # (bytes), astat, stream
     "matmul_i8_wgmma": [_P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _L, _I, _P],
@@ -646,12 +643,11 @@ def encode_lanes_fp8_plain(re, im, sft, scale_axis, num_moduli, conj=False):
     (Im negated first for conj), their wrapped sum, each lane split as
     fp8.split_planes splits it and stacked in the side's slot order: the
     (3, 3nu, *re.shape) e4m3 lanes Re, Im, (Re+Im)."""
-    from .core import _wrap
     if conj:
         im = -im
     rr, ri = (quantize.residues_wrapped(x, sft, scale_axis, num_moduli, _FP8)
               for x in (re, im))
-    s = torch.stack([_wrap(rr[i] + ri[i], p) for i, p in
+    s = torch.stack([quantize._wrap(rr[i] + ri[i], p) for i, p in
                      enumerate(tables.moduli(_FP8)[:num_moduli])])
     side = "lhs" if scale_axis == 0 else "rhs"
     return torch.stack([fp8._gemm_stack(fp8.split_planes(x, num_moduli),
@@ -797,8 +793,8 @@ def _check_backend(name, backend, allowed):
 def fused_epilogue_plain(c_hi, sft_a, sft_b, num_moduli, backend, out_dtype):
     """Plain version of the epilogue kernel: mod_reduce (int8 residues for
     the INT8 moduli, int16 for the FP8 ones) -> reconstruct_scale_ff."""
-    from .core import mod_reduce
-    return ff.reconstruct_scale_ff(mod_reduce(c_hi, num_moduli, backend),
+    return ff.reconstruct_scale_ff(quantize.mod_reduce(c_hi, num_moduli,
+                                                       backend),
                                    sft_a, sft_b, num_moduli, backend, out_dtype)
 
 
@@ -969,11 +965,10 @@ REAL_DTYPE = {torch.complex64: torch.float32, torch.complex128: torch.float64,
 
 def _lane_mids(c_hi3, num_moduli, backend):
     """(3nu, m, n) lane products -> (3, nu, m, n) wrapped residues: int8 for
-    the INT8 moduli, int16 for the FP8 ones (core.mod_reduce)."""
-    from .core import mod_reduce
+    the INT8 moduli, int16 for the FP8 ones (quantize.mod_reduce)."""
     nu = num_moduli
-    return torch.stack([mod_reduce(c_hi3[lane * nu:(lane + 1) * nu], nu,
-                                   backend) for lane in range(3)])
+    return torch.stack([quantize.mod_reduce(c_hi3[lane * nu:(lane + 1) * nu],
+                                            nu, backend) for lane in range(3)])
 
 
 # the residue type of the recombine kernel's output: int8 holds every INT8
@@ -984,10 +979,9 @@ RECOMBINE_DTYPE = {_INT8: torch.int8, _FP8: torch.int32}
 
 def fused_recombine_3m_plain(c_hi3, num_moduli, backend):
     """Plain version of the recombine kernel: mod_reduce per lane ->
-    complex_gemm._recombine_3m, in RECOMBINE_DTYPE[backend]."""
-    from .complex_gemm import _recombine_3m
-    re, im = _recombine_3m(_lane_mids(c_hi3, num_moduli, backend), num_moduli,
-                           backend)
+    quantize._recombine_3m, in RECOMBINE_DTYPE[backend]."""
+    re, im = quantize._recombine_3m(_lane_mids(c_hi3, num_moduli, backend),
+                                    num_moduli, backend)
     return re.to(RECOMBINE_DTYPE[backend]), im.to(RECOMBINE_DTYPE[backend])
 
 
@@ -1071,16 +1065,6 @@ def fused_epilogue_complex(c_hi3: torch.Tensor, sft_a: torch.Tensor,
 # probe tools' Pallas products)
 # ---------------------------------------------------------------------------
 
-# the schedules and, per schedule, the K depths of a staged tile the
-# mma.sync kernel is built for (csrc/matmul_i8.cu); the wgmma kernel
-# (csrc/matmul_i8_wgmma.cu) stages 128 bytes of K whatever bk says
-MATMUL_BK = {"kloop": (64, 128), "astat": (64,)}
-# the product kernel: "auto" takes csrc/matmul_i8_wgmma.cu wherever TMA can
-# address the operands, else csrc/matmul_i8.cu (_product_route); "mma_sync"
-# takes the latter on any operands
-MATMUL_KERNELS = ("auto", "mma_sync")
-
-
 def matmul_i8_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Plain version of the product kernels: the exact batched product as
     int32. On the CPU in int64, whose cast wraps as the kernels' int32 sums
@@ -1118,26 +1102,18 @@ def _tma_pitches(x: torch.Tensor) -> tuple[int, int] | None:
     return row, plane
 
 
-def _product_route(a: torch.Tensor, b: torch.Tensor,
-                   kernel: str = "auto") -> str:
-    """The kernel that computes a @ b: "wgmma" where TMA can address the
-    operands -- k a multiple of 16, k > 0, A's and (if B is k-contiguous)
-    B's row and plane strides multiples of 16 bytes and their bases 16-byte
-    aligned, as in-place K slices of such stacks are; contiguous n-major B
-    goes through a transposed scratch that is aligned -- else "mma_sync", as
-    it is for kernel="mma_sync"."""
-    if kernel not in MATMUL_KERNELS:
-        raise ValueError(f"matmul_i8: kernel must be one of {MATMUL_KERNELS}, "
-                         f"got {kernel!r}")
+def tma_addressable(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether the product kernel's TMA maps can address the operands: k a
+    multiple of 16, k > 0, A's and (if B is k-contiguous) B's row and plane
+    strides multiples of 16 bytes and their bases 16-byte aligned, as
+    in-place K slices of such stacks are; contiguous n-major B goes through
+    a transposed scratch that is aligned."""
     k = a.shape[-1]
-    if (kernel == "mma_sync" or k <= 0 or k % 16
-            or _tma_pitches(a) is None):
-        return "mma_sync"
+    if k <= 0 or k % 16 or _tma_pitches(a) is None:
+        return False
     if b.is_contiguous():
-        return "wgmma"
-    if b.stride(-2) == 1 and _tma_pitches(b.transpose(-1, -2)) is not None:
-        return "wgmma"
-    return "mma_sync"
+        return True
+    return b.stride(-2) == 1 and _tma_pitches(b.transpose(-1, -2)) is not None
 
 
 def transpose_i8(b: torch.Tensor) -> torch.Tensor:
@@ -1155,29 +1131,25 @@ def transpose_i8(b: torch.Tensor) -> torch.Tensor:
 
 
 def matmul_i8(a: torch.Tensor, b: torch.Tensor, schedule: str = "kloop",
-              bk: int = 64, kernel: str = "auto",
               out: torch.Tensor | None = None) -> torch.Tensor:
     """(nu, m, k) int8 @ (nu, k, n) int8 -> (nu, m, n) int32, exact while no
-    sum leaves int32 (past that it wraps, as torch._int_mm's does).
+    sum leaves int32 (past that it wraps, as torch._int_mm's does), by the
+    wgmma + TMA kernel.
 
-    kernel (MATMUL_KERNELS): "auto" takes the wgmma + TMA kernel wherever TMA
-    can address the operands (_product_route), else the mma.sync one, which
-    "mma_sync" takes on any contiguous operands. schedule "kloop": K
-    innermost, tiles in a grouped raster (wgmma) or one thread block per
-    output tile (mma.sync) -- the probes' K-sequential and flat K-loop
-    products; "astat": every column tile of a row block in turn, so that its
-    rows of A are re-read from L2 (the A-stationary and full-K ones). bk is
-    the mma.sync kernel's K depth of a staged tile (MATMUL_BK; the wgmma
-    kernel stages 128 bytes of K whatever bk is). A has k contiguous; B is
-    n-contiguous or k-contiguous (_b_layout), the latter as the main path's
-    planes come. The wgmma kernel reads A and k-contiguous B in place, K
-    slices of wider stacks included, and n-contiguous B through
-    transpose_i8's scratch. The mma.sync kernel reads contiguous stacks
-    only. `out`, if given, is a contiguous int32 (nu, m, n) tensor on a's
-    device that is written and returned."""
-    if bk not in MATMUL_BK.get(schedule, ()):
-        raise ValueError(f"matmul_i8: no {schedule!r} kernel with bk={bk}; "
-                         f"built: {MATMUL_BK}")
+    schedule "kloop": K innermost, tiles in a grouped raster (the probes'
+    K-sequential and flat K-loop products); "astat": every column tile of a
+    row block in turn, so that its rows of A are re-read from L2 (the
+    A-stationary and full-K ones). A has k contiguous; B is n-contiguous or
+    k-contiguous (_b_layout), the latter as the main path's planes come. The
+    kernel reads A and k-contiguous B in place, K slices of wider stacks
+    included, and n-contiguous B through transpose_i8's scratch. Off the
+    CPU the operands must be TMA-addressable (tma_addressable), else
+    ValueError; the CPU takes matmul_i8_plain on any operands. `out`, if
+    given, is a contiguous int32 (nu, m, n) tensor on a's device that is
+    written and returned."""
+    if schedule not in ("kloop", "astat"):
+        raise ValueError(f"matmul_i8: no {schedule!r} schedule; the kernel "
+                         "has 'kloop' and 'astat'")
     if (a.dtype != torch.int8 or b.dtype != torch.int8 or a.dim() != 3
             or b.dim() != 3 or b.device != a.device):
         raise ValueError("matmul_i8: a and b must be 3-D int8 tensors on one "
@@ -1192,41 +1164,29 @@ def matmul_i8(a: torch.Tensor, b: torch.Tensor, schedule: str = "kloop",
                             or not out.is_contiguous()):
         raise ValueError(f"matmul_i8: out must be a contiguous int32 "
                          f"({nu}, {m}, {n}) tensor on {a.device}")
-    b_kcontig = _b_layout(b)
-    route = _product_route(a, b, kernel)
-    if route == "mma_sync" and not (
-            a.is_contiguous() and (not b_kcontig
-                                   or b.transpose(-1, -2).is_contiguous())):
-        raise ValueError("matmul_i8: the mma.sync kernel reads contiguous "
-                         "planes only")
     if a.device.type == "cpu":
         c = matmul_i8_plain(a, b)
         return c if out is None else out.copy_(c)
+    if not tma_addressable(a, b):
+        raise ValueError(
+            "matmul_i8: the planes must be TMA-addressable (k a multiple of "
+            "16, 16-byte aligned bases and row and plane strides, B "
+            "row-major or k-contiguous), as the entries' planes padded to "
+            f"128 are; got A {tuple(a.shape)} strides {a.stride()}, B "
+            f"{tuple(b.shape)} strides {b.stride()}")
     if a.device.type != "cuda":
         raise ValueError(f"matmul_i8: unsupported device {a.device}")
     c = out if out is not None else torch.empty(
         (nu, m, n), dtype=torch.int32, device=a.device)
     if not c.numel():
         return c
-    if route == "wgmma":
-        bt = b if b_kcontig else transpose_i8(b)
-        a_row, a_plane = _tma_pitches(a)
-        b_row, b_plane = _tma_pitches(bt.transpose(-1, -2))
-        _launch("matmul_i8_wgmma", a.data_ptr(), bt.data_ptr(), c.data_ptr(),
-                nu, m, n, k, a_row, a_plane, b_row, b_plane,
-                int(schedule == "astat"), _stream(a),
-                count=f"matmul_i8_wgmma_{schedule}")
-        return c
-    if max(nu, -(-m // 128)) > 65535:
-        raise ValueError("matmul_i8: too many planes or row blocks for the "
-                         "grid")
-    a_vec = k % 16 == 0 and a.data_ptr() % 16 == 0
-    b_vec = (k % 16 == 0 and b.data_ptr() % 16 == 0 if b_kcontig
-             else n % 4 == 0 and b.data_ptr() % 4 == 0)
-    _launch("matmul_i8", a.data_ptr(), b.data_ptr(), c.data_ptr(), nu, m,
-            n, k, int(b_kcontig), int(schedule == "astat"), bk,
-            int(a_vec), int(b_vec), _stream(a),
-            count=f"matmul_i8_{schedule}")
+    bt = b if _b_layout(b) else transpose_i8(b)
+    a_row, a_plane = _tma_pitches(a)
+    b_row, b_plane = _tma_pitches(bt.transpose(-1, -2))
+    _launch("matmul_i8_wgmma", a.data_ptr(), bt.data_ptr(), c.data_ptr(),
+            nu, m, n, k, a_row, a_plane, b_row, b_plane,
+            int(schedule == "astat"), _stream(a),
+            count=f"matmul_i8_wgmma_{schedule}")
     return c
 
 

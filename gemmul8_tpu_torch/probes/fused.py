@@ -1,10 +1,8 @@
 """Counterpart of tools/probe_fused.py on the card: the batched exact int8
 product (nu, m, k) x (nu, k, n) -> (nu, m, n) int32, K-sequential
 (pallas_matmul_i8_seq) and A-stationary (pallas_matmul_i8_astat), through
-the hand-written tensor-core kernels: the wgmma + TMA one
-(csrc/matmul_i8_wgmma.cu, which the functions take wherever TMA can address
-the operands, and which core.residue_matmul takes on the main path) and the
-mma.sync one (csrc/matmul_i8.cu), beside core.int_mm_stack, one
+the hand-written wgmma + TMA kernel (csrc/matmul_i8_wgmma.cu, which
+core.residue_matmul takes on the main path), beside core.int_mm_stack, one
 torch._int_mm per plane (the library's product: the counterpart of "XLA
 batched dot").
 
@@ -12,9 +10,8 @@ batched dot").
 
 Runs the tool's two sweeps (main, main2) in one table, on the tool's
 n-contiguous B (the wgmma rows include the transposing pass) and on the main
-path's k-contiguous B: the wgmma kernel's K-loop (grouped raster) and
-A-stationary schedules, then the mma.sync kernel's instantiations (K-loop
-with 64- and 128-deep K stages, A-stationary). `ok` holds rows 0-255
+path's k-contiguous B: the kernel's K-loop (grouped raster) and
+A-stationary schedules. `ok` holds rows 0-255
 against torch._int_mm. torch._int_mm's row takes B k-contiguous: the fair
 comparison is with the k-contiguous rows.
 
@@ -36,14 +33,14 @@ from .power import NvidiaSmiSampler, Poller
 from .timing import cuda_ms, in_turns, k_contiguous, launches, require_cuda
 
 
-def matmul_i8_seq(a, b, bk=64, kernel="auto"):
+def matmul_i8_seq(a, b):
     """(nu, m, k) i8 x (nu, k, n) i8 -> (nu, m, n) i32; K innermost."""
-    return kernels.matmul_i8(a, b, "kloop", bk, kernel)
+    return kernels.matmul_i8(a, b, "kloop")
 
 
-def matmul_i8_astat(a, b, kernel="auto"):
+def matmul_i8_astat(a, b):
     """A-stationary: each block keeps its rows of A across the column sweep."""
-    return kernels.matmul_i8(a, b, "astat", 64, kernel)
+    return kernels.matmul_i8(a, b, "astat")
 
 
 def random_planes(nu, m, k, n, seed, device="cuda"):
@@ -75,18 +72,12 @@ def report(rows, name, fn, out_rows, ref, ops, reps, shape=None):
 
 
 def product_fns(a, b):
-    """The product kernels on (nu, m, k) A and k-contiguous B, beside
-    torch._int_mm x nu: the wgmma kernel's two rasters (the route of such
-    planes, kernels._product_route) and the mma.sync kernel's
-    instantiations."""
+    """The product kernel's two rasters on (nu, m, k) A and k-contiguous B,
+    beside torch._int_mm x nu."""
     fns = {"torch._int_mm x nu": lambda: core.int_mm_stack(a, b)}
     for schedule in ("kloop", "astat"):
         fns[f"wgmma {schedule}"] = (
             lambda s=schedule: kernels.matmul_i8(a, b, s))
-    for schedule, bk in (("kloop", 64), ("kloop", 128), ("astat", 64)):
-        fns[f"mma.sync {schedule} bk{bk}"] = (
-            lambda s=schedule, d=bk: kernels.matmul_i8(a, b, s, d,
-                                                       "mma_sync"))
     return fns
 
 
@@ -94,9 +85,8 @@ def product_rows(a, b, reps=5, check_rows=256):
     """In-turn times (timing.in_turns) of product_fns(a, b), each held on
     rows 0..check_rows of every plane against torch._int_mm first; returns
     the rows (name, ms, pass1_ms, pass2_ms, tops, ok)."""
-    if kernels._product_route(a, b) != "wgmma":
-        raise ValueError("product_rows: the planes do not take the wgmma "
-                         "route")
+    if not kernels.tma_addressable(a, b):
+        raise ValueError("product_rows: the planes are not TMA-addressable")
     nu, m, k = a.shape
     ops = 2.0 * nu * m * b.shape[2] * k
     ref = core.int_mm_stack(a[:, :check_rows].contiguous(), b)
@@ -189,13 +179,6 @@ def main(nu=16, m=4096, seed=0, reps=5):
                256, ref, ops, reps)
         report(rows, f"astat {layout}", lambda bb=bb: matmul_i8_astat(a, bb),
                256, ref, ops, reps)
-        for bk in kernels.MATMUL_BK["kloop"]:
-            report(rows, f"mma.sync seq bk{bk} {layout}",
-                   lambda bk=bk, bb=bb: matmul_i8_seq(a, bb, bk, "mma_sync"),
-                   256, ref, ops, reps)
-        report(rows, f"mma.sync astat {layout}",
-               lambda bb=bb: matmul_i8_astat(a, bb, "mma_sync"), 256, ref,
-               ops, reps)
     if not all(r["ok"] for r in rows):
         raise AssertionError("probes.fused: a product differs from "
                              "torch._int_mm")

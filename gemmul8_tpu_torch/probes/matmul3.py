@@ -1,22 +1,19 @@
 """Counterpart of tools/probe_matmul3.py on the card: the batched exact int8
 product on the flat plane views A (nu*m, k) and B (nu*k, n) -> C (nu*m, n),
 with a K loop (mm_flat_kloop), full-K cells (mm_flat_fullk) and a deeper K
-stage per step (mm_flat_kloop_multidot), through the hand-written
-tensor-core kernels (csrc/matmul_i8_wgmma.cu wherever TMA can address the
-operands, and csrc/matmul_i8.cu's mma.sync kernel in the rows named so),
-beside core.int_mm_stack (one torch._int_mm per plane, given B
-k-contiguous: the library's product).
+stage per step (mm_flat_kloop_multidot), through the hand-written wgmma +
+TMA kernel (csrc/matmul_i8_wgmma.cu), beside core.int_mm_stack (one
+torch._int_mm per plane, given B k-contiguous: the library's product).
 
     python -m gemmul8_tpu_torch.probes.matmul3 [nu m]
 
 The flat views are the same memory as the batched (nu, m, k) and (nu, k, n)
 ones, so each function hands the kernel those: the K-loop schedule for the
-K-loop cells (on the mma.sync kernel 128-deep K stages for the multi-dot
-ones, which double the depth per step as the tool's nd dots do; the wgmma
-kernel always stages 128 bytes of K) and the A-stationary one for the
-full-K cells, whose A block stays put across the column sweep. B is the
-tool's n-contiguous flat view, so the wgmma rows include the transposing
-pass.
+K-loop cells and the A-stationary one for the full-K cells, whose A block
+stays put across the column sweep. The kernel stages 128 bytes of K a step
+whatever the tool's depth, so mm_flat_kloop_multidot makes mm_flat_kloop's
+launch. B is the tool's n-contiguous flat view, so the rows include the
+transposing pass.
 """
 from __future__ import annotations
 
@@ -29,25 +26,26 @@ from .fused import random_planes, report
 from .timing import k_contiguous, require_cuda
 
 
-def _flat(a2, b2, nu, m, k, n, schedule, bk, kernel):
-    c = kernels.matmul_i8(a2.view(nu, m, k), b2.view(nu, k, n), schedule, bk,
-                          kernel)
+def _flat(a2, b2, nu, m, k, n, schedule):
+    c = kernels.matmul_i8(a2.view(nu, m, k), b2.view(nu, k, n), schedule)
     return c.view(nu * m, n)
 
 
-def mm_flat_kloop(a2, b2, *, nu, m, k, n, kernel="auto"):
+def mm_flat_kloop(a2, b2, *, nu, m, k, n):
     """A: (nu*m, k), B: (nu*k, n) -> C: (nu*m, n); K innermost."""
-    return _flat(a2, b2, nu, m, k, n, "kloop", 64, kernel)
+    return _flat(a2, b2, nu, m, k, n, "kloop")
 
 
-def mm_flat_fullk(a2, b2, *, nu, m, k, n, kernel="auto"):
+def mm_flat_fullk(a2, b2, *, nu, m, k, n):
     """Full-K cells: each block's rows of A across every column block."""
-    return _flat(a2, b2, nu, m, k, n, "astat", 64, kernel)
+    return _flat(a2, b2, nu, m, k, n, "astat")
 
 
-def mm_flat_kloop_multidot(a2, b2, *, nu, m, k, n, kernel="auto"):
-    """K loop with a 128-deep K stage per step."""
-    return _flat(a2, b2, nu, m, k, n, "kloop", 128, kernel)
+def mm_flat_kloop_multidot(a2, b2, *, nu, m, k, n):
+    """The tool's K loop with nd dots a step (tools/probe_matmul3.py:90):
+    the kernel already stages 128 bytes of K a step, so this makes
+    mm_flat_kloop's launch."""
+    return _flat(a2, b2, nu, m, k, n, "kloop")
 
 
 def main(nu=16, m=4096, seed=0, reps=5):
@@ -65,14 +63,11 @@ def main(nu=16, m=4096, seed=0, reps=5):
     rows = []
     report(rows, "torch._int_mm x nu", lambda: core.int_mm_stack(a3, b_kc),
            256, ref, ops, reps)
-    for kernel, prefix in (("auto", ""), ("mma_sync", "mma.sync ")):
-        for name, fn in (("flat-kloop", mm_flat_kloop),
-                         ("flat-fullk", mm_flat_fullk),
-                         ("flat-multidot", mm_flat_kloop_multidot)):
-            report(rows, prefix + name,
-                   lambda fn=fn, kernel=kernel: fn(a2, b2, **dims,
-                                                   kernel=kernel),
-                   256, ref, ops, reps, shape=(nu, m, n))
+    for name, fn in (("flat-kloop", mm_flat_kloop),
+                     ("flat-fullk", mm_flat_fullk),
+                     ("flat-multidot", mm_flat_kloop_multidot)):
+        report(rows, name, lambda fn=fn: fn(a2, b2, **dims), 256, ref, ops,
+               reps, shape=(nu, m, n))
     if not all(r["ok"] for r in rows):
         raise AssertionError("probes.matmul3: a product differs from "
                              "torch._int_mm")

@@ -283,6 +283,12 @@ def limb_weights(num_moduli: int, backend: str) -> list[list[int]]:
     return out
 
 
+def _wrap(v: torch.Tensor, p: int) -> torch.Tensor:
+    """v mod p, wrapped to [-p/2, p/2)."""
+    r = torch.remainder(v, p)
+    return torch.where(2 * r >= p, r - p, r)
+
+
 def residues_wrapped(x: torch.Tensor, sft: torch.Tensor, scale_axis: int,
                      num_moduli: int, backend: str) -> torch.Tensor:
     """Quantize x with per-row/col shifts and emit all wrapped residues.
@@ -339,7 +345,30 @@ def residues_wrapped(x: torch.Tensor, sft: torch.Tensor, scale_axis: int,
         acc = limbs[0]
         for lv in range(1, nl):
             acc = acc + limbs[lv] * ws[lv]
-        r = torch.remainder(acc, p)                    # in [0, p)
-        r = torch.where(2 * r >= p, r - p, r)          # wrap to [-p/2, p/2)
-        planes.append(r)
+        planes.append(_wrap(acc, p))                   # [-p/2, p/2)
     return torch.stack(planes)
+
+
+def mod_reduce(c_hi: torch.Tensor, num_moduli: int, backend: str) -> torch.Tensor:
+    """C_mid[i] = wrap(C_hi[i] mod p_i) (reference: conv_hi2mid_real.hpp):
+    int8 for the INT8 moduli, int16 for the FP8 ones (up to 1089; an int8
+    cast would wrap them silently). C_hi may be int32 or already-wrapped
+    residues (on which this is the identity)."""
+    mods = tables.moduli(backend)[:num_moduli]
+    out = torch.int8 if backend == tables.Backend.INT8 else torch.int16
+    return torch.stack([_wrap(c_hi[i].to(torch.int32), p).to(out)
+                        for i, p in enumerate(mods)])
+
+
+def _recombine_3m(mids, num_moduli, backend):
+    """(3, nu, m, n) wrapped lane-product residues -> (re, im), each
+    (nu, m, n) wrapped residues, int8 for the INT8 moduli and int16 for the
+    FP8 ones: Re = Crr - Cii, Im = Crii - Crr - Cii, mod p (reference:
+    conv_hi2mid_complex.hpp:9-40)."""
+    mid_t = torch.int8 if backend == tables.Backend.INT8 else torch.int16
+    out_r, out_i = [], []
+    for i, p in enumerate(tables.moduli(backend)[:num_moduli]):
+        crr, cii, cri = (mids[lane, i].to(torch.int32) for lane in range(3))
+        out_r.append(_wrap(crr - cii, p).to(mid_t))
+        out_i.append(_wrap(cri - crr - cii, p).to(mid_t))
+    return torch.stack(out_r), torch.stack(out_i)

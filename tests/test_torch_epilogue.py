@@ -169,7 +169,6 @@ def test_epilogue_wrapper_cpu_takes_plain_version():
                                 "fused_epilogue_fp8": 0, "reassemble_fp8": 0,
                                 "fused_epilogue_complex": 0,
                                 "fused_recombine_3m": 0,
-                                "matmul_i8_kloop": 0, "matmul_i8_astat": 0,
                                 "matmul_i8_wgmma_kloop": 0,
                                 "matmul_i8_wgmma_astat": 0,
                                 "transpose_i8": 0,

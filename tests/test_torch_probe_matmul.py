@@ -1,7 +1,6 @@
 """The port's int8 products (kernels.matmul_i8: the plain version of
-csrc/matmul_i8_wgmma.cu and csrc/matmul_i8.cu, on either route, driven
-through gemmul8_tpu_torch.probes) bit-equal to the probe tools' Pallas
-products on the CPU:
+csrc/matmul_i8_wgmma.cu, driven through gemmul8_tpu_torch.probes) bit-equal
+to the probe tools' Pallas products on the CPU:
 
   * tools/probe_fused.py pallas_matmul_i8_seq / _astat (K7), in TPU
     interpret mode;
@@ -74,14 +73,10 @@ def k7_outputs():
 
 
 @pytest.mark.parametrize("probe,port", [
-    ("seq", lambda a, b: fused.matmul_i8_seq(a, b)),
-    ("seq", lambda a, b: fused.matmul_i8_seq(a, b, bk=128)),
+    ("seq", fused.matmul_i8_seq),
     ("seq", lambda a, b: fused.matmul_i8_seq(a, k_contiguous(b))),
     ("astat", fused.matmul_i8_astat),
     ("astat", lambda a, b: fused.matmul_i8_astat(a, k_contiguous(b))),
-    ("seq", lambda a, b: fused.matmul_i8_seq(a, b, 128, "mma_sync")),
-    ("astat", lambda a, b: fused.matmul_i8_astat(a, k_contiguous(b),
-                                                 kernel="mma_sync")),
 ])
 def test_k7_bit_equal_to_probe_fused(k7_outputs, probe, port):
     a, b, ref = k7_outputs
@@ -109,14 +104,14 @@ K9_BLOCKS = [
 ]
 
 
-def _check_k9(tool, name, blocks, **port_kw):
+def _check_k9(tool, name, blocks):
     a, b = _planes(1)
     dims = dict(nu=NU, m=M, k=K, n=N)
     a2, b2 = a.reshape(NU * M, K), b.reshape(NU * K, N)
     ref = np.asarray(getattr(tool, name)(
         jnp.asarray(a2), jnp.asarray(b2), **dims, **blocks))
     got = getattr(matmul3, name)(torch.from_numpy(a2), torch.from_numpy(b2),
-                                 **dims, **port_kw)
+                                 **dims)
     assert got.dtype == torch.int32 and got.shape == (NU * M, N)
     np.testing.assert_array_equal(got.numpy(), ref)
     np.testing.assert_array_equal(ref.reshape(NU, M, N), _exact(a, b))
@@ -125,15 +120,6 @@ def _check_k9(tool, name, blocks, **port_kw):
 @pytest.mark.parametrize("name,blocks", K9_BLOCKS)
 def test_k9_bit_equal_to_probe_matmul3(interpreted_matmul3, name, blocks):
     _check_k9(interpreted_matmul3, name, blocks)
-
-
-@pytest.mark.parametrize("kernel", ["mma_sync"])
-@pytest.mark.parametrize("name,blocks", K9_BLOCKS)
-def test_k9_each_kernel_bit_equal_to_probe_matmul3(interpreted_matmul3, name,
-                                                   blocks, kernel):
-    """The flat functions with the mma.sync kernel named (the default
-    "auto" is test_k9_bit_equal_to_probe_matmul3), against the same tool."""
-    _check_k9(interpreted_matmul3, name, blocks, kernel=kernel)
 
 
 def test_k9_tpu_interpret_mode_refuses_its_grid():
@@ -148,14 +134,13 @@ def test_k9_tpu_interpret_mode_refuses_its_grid():
 
 @pytest.mark.parametrize("shape", [(3, 13, 97, 20), (1, 1, 1, 1),
                                    (2, 40, 0, 24)])
-@pytest.mark.parametrize("schedule,bk", [("kloop", 64), ("kloop", 128),
-                                         ("astat", 64)])
-def test_matmul_i8_odd_shapes_exact(shape, schedule, bk):
+@pytest.mark.parametrize("schedule", ["kloop", "astat"])
+def test_matmul_i8_odd_shapes_exact(shape, schedule):
     nu, m, k, n = shape
     a, b = _planes(3, nu, m, k, n)
     ta, tb = torch.from_numpy(a), torch.from_numpy(b)
     for bb in (tb, k_contiguous(tb)):
-        got = kernels.matmul_i8(ta, bb, schedule, bk)
+        got = kernels.matmul_i8(ta, bb, schedule)
         np.testing.assert_array_equal(got.numpy(), _exact(a, b))
 
 
@@ -178,9 +163,9 @@ def test_matmul_i8_cpu_takes_plain_version_and_checks_arguments():
     assert torch.equal(kernels.matmul_i8(a, b, "astat"),
                        kernels.matmul_i8_plain(a, b))
     assert not any(kernels.LAUNCHES.values())
-    for schedule, bk in (("astat", 128), ("kloop", 32), ("rows", 64)):
-        with pytest.raises(ValueError, match="no .* kernel"):
-            kernels.matmul_i8(a, b, schedule, bk)
+    for schedule in ("rows", "seq", "fullk"):
+        with pytest.raises(ValueError, match="no .* schedule"):
+            kernels.matmul_i8(a, b, schedule)
     with pytest.raises(ValueError, match="layout|row-major"):
         kernels._b_layout(torch.zeros((2, 32, 16), dtype=torch.int8)[:, :, ::2])
     assert kernels._b_layout(b) is False
@@ -193,50 +178,44 @@ def _misaligned(t):
     return flat.view(t.shape).copy_(t)
 
 
-@pytest.mark.parametrize("k,want", [(16, "wgmma"), (336, "wgmma"),
-                                    (4096, "wgmma"), (97, "mma_sync"),
-                                    (33, "mma_sync"), (8, "mma_sync"),
-                                    (0, "mma_sync")])
+@pytest.mark.parametrize("k,want", [(16, True), (336, True), (4096, True),
+                                    (97, False), (33, False), (8, False),
+                                    (0, False)])
 def test_product_route_by_k(k, want):
     """TMA needs 16-byte row strides (k % 16 == 0) and k > 0; both B
-    layouts take the same route."""
+    layouts are alike."""
     a, b = (torch.from_numpy(x) for x in _planes(6, 2, 20, k, 24))
-    assert kernels._product_route(a, b) == want
-    assert kernels._product_route(a, k_contiguous(b)) == want
-    assert kernels._product_route(a, b, "auto") == want
-    assert kernels._product_route(a, b, "mma_sync") == "mma_sync"
+    assert kernels.tma_addressable(a, b) is want
+    assert kernels.tma_addressable(a, k_contiguous(b)) is want
 
 
 def test_product_route_by_alignment():
-    """A misaligned A, or a misaligned k-contiguous B, goes to mma.sync;
-    n-contiguous B is read through an aligned transposed scratch, so its own
-    alignment does not matter."""
+    """A misaligned A, or a misaligned k-contiguous B, is not
+    TMA-addressable; n-contiguous B is read through an aligned transposed
+    scratch, so its own alignment does not matter."""
     a, b = (torch.from_numpy(x) for x in _planes(7, 2, 20, 64, 24))
     b_kc = k_contiguous(b)
-    assert kernels._product_route(a, b) == "wgmma"
-    assert kernels._product_route(_misaligned(a), b) == "mma_sync"
-    assert kernels._product_route(a, _misaligned(b)) == "wgmma"
-    assert kernels._product_route(a, b_kc) == "wgmma"
+    assert kernels.tma_addressable(a, b) is True
+    assert kernels.tma_addressable(_misaligned(a), b) is False
+    assert kernels.tma_addressable(a, _misaligned(b)) is True
+    assert kernels.tma_addressable(a, b_kc) is True
     mis = _misaligned(b_kc.transpose(-1, -2)).transpose(-1, -2)
     assert kernels._b_layout(mis) is True and mis.data_ptr() % 16 != 0
-    assert kernels._product_route(a, mis) == "mma_sync"
-    for kernel in ("wgmma", "cublas"):
-        with pytest.raises(ValueError, match="kernel must be one of"):
-            kernels._product_route(a, b, kernel)
+    assert kernels.tma_addressable(a, mis) is False
 
 
-@pytest.mark.parametrize("kernel", kernels.MATMUL_KERNELS)
-@pytest.mark.parametrize("schedule,bk", [("kloop", 64), ("kloop", 128),
-                                         ("astat", 64)])
-def test_matmul_i8_cpu_every_route_takes_plain_version(kernel, schedule, bk):
-    """On the CPU each route and schedule returns matmul_i8_plain and
-    launches nothing."""
+@pytest.mark.parametrize("schedule", ["kloop", "astat"])
+@pytest.mark.parametrize("b_layout", ["n", "k", "misaligned"])
+def test_matmul_i8_cpu_every_route_takes_plain_version(schedule, b_layout):
+    """On the CPU each schedule returns matmul_i8_plain, TMA-addressable
+    operands or not (k = 97), and launches nothing."""
     kernels.reset_launches()
     for k in (48, 97):
         a, b = (torch.from_numpy(x) for x in _planes(8, 2, 36, k, 20))
-        for bb in (b, k_contiguous(b), _misaligned(b)):
-            got = kernels.matmul_i8(a, bb, schedule, bk, kernel)
-            assert torch.equal(got, kernels.matmul_i8_plain(a, b))
+        bb = {"n": b, "k": k_contiguous(b), "misaligned": _misaligned(b)}[
+            b_layout]
+        got = kernels.matmul_i8(a, bb, schedule)
+        assert torch.equal(got, kernels.matmul_i8_plain(a, b))
     assert not any(kernels.LAUNCHES.values())
     assert set(kernels.LAUNCHES) >= {"matmul_i8_wgmma_kloop",
                                      "matmul_i8_wgmma_astat", "transpose_i8"}

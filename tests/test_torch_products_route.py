@@ -1,10 +1,10 @@
 """The main path's int8 products on the CPU: core.residue_matmul, which on the
-card takes one launch of the wgmma kernel (kernels.matmul_i8) and refuses
-planes kernels._product_route says TMA cannot address. Here: matmul_i8's
-`out`, the route of the views the main path hands the products (in-place K
-slices of A and of k-contiguous B, the complex lanes' 3nu stack),
-residue_matmul's refusal off the CPU, and its bits across the K_CHUNK
-boundary against the plain product.
+card takes one launch of the wgmma kernel (kernels.matmul_i8, which refuses
+planes kernels.tma_addressable rejects). Here: matmul_i8's `out`, whether
+TMA can address the views the main path hands the products (in-place K
+slices of A and of k-contiguous B, the complex lanes' 3nu stack), the
+refusal off the CPU, and residue_matmul's bits across the K_CHUNK boundary
+against the plain product.
 """
 import numpy as np
 import pytest
@@ -32,15 +32,24 @@ def _misaligned(t):
     return flat.view(t.shape).copy_(t)
 
 
+def _on_meta(t):
+    """A view on the meta device with t's shape, strides and storage offset
+    (its data_ptr is that offset: the CPU's allocations are 16-byte
+    aligned, so the alignment is t's)."""
+    storage = torch.empty(t.untyped_storage().nbytes(), dtype=torch.int8,
+                          device="meta")
+    return storage.as_strided(t.shape, t.stride(), t.storage_offset())
+
+
 @pytest.mark.parametrize("b_layout", ["n", "k"])
-@pytest.mark.parametrize("kernel", kernels.MATMUL_KERNELS)
-def test_matmul_i8_fills_out(b_layout, kernel):
+@pytest.mark.parametrize("schedule", ["kloop", "astat"])
+def test_matmul_i8_fills_out(b_layout, schedule):
     """`out` is written and returned, and holds the plain product."""
     kernels.reset_launches()
     a, b = _planes(1, 3, 20, 48, 24)
     bb = b if b_layout == "n" else k_contiguous(b)
     out = torch.full((3, 20, 24), 7, dtype=torch.int32)
-    got = kernels.matmul_i8(a, bb, kernel=kernel, out=out)
+    got = kernels.matmul_i8(a, bb, schedule, out=out)
     assert got is out
     assert torch.equal(out, kernels.matmul_i8_plain(a, b))
     assert not any(kernels.LAUNCHES.values())
@@ -70,8 +79,8 @@ def _k_slices(a, b_kc, lo, hi):
 def test_product_route_takes_k_slices_in_place(lo, hi):
     """K slices of A (nu, m, K) and of k-contiguous B, as _chunked_residue_acc
     and SUMMA's panels pass them: no copy, row pitch K bytes, base lo bytes
-    in; the route is wgmma where lo, hi - lo and K are multiples of 16, and
-    the plain product of the views is that of contiguous copies."""
+    in; TMA can address them where lo, hi - lo and K are multiples of 16,
+    and the plain product of the views is that of contiguous copies."""
     a, b = _planes(3, 2, 24, 256, 40)
     b_kc = k_contiguous(b)
     sa, sb = _k_slices(a, b_kc, lo, hi)
@@ -79,7 +88,7 @@ def test_product_route_takes_k_slices_in_place(lo, hi):
     assert kernels._b_layout(sb) is True
     assert kernels._tma_pitches(sa) == (256, 24 * 256)
     assert kernels._tma_pitches(sb.transpose(-1, -2)) == (256, 40 * 256)
-    assert kernels._product_route(sa, sb) == "wgmma"
+    assert kernels.tma_addressable(sa, sb) is True
     got = kernels.matmul_i8(sa, sb)
     assert torch.equal(got, kernels.matmul_i8_plain(sa.contiguous(),
                                                     sb.contiguous()))
@@ -90,8 +99,9 @@ def test_product_route_takes_k_slices_in_place(lo, hi):
 def test_product_route_refuses_what_tma_cannot_address(case):
     """A slice whose base is off 16 bytes, a row pitch off 16 bytes (A or
     B), k off 16, and a K slice of n-contiguous B (which transpose_i8 cannot
-    read) go to mma.sync, whose kernel reads only contiguous planes: there
-    matmul_i8 refuses the views."""
+    read) are not TMA-addressable: the CPU takes the plain product of the
+    views, and off the CPU (the same views on the meta device) matmul_i8
+    refuses them."""
     a, b = _planes(4, 2, 24, 264, 40)
     b_kc = k_contiguous(b)
     if case == "base8":
@@ -107,9 +117,12 @@ def test_product_route_refuses_what_tma_cannot_address(case):
         sa, sb = sa[:, :, :36], sb[:, :36, :]
     else:
         sa, sb = a[:, :, :128].contiguous(), b[:, :128, :]
-    assert kernels._product_route(sa, sb) == "mma_sync"
-    with pytest.raises(ValueError, match="contiguous|row-major"):
-        kernels.matmul_i8(sa, sb)
+    assert kernels.tma_addressable(sa, sb) is False
+    assert torch.equal(kernels.matmul_i8(sa, sb),
+                       kernels.matmul_i8_plain(sa.contiguous(),
+                                               sb.contiguous()))
+    with pytest.raises(ValueError, match="TMA-addressable"):
+        kernels.matmul_i8(_on_meta(sa), _on_meta(sb))
 
 
 def test_product_route_takes_the_complex_lanes_stack():
@@ -125,7 +138,7 @@ def test_product_route_takes_the_complex_lanes_stack():
     ra, rb = pa.reshape(3 * nu, m, k), pb.reshape(3 * nu, k, n)
     assert ra.data_ptr() == pa.data_ptr() and rb.data_ptr() == pb.data_ptr()
     assert kernels._b_layout(rb) is True
-    assert kernels._product_route(ra, rb) == "wgmma"
+    assert kernels.tma_addressable(ra, rb) is True
     assert torch.equal(core.residue_matmul(ra, rb),
                        kernels.matmul_i8_plain(a, b))
 
@@ -134,12 +147,12 @@ def test_product_route_takes_the_complex_lanes_stack():
                                    (1, 16, 1)])
 def test_product_route_takes_the_main_path_planes(m, k, n):
     """The planes plane_buffer lays out for A (row-major) and B
-    (k-contiguous) at k a multiple of 16 take the wgmma route, as do their
-    misaligned copies nowhere."""
+    (k-contiguous) at k a multiple of 16 are TMA-addressable, and their
+    misaligned copies are not."""
     a = kernels.plane_buffer((16,), m, k, 0, "cpu")
     b = kernels.plane_buffer((16,), k, n, 1, "cpu")
-    assert kernels._product_route(a, b) == "wgmma"
-    assert kernels._product_route(_misaligned(a), b) == "mma_sync"
+    assert kernels.tma_addressable(a, b) is True
+    assert kernels.tma_addressable(_misaligned(a), b) is False
 
 
 @pytest.mark.parametrize("extreme", [False, True])
@@ -179,7 +192,7 @@ def test_residue_matmul_fills_out_on_the_cpu():
 
 
 def _meta_views(case):
-    """Views on the meta device (no storage: the route reads only shapes
+    """Views on the meta device (no storage: the predicate reads only shapes
     and strides) that TMA cannot address: k off 16, A's row pitch off 16
     bytes, and a K slice of n-contiguous B."""
     a = torch.empty((2, 24, 264), dtype=torch.int8, device="meta")
@@ -197,12 +210,29 @@ def _meta_views(case):
 def test_residue_matmul_refuses_what_tma_cannot_address_off_the_cpu(case):
     """Off the CPU residue_matmul has one product, the wgmma kernel: planes
     it cannot read raise (the entries pad theirs to 128), while the same
-    route's planes at k = 128 would take it."""
+    layout's planes at k = 128 are TMA-addressable."""
     sa, sb = _meta_views(case)
-    assert kernels._product_route(sa, sb) == "mma_sync"
+    assert kernels.tma_addressable(sa, sb) is False
     with pytest.raises(ValueError, match="TMA-addressable"):
         core.residue_matmul(sa, sb)
     a = torch.empty((2, 24, 128), dtype=torch.int8, device="meta")
     b = torch.empty((2, 40, 128), dtype=torch.int8,
                     device="meta").transpose(1, 2)
-    assert kernels._product_route(a, b) == "wgmma"
+    assert kernels.tma_addressable(a, b) is True
+
+
+@pytest.mark.parametrize("case", [97, 33, 8, 0, "k_odd", "pitch_a",
+                                  "b_n_slice"])
+def test_matmul_i8_refuses_what_tma_cannot_address_off_the_cpu(case):
+    """Off the CPU matmul_i8 itself refuses planes TMA cannot address, with
+    the rule in its message, before it looks at the device: contiguous
+    planes at k off 16 or k = 0, and _meta_views' strided ones."""
+    if isinstance(case, int):
+        sa = torch.empty((2, 20, case), dtype=torch.int8, device="meta")
+        sb = torch.empty((2, case, 24), dtype=torch.int8, device="meta")
+    else:
+        sa, sb = _meta_views(case)
+    assert kernels.tma_addressable(sa, sb) is False
+    with pytest.raises(ValueError, match="TMA-addressable .*k a multiple "
+                                         "of 16"):
+        kernels.matmul_i8(sa, sb)
