@@ -84,21 +84,22 @@ FP8_PATHS = ((torch.float64, 14), (torch.float32, 7))
 TAG = {torch.float64: "f64", torch.float32: "f32",
        torch.complex128: "c128", torch.complex64: "c64"}
 # complex main paths: name, dtype, nu, entry, and the launches of one call
-# (encode kernel, the wgmma product kernel's launches -- one for the 3nu
-# planes --, complex epilogue, recombine, real epilogue, torch._int_mm
-# calls and transposing passes: none on a main path)
-CPATHS = (("zgemm16", torch.complex128, 16, "gemm", (4, 1, 1, 0, 0, 0, 0)),
-          ("cgemm8", torch.complex64, 8, "gemm", (4, 1, 1, 0, 0, 0, 0)),
-          ("zgemm20", torch.complex128, 20, "gemm", (4, 1, 0, 1, 2, 0, 0)),
-          ("herk16", torch.complex128, 16, "herk", (2, 1, 1, 0, 0, 0, 0)))
+# (encode kernel: none, the wgmma product kernel's launches -- one for the
+# 3nu planes --, complex epilogue, recombine, real epilogue, torch._int_mm
+# calls and transposing passes: none on a main path, and the lane encoder:
+# one a side)
+CPATHS = (("zgemm16", torch.complex128, 16, "gemm", (0, 1, 1, 0, 0, 0, 0, 2)),
+          ("cgemm8", torch.complex64, 8, "gemm", (0, 1, 1, 0, 0, 0, 0, 2)),
+          ("zgemm20", torch.complex128, 20, "gemm", (0, 1, 0, 1, 2, 0, 0, 2)),
+          ("herk16", torch.complex128, 16, "herk", (0, 1, 1, 0, 0, 0, 0, 1)))
 COUNT_KEYS = ("encode_planes", "matmul_i8_wgmma_kloop",
               "fused_epilogue_complex", "fused_recombine_3m",
-              "fused_epilogue", "_int_mm", "transpose_i8")
+              "fused_epilogue", "_int_mm", "transpose_i8", "encode_lanes")
 # an FP8 path's launches: FP8 encodes, FP8 products, FP8 epilogue, and none
-# of the INT8 path's (encode, int8 products, real epilogue)
+# of the INT8 path's (encode, int8 products, real epilogue, lane encoder)
 FP8_COUNT_KEYS = ("encode_planes_fp8", "_scaled_mm", "fused_epilogue_fp8",
                   "encode_planes", "matmul_i8_wgmma_kloop", "fused_epilogue",
-                  "_int_mm")
+                  "_int_mm", "encode_lanes")
 # the probe tools' int8 products: kernels entry, probes module and function,
 # the kernel's schedule, and the Pallas function replaced. All run the wgmma
 # kernel, which stages 128 bytes of K a step whatever the tool's depth, so
@@ -359,6 +360,18 @@ def log_build_report(kernels):
             f"{min(r for _, r, _, _ in rows)}-{max(r for _, r, _, _ in rows)}, "
             f"spill bytes stored/loaded {sum(st for *_, st, _ in rows)}/"
             f"{sum(ld for *_, ld in rows)}")
+    # encode.cu's two policies apart: K1 (Int8Residues, the real paths')
+    # and K1l (Int8Lanes, the complex paths')
+    rows = kernels.ptxas_report(kernels.BUILD_LOG["encode.cu"])
+    for policy, what in (("Int8Residues", "K1"), ("Int8Lanes", "K1l")):
+        mine = [r for r in rows if policy in r[0]]
+        check(mine, f"encode.cu: no {policy} kernel in its ptxas report")
+        # the mangled name's template arguments after the policy: E, the
+        # input type (f or d), Li, the limb count, E
+        log(f"ptxas encode.cu ({what}, {policy}): " + "; ".join(
+            f"{'rows' if 'rows' in k else 'cols'} {k.split(policy)[1][1]} "
+            f"NL={k.split(policy)[1][4]} {r} registers, spills {st}/{ld} "
+            f"bytes" for k, r, st, ld in mine))
     rows = kernels.ptxas_report(kernels.BUILD_LOG["shift.cu"])
     log(f"ptxas shift.cu (K10): {len(rows)} kernels, registers "
         f"{min(r for _, r, _, _ in rows)}-{max(r for _, r, _, _ in rows)}, "
@@ -1420,8 +1433,7 @@ def complex_fp8_cases(rng):
                         got = kernels.encode_lanes_fp8(re, im, sft, axis, nu,
                                                        conj, out)
                         routes.setdefault(f"K6c axis {axis}", set()).add(
-                            kernels._encode_vec(re, got, axis)
-                            and (axis == 1 or im.data_ptr() % 16 == 0))
+                            kernels._encode_vec(re, got, axis, im))
                         compare(LANES_KEY[re.dtype], got,
                                 kernels.encode_lanes_fp8_plain(
                                     re, im, sft, axis, nu, conj),
@@ -1503,6 +1515,74 @@ def complex_fp8_cases(rng):
     log(f"complex FP8 kernel cases: both routes taken by {sorted(routes)}")
 
 
+# the INT8 lane encoder's (K1l) kernel entries, per input dtype
+LANES_INT8_KEY = {torch.float64: "encode_lanes[c128]",
+                  torch.float32: "encode_lanes[c64]"}
+
+
+def int8_lanes_buffer(nu, rows, cols, axis):
+    """An empty (3, nu, rows, cols) int8 buffer in the lane encoder's layout
+    that starts one byte into a larger buffer (off 16-byte alignment)."""
+    numel = 3 * nu * rows * cols
+    buf = torch.empty(numel + 16, dtype=torch.int8, device="cuda")
+    base = buf[1:1 + numel]
+    if axis == 0:
+        return base.view(3, nu, rows, cols)
+    return base.view(3, nu, cols, rows).transpose(-1, -2)
+
+
+def lane_encode_cases(rng):
+    """K1l (kernels.encode_planes with im=) against its plain version on
+    FP8_RAGGED for both sides, f64 at nu 2, 8, 16, 20 and f32 at nu 2, 8,
+    13 (modulus 0, p = 256, in every case), conj on and off, on random
+    operands and the edge corpus (once more with Re and Im, and with out,
+    off 16-byte alignment), taking both its routes (whole words, and
+    bytes)."""
+    from gemmul8_tpu_torch import complex_gemm as cg, kernels
+    routes = {}
+    for dt, nus in ((np.float64, (2, 8, 16, 20)), (np.float32, (2, 8, 13))):
+        for nu in nus:
+            for axis in (0, 1):
+                shapes = FP8_RAGGED[axis]
+                cases = [(shape, False, False) for shape in shapes] + [
+                    (shapes[4], True, False), (shapes[5], False, True),
+                    (shapes[6], True, True)]
+                xs = [(phi_matrix(rng, *shape, 2.0, dt),
+                       phi_matrix(rng, *shape, 0.5, dt), mx, mo)
+                      for shape, mx, mo in cases]
+                e = edge_corpus(dt)
+                xs.append((e, e[::-1].copy(), False, False))
+                for re_np, im_np, mx, mo in xs:
+                    re, im = on_card(re_np, mx), on_card(im_np, mx)
+                    sft = cg._shift_complex_fast(re, im, nu, "INT8", 1 - axis)
+                    for conj in (False, True):
+                        out = (int8_lanes_buffer(nu, *re.shape, axis) if mo
+                               else None)
+                        got = kernels.encode_planes(re, sft, axis, nu, "INT8",
+                                                    out=out, im=im, conj=conj)
+                        routes.setdefault(f"K1l axis {axis}", set()).add(
+                            kernels._encode_vec(re, got, axis, im))
+                        compare(LANES_INT8_KEY[re.dtype], got,
+                                kernels.encode_planes_plain(
+                                    re, sft, axis, nu, "INT8", im, conj),
+                                f"int8 lanes {re.dtype} {tuple(re.shape)} "
+                                f"nu={nu} axis={axis} conj={conj} x "
+                                f"misaligned={mx} out misaligned={mo}")
+    for key, seen in routes.items():
+        check(seen == {True, False}, f"{key}: routes taken {seen}")
+    log(f"INT8 lane encoder cases: both routes taken by {sorted(routes)}")
+
+
+def compare_lanes(got, re, im, sft, axis, nu, conj, what):
+    """K1l's lanes of a full-size operand against the plain version on
+    1024-row blocks of Re and Im (A's shifts are per row, B's per column)."""
+    from gemmul8_tpu_torch import kernels
+    compare_rows(LANES_INT8_KEY[re.dtype], got,
+                 lambda r0, r1: kernels.encode_planes_plain(
+                     re[r0:r1], sft[r0:r1] if axis == 0 else sft, axis, nu,
+                     "INT8", im[r0:r1], conj), what)
+
+
 # rows 0-7 of A @ B per dtype of the real paths: (longdouble oracle, |A||B|,
 # torch.matmul's max and median relative error)
 ORACLES: dict = {}
@@ -1517,8 +1597,8 @@ def real_main_path(a, b, nu, backend):
     dt = a.dtype
     c, counts = run_counted(lambda: gt.gemm(a, b, num_moduli=nu,
                                             backend=backend))
-    keys, want = ((COUNT_KEYS, (2, 1, 0, 0, 1, 0, 0)) if backend == "INT8"
-                  else (FP8_COUNT_KEYS, (2, 3 * nu, 1, 0, 0, 0, 0)))
+    keys, want = ((COUNT_KEYS, (2, 1, 0, 0, 1, 0, 0, 0)) if backend == "INT8"
+                  else (FP8_COUNT_KEYS, (2, 3 * nu, 1, 0, 0, 0, 0, 0)))
     check(tuple(counts[k] for k in keys) == want
           and counts["shift_fast"] == SHIFT_LAUNCHES["gemm"],
           f"{backend} main path {dt} nu={nu} launches {counts}, want "
@@ -1610,10 +1690,11 @@ def compare_rows(key, got, plain, what, rows=1024):
 
 def full_size_complex_cases(A, B, paths=None):
     """Each kernel on the inputs each complex path gives it at 8192^2: the
-    encodes of the Re and Im lanes of A (and B), then the complex epilogue
-    (nu <= 16), or the recombine and the real epilogue on its int8 output
-    (nu = 20), on the path's own lane products. paths: (name, dtype, nu,
-    entry, fastmode), by default CPATHS in their entries' own modes."""
+    lane encoder on A (and B; on the fast paths B once more with conj on),
+    then the complex epilogue (nu <= 16), or the recombine and the real
+    epilogue on its int8 output (nu = 20), on the path's own lane products.
+    paths: (name, dtype, nu, entry, fastmode), by default CPATHS in their
+    entries' own modes."""
     from gemmul8_tpu_torch import kernels
     if paths is None:
         paths = [(name, dt, nu, entry, None)
@@ -1622,20 +1703,19 @@ def full_size_complex_cases(A, B, paths=None):
         a = A.to(dt)
         b = B.to(dt) if entry == "gemm" else None
         (sa, sb), (pa, pb), c_hi3 = complex_stages(nu, entry, a, b, fastmode)
-        real = a.real.contiguous()
-        compare(f"encode_planes[{TAG[real.dtype]}]", pa[0],
-                kernels.encode_planes_plain(real, sa, 0, nu, "INT8"),
-                f"encode full-size {name} Re(A)")
-        if fastmode is False:
-            compare(f"encode_planes[{TAG[real.dtype]}]", pa[1],
-                    kernels.encode_planes_plain(a.imag.contiguous(), sa, 0,
-                                                nu, "INT8"),
-                    f"encode full-size {name} Im(A)")
+        compare_lanes(pa, a.real.contiguous(), a.imag.contiguous(), sa, 0,
+                      nu, False, f"lanes full-size {name} A")
         if entry == "gemm":
-            imag = b.imag.contiguous()
-            compare(f"encode_planes[{TAG[real.dtype]}]", pb[1],
-                    kernels.encode_planes_plain(imag, sb, 1, nu, "INT8"),
-                    f"encode full-size {name} Im(B)")
+            br, bi = b.real.contiguous(), b.imag.contiguous()
+            compare_lanes(pb, br, bi, sb, 1, nu, False,
+                          f"lanes full-size {name} B")
+            if fastmode is None:
+                del pb
+                pb = kernels.encode_planes(br, sb, 1, nu, "INT8", im=bi,
+                                           conj=True)
+                compare_lanes(pb, br, bi, sb, 1, nu, True,
+                              f"lanes full-size {name} B conj")
+            del br, bi
         del pa, pb
         blk = lambda r0, r1: c_hi3[:, r0:r1].contiguous()  # noqa: E731
         if nu <= 16:
@@ -1747,32 +1827,34 @@ def complex_main_paths(A, B):
 
 # the launches one call makes: K1, the wgmma product kernel, K2, K6,
 # _scaled_mm, K3, K4, K5, the _int_mm calls of the estimates, all _int_mm
-# calls (the estimates' alone) and the transposing passes (none)
+# calls (the estimates' alone), the transposing passes (none) and K1l
 ACCURATE_KEYS = ("encode_planes", "matmul_i8_wgmma_kloop", "fused_epilogue",
                  "encode_planes_fp8", "_scaled_mm", "fused_epilogue_fp8",
                  "fused_epilogue_complex", "fused_recombine_3m",
-                 "estimate_int_mm", "_int_mm", "transpose_i8")
+                 "estimate_int_mm", "_int_mm", "transpose_i8",
+                 "encode_lanes")
 BATCH = 8          # gemm_batched: 8 x (FULL/4)^3 = 8 x 2048^3
 # name, dtype, nu, backend, entry, fastmode, launches of one call
 APATHS = (
     ("dgemm16 accurate", torch.float64, 16, "INT8", "gemm", False,
-     (2, 1, 1, 0, 0, 0, 0, 0, 1, 1, 0)),
+     (2, 1, 1, 0, 0, 0, 0, 0, 1, 1, 0, 0)),
     ("sgemm8 accurate", torch.float32, 8, "INT8", "gemm", False,
-     (2, 1, 1, 0, 0, 0, 0, 0, 1, 1, 0)),
+     (2, 1, 1, 0, 0, 0, 0, 0, 1, 1, 0, 0)),
     ("fp8 dgemm14 accurate", torch.float64, 14, "FP8", "gemm", False,
-     (0, 0, 0, 2, 42, 1, 0, 0, 4, 4, 0)),
+     (0, 0, 0, 2, 42, 1, 0, 0, 4, 4, 0, 0)),
     ("zgemm16 accurate", torch.complex128, 16, "INT8", "gemm", False,
-     (4, 1, 0, 0, 0, 0, 1, 0, 3, 3, 0)),
+     (0, 1, 0, 0, 0, 0, 1, 0, 3, 3, 0, 2)),
     ("herk16 accurate", torch.complex128, 16, "INT8", "herk", False,
-     (2, 1, 0, 0, 0, 0, 1, 0, 3, 3, 0)),
+     (0, 1, 0, 0, 0, 0, 1, 0, 3, 3, 0, 1)),
     ("syrk16 robust", torch.float64, 16, "INT8", "syrk", "robust",
-     (1, 1, 1, 0, 0, 0, 0, 0, 0, 0, 0)),
+     (1, 1, 1, 0, 0, 0, 0, 0, 0, 0, 0, 0)),
     ("syrk16 accurate", torch.float64, 16, "INT8", "syrk", False,
-     (1, 1, 1, 0, 0, 0, 0, 0, 1, 1, 0)),
+     (1, 1, 1, 0, 0, 0, 0, 0, 1, 1, 0, 0)),
     ("fp8 syrk14 accurate", torch.float64, 14, "FP8", "syrk", False,
-     (0, 0, 0, 1, 42, 1, 0, 0, 4, 4, 0)),
+     (0, 0, 0, 1, 42, 1, 0, 0, 4, 4, 0, 0)),
     ("batched 8x2048^3 nu=16 accurate", torch.float64, 16, "INT8", "batched",
-     False, (2 * BATCH, BATCH, BATCH, 0, 0, 0, 0, 0, BATCH, BATCH, 0)),
+     False, (2 * BATCH, BATCH, BATCH, 0, 0, 0, 0, 0, BATCH, BATCH, 0,
+            0)),
 )
 
 
@@ -2137,12 +2219,12 @@ def accurate_card_vs_cpu(rng):
 ENTRY_RUNS: dict = {}
 # the launches that tell the entry-point paths apart: shifts (the fast
 # shifts' calls, counted by run_counted), K1, K6, the products (the wgmma
-# kernel, _scaled_mm), K2, K3, K4, and the torch._int_mm calls (accurate
-# mode's estimates alone) and transposing passes (none)
+# kernel, _scaled_mm), K2, K3, K4, the torch._int_mm calls (accurate mode's
+# estimates alone), transposing passes (none) and K1l
 ENTRY_KEYS = ("shift_fast_calls", "encode_planes", "encode_planes_fp8",
               "matmul_i8_wgmma_kloop", "_scaled_mm", "fused_epilogue",
               "fused_epilogue_fp8", "fused_epilogue_complex", "_int_mm",
-              "transpose_i8")
+              "transpose_i8", "encode_lanes")
 LD = FULL + 64                        # the compat buffers' leading dimension
 
 
@@ -2454,7 +2536,7 @@ def interposer_paths(a64, b64, A, B, card):
     with gt.emulate(num_moduli=16):
         z = entry_counted("hook A @ B c128 8192^3 nu=16", "c128",
                           lambda: A @ B,
-                          {"shift_fast_calls": 2, "encode_planes": 4,
+                          {"shift_fast_calls": 2, "encode_lanes": 2,
                            "matmul_i8_wgmma_kloop": 1,
                            "fused_epilogue_complex": 1})
     assert_bits_equal(z, zref, "hook ZGEMM vs gt.gemm")
@@ -3135,6 +3217,25 @@ def lane_encode_bound(m, k, nu, itemsize):
     return bound(m * k * ops32, m * k * ops64, bytes_)
 
 
+def int8_lane_encode_bound(m, k, nu, itemsize):
+    """Least time of one INT8 lane encode (K1l) of an (m, k) complex
+    operand, in encode_bound's convention. Bytes: Re and Im read once, the
+    shifts, 3nu int8 planes written once. 32-bit operations per element:
+    two of encode_bound's preambles; per modulus two limb dots and
+    reductions with their wraps, the wrapped sum (an add and two
+    conditional corrections: 5) and three stores, or for p = 256 two masks,
+    a byte add and three stores. f64 operations: twice encode_bound's."""
+    from gemmul8_tpu_torch import quantize
+    nl = quantize.n_limbs(nu, "INT8")
+    f64 = itemsize == 8
+    ops32 = (2 * (2 + (0 if f64 else 3) + (3 if f64 else 1) * 20 + 2
+                  + 4 * (nl - 1))
+             + _moduli_ops(nu, 2 * (nl - 1 + 4 + 2) + 5 + 3, 2 * 3 + 1 + 3))
+    ops64 = 20 if f64 else 0
+    bytes_ = m * k * (2 * itemsize + 3 * nu) + 4 * m
+    return bound(m * k * ops32, m * k * ops64, bytes_)
+
+
 def reassemble_bound(m, n, nu):
     """Least time of one FP8 reassembly (K3r) storing at (m, n). Bytes: 3nu
     f32 planes read once, nu int32 planes written once. 32-bit operations per
@@ -3511,9 +3612,21 @@ def complex_times(name, dt, nu, entry, A, B, card):
         t["shifts_ms"] = cuda_ms(lambda: cg._shift_complex_fast(
             ar, ai, nu, "INT8", 1, variant=var))
         t["lanes_b_ms"] = cuda_ms(lambda: cg._herk_rhs_lanes(pa, nu, "INT8"))
-    # one encode kernel launch, and A's three lanes (two launches + the sum)
-    t["encode_ms"] = cuda_ms(lambda: kernels.encode_planes(ar, sa, 0, nu,
-                                                           "INT8"))
+    # the lane encoder (K1l) on A and on B (one launch each), with its
+    # plain version on row blocks of A's Re and Im, summed, and its bound;
+    # and A's three lanes through the path's own function
+    t["k1l_ms"] = cuda_ms(lambda: kernels.encode_planes(ar, sa, 0, nu, "INT8",
+                                                        im=ai))
+    if entry == "gemm":
+        t["k1l_b_ms"] = cuda_ms(lambda: kernels.encode_planes(
+            br, sb, 1, nu, "INT8", im=bi))
+    t["k1l_plain_ms"] = sum(cuda_ms(lambda: kernels.encode_planes_plain(
+        ar[r0:r0 + 1024], sa[r0:r0 + 1024], 0, nu, "INT8",
+        ai[r0:r0 + 1024]), reps=1) for r0 in range(0, FULL, 1024))
+    t["k1l_bound"] = int8_lane_encode_bound(FULL, FULL, nu,
+                                            ar.element_size())
+    t["k1l_share"] = t["k1l_bound"][0] / t["k1l_ms"]
+    check(t["k1l_share"] <= 1.0, f"{name} K1l faster than its bound")
     t["lanes_a_ms"] = cuda_ms(lambda: cg._quantize_complex(
         ar, ai, sa, 0, nu, "INT8", False))
     t["products_ms"] = cuda_ms(lambda: core.residue_matmul(
@@ -3825,7 +3938,8 @@ SOLVE_NU = 6          # solve: a cheap factorization, then 2 refinement steps
 EIG_N = FULL // 4
 COMPLEX_N = FULL // 2  # the complex solve and qr at 4096^2
 SOLVER_KEYS = ("encode_planes", "matmul_i8_wgmma_kloop", "fused_epilogue",
-               "fused_epilogue_complex", "_int_mm", "transpose_i8")
+               "fused_epilogue_complex", "_int_mm", "transpose_i8",
+               "encode_lanes")
 # the JAX tests' bounds: reconstruction (tests/test_solvers.py:148-161),
 # residuals (:162-178), eigenvalues and singular values relative to ||A||
 # (tests/test_eig.py:75-86), the Jacobi vectors (tests/test_eig.py:23-33),
@@ -3881,14 +3995,14 @@ def product_log(calls):
 def product_launches(calls):
     """The launches the logged products imply: a real INT8 product 2 K1 +
     one wgmma kernel launch + 1 K2 (syrk: 1 K1); a complex one (nu <= 16)
-    4 K1 + one wgmma launch for the 3nu planes + 1 K4 (herk: 2 K1); a
+    2 K1l + one wgmma launch for the 3nu planes + 1 K4 (herk: 1 K1l); a
     batch's per element; no torch._int_mm and no transposing pass."""
     want = dict.fromkeys(SOLVER_KEYS, 0)
     for kind, nu, cplx, count in calls:
         one_side = kind in ("syrk", "herk")
         if cplx:
             check(nu <= 16, f"complex nu={nu} takes the K5 split")
-            want["encode_planes"] += count * (2 if one_side else 4)
+            want["encode_lanes"] += count * (1 if one_side else 2)
             want["matmul_i8_wgmma_kloop"] += count
             want["fused_epilogue_complex"] += count
         else:
@@ -3920,7 +4034,7 @@ def solver_counted(name, tag, fn, want_products, extra=()):
     check(launches == product_launches(calls),
           f"{name} launches {launches}, its products imply "
           f"{product_launches(calls)}")
-    check(launches["encode_planes"] > 0
+    check(launches["encode_planes"] + launches["encode_lanes"] > 0
           and launches["matmul_i8_wgmma_kloop"] > 0
           and launches["fused_epilogue"] + launches[
               "fused_epilogue_complex"] > 0, f"{name}: a kernel not launched")
@@ -4045,8 +4159,8 @@ def capturing(store, key=lambda args: "first"):
 def hold_product(what, a, b, nu, fastmode):
     """One emulated product of a solver path, a @ b (b=None: syrk's
     a @ a^T), replayed as the card runs it (operands zero-padded to
-    multiples of 128, the path's shifts): K1 on each side (on complex, the
-    Re and Im lanes) and K2, or K4 on complex, on the path's own int32
+    multiples of 128, the path's shifts): K1 on each side (on complex, K1l's
+    three lanes) and K2, or K4 on complex, on the path's own int32
     products, each bit for bit against its plain version; the replay's
     output bit-equal to the product function the path calls. Returns it."""
     from gemmul8_tpu_torch import complex_gemm as cg, core, kernels
@@ -4057,11 +4171,10 @@ def hold_product(what, a, b, nu, fastmode):
         (sa, sb), (pa, pb), c_hi = complex_stages(nu, "gemm", ap, bp,
                                                   fastmode)
         for planes, x, s, axis in ((pa, ap, sa, 0), (pb, bp, sb, 1)):
-            for lane, part in enumerate((x.real, x.imag)):
-                compare(f"encode_planes[{TAG[part.dtype]}]", planes[lane],
-                        kernels.encode_planes_plain(part.contiguous(), s,
-                                                    axis, nu, "INT8"),
-                        f"encode at {what} axis={axis} lane={lane}")
+            re, im = x.real.contiguous(), x.imag.contiguous()
+            compare(LANES_INT8_KEY[re.dtype], planes,
+                    kernels.encode_planes_plain(re, s, axis, nu, "INT8", im),
+                    f"lanes at {what} axis={axis}")
         del pa, pb
         key, epi, plain = ("fused_epilogue_complex[c128]",
                            kernels.fused_epilogue_complex,
@@ -4096,7 +4209,8 @@ def hold_product(what, a, b, nu, fastmode):
     del c_hi
     ab = ab[:m, :n]
     assert_bits_equal(ab, ref, f"{what}: the replay vs the path's product")
-    log(f"K1, {key.split('[')[0]} bit-equal to their plain versions at "
+    log(f"K1{'l' if a.is_complex() else ''}, {key.split('[')[0]} bit-equal "
+        f"to their plain versions at "
         f"{what}: A {tuple(a.shape)}, int32 products {shape}")
     torch.cuda.empty_cache()
     return ab
@@ -4600,7 +4714,7 @@ def solver_times(x, card):
 SUMMA_KEYS = ("encode_planes", "matmul_i8_wgmma_kloop", "fused_epilogue",
               "encode_planes_fp8", "_scaled_mm", "fused_epilogue_fp8",
               "reassemble_fp8", "fused_epilogue_complex", "estimate_int_mm",
-              "_int_mm", "transpose_i8")
+              "_int_mm", "transpose_i8", "encode_lanes")
 SUMMA_PANEL = 2048                     # k_panel of the 8192^3 streams: 4 steps
 SUMMA_RUNS: dict = {}                  # case -> (dtype tag, launch counts)
 SUMMA_MESHES: dict = {}                # device type -> its 1x1 mesh
@@ -4608,27 +4722,29 @@ SUMMA_MESHES: dict = {}                # device type -> its 1x1 mesh
 # the launches one call makes (SUMMA_KEYS order)
 SUMMA_PATHS = (
     ("dgemm16 gather", torch.float64, dict(num_moduli=16),
-     (2, 1, 1, 0, 0, 0, 0, 0, 0, 0, 0)),
+     (2, 1, 1, 0, 0, 0, 0, 0, 0, 0, 0, 0)),
     ("dgemm16 stream ring", torch.float64,
-     dict(num_moduli=16, k_panel=SUMMA_PANEL), (2, 4, 1, 0, 0, 0, 0, 0, 0, 0, 0)),
+     dict(num_moduli=16, k_panel=SUMMA_PANEL),
+     (2, 4, 1, 0, 0, 0, 0, 0, 0, 0, 0, 0)),
     ("dgemm16 stream psum", torch.float64,
      dict(num_moduli=16, k_panel=SUMMA_PANEL, bcast="psum"),
-     (2, 4, 1, 0, 0, 0, 0, 0, 0, 0, 0)),
+     (2, 4, 1, 0, 0, 0, 0, 0, 0, 0, 0, 0)),
     ("dgemm16 robust", torch.float64, dict(num_moduli=16, fastmode="robust"),
-     (2, 1, 1, 0, 0, 0, 0, 0, 0, 0, 0)),
+     (2, 1, 1, 0, 0, 0, 0, 0, 0, 0, 0, 0)),
     ("dgemm16 accurate", torch.float64, dict(num_moduli=16, fastmode=False),
-     (2, 1, 1, 0, 0, 0, 0, 0, 1, 1, 0)),
+     (2, 1, 1, 0, 0, 0, 0, 0, 1, 1, 0, 0)),
     ("sgemm8 gather", torch.float32, dict(num_moduli=8),
-     (2, 1, 1, 0, 0, 0, 0, 0, 0, 0, 0)),
+     (2, 1, 1, 0, 0, 0, 0, 0, 0, 0, 0, 0)),
     ("fp8 dgemm14 gather", torch.float64, dict(num_moduli=14, backend="FP8"),
-     (0, 0, 0, 2, 42, 1, 0, 0, 0, 0, 0)),
+     (0, 0, 0, 2, 42, 1, 0, 0, 0, 0, 0, 0)),
     ("fp8 dgemm14 stream", torch.float64,
      dict(num_moduli=14, backend="FP8", k_panel=SUMMA_PANEL),
-     (0, 0, 1, 2, 168, 0, 4, 0, 0, 0, 0)),
+     (0, 0, 1, 2, 168, 0, 4, 0, 0, 0, 0, 0)),
     ("zgemm16 planar gather", torch.complex128, dict(num_moduli=16),
-     (4, 1, 0, 0, 0, 0, 0, 1, 0, 0, 0)),
+     (0, 1, 0, 0, 0, 0, 0, 1, 0, 0, 0, 2)),
     ("zgemm16 planar stream", torch.complex128,
-     dict(num_moduli=16, k_panel=SUMMA_PANEL), (4, 4, 0, 0, 0, 0, 0, 1, 0, 0, 0)),
+     dict(num_moduli=16, k_panel=SUMMA_PANEL),
+     (0, 4, 0, 0, 0, 0, 0, 1, 0, 0, 0, 2)),
 )
 SUMMA_HOLD_ROWS = 1024
 
@@ -5018,13 +5134,13 @@ def summa_times(a64, b64, card):
 EXAMPLES = (
     ("dgemm_int8", ("encode_planes", "matmul_i8_wgmma_kloop", "fused_epilogue")),
     ("fp8_backend", ("encode_planes_fp8", "_scaled_mm", "fused_epilogue_fp8")),
-    ("planar_complex", ("encode_planes", "matmul_i8_wgmma_kloop",
+    ("planar_complex", ("encode_lanes", "matmul_i8_wgmma_kloop",
                         "fused_epilogue_complex")),
     ("compat_gemmlt", ("encode_planes", "matmul_i8_wgmma_kloop", "fused_epilogue",
                        "encode_planes_fp8", "_scaled_mm",
                        "fused_epilogue_fp8")),
     ("blas3_tour", ("encode_planes", "matmul_i8_wgmma_kloop", "fused_epilogue",
-                    "fused_epilogue_complex")),
+                    "encode_lanes", "fused_epilogue_complex")),
     ("iterative_refinement", ("encode_planes", "matmul_i8_wgmma_kloop", "fused_epilogue")),
     ("lu_solver", ("encode_planes", "matmul_i8_wgmma_kloop", "fused_epilogue")),
     ("dense_linalg", ("encode_planes", "matmul_i8_wgmma_kloop", "fused_epilogue")),
@@ -5138,12 +5254,13 @@ def benchmark_paths(card):
     log(f"benchmark power {card}: " + json.dumps(res))
     out["power"] = res
     for name, counts in BENCH_RUNS.items():
-        # the INT8 main path's kernels and product (ZGEMM: K4, not K2)
-        epilogue = ("fused_epilogue_complex" if name == "flops c128"
-                    else "fused_epilogue")
+        # the INT8 main path's kernels and product (ZGEMM: K1l and K4, not
+        # K1 and K2)
+        encode, epilogue = (("encode_lanes", "fused_epilogue_complex")
+                            if name == "flops c128"
+                            else ("encode_planes", "fused_epilogue"))
         check(all(counts.get(key, 0) > 0
-                  for key in ("encode_planes", "matmul_i8_wgmma_kloop",
-                              epilogue))
+                  for key in (encode, "matmul_i8_wgmma_kloop", epilogue))
               and counts["transpose_i8"] == 0,
               f"benchmark {name}: launches {counts}")
     return out
@@ -5247,7 +5364,7 @@ STRESS_RUNS: dict = {}        # run -> launch counts
 # ones' (K6, FP8 products, K3) and the planar trials' (K4)
 STRESS_WANT = ("encode_planes", "matmul_i8_wgmma_kloop", "fused_epilogue",
                "encode_planes_fp8", "_scaled_mm", "fused_epilogue_fp8",
-               "fused_epilogue_complex")
+               "fused_epilogue_complex", "encode_lanes")
 # the product kernel at each trial's shape: (schedule, B k-contiguous)
 STRESS_PRODUCTS = (("kloop", False), ("astat", True))
 BLAS3_N, BLAS3_NU = 4096, 16  # tools/probe_blas3_perf.py's defaults
@@ -5563,6 +5680,8 @@ def main():
     mxu_ragged_cases(rrng)
     # the complex FP8 kernels, on a stream of their own
     complex_fp8_cases(np.random.default_rng(SEED + 15))
+    # the INT8 lane encoder, on a stream of its own
+    lane_encode_cases(np.random.default_rng(SEED + 22))
     # K10, the fast shifts, on a stream of their own
     shift_cases(np.random.default_rng(SEED + 19))
     log(f"kernels vs plain, small shapes, all bit-equal: {CASES}")
@@ -5890,6 +6009,17 @@ def main():
     complex_entry = dict(route="cuda", library_ms=None)
     for name, dt, nu, *_ in CPATHS[:2]:           # the two K4 paths
         t, tag = ctiming[name], TAG[dt]
+        key = LANES_INT8_KEY[kernels.REAL_DTYPE[dt]]
+        kern.append(dict(
+            complex_entry, name=key, source="gemmul8_tpu_torch/csrc/encode.cu",
+            replaces="none: gemmul8_tpu/complex_gemm.py _quantize_complex "
+                     "builds the (Re+Im) lane in jnp",
+            launches=complex_launches[name]["encode_lanes"],
+            max_abs_err=MAX_ABS_ERR[key], cases=CASES[key], ms=t["k1l_ms"],
+            ms_b=t["k1l_b_ms"], plain_ms=t["k1l_plain_ms"],
+            bound_ms=t["k1l_bound"][0], bound_by=t["k1l_bound"][1],
+            path=f"gemm {tag} 8192^3 nu={nu}",
+            shape=f"A (B) 8192x8192 {tag} -> 3x{nu}x8192x8192 int8"))
         key = f"fused_epilogue_complex[{tag}]"
         kern.append(dict(
             complex_entry, name=key, source="gemmul8_tpu_torch/csrc/complex.cu",

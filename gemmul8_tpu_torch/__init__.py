@@ -4,9 +4,9 @@ Emulated SGEMM/DGEMM and CGEMM/ZGEMM (Ozaki scheme II, fast, robust and
 accurate mode; INT8 residue planes or the FP8 backend's e4m3 split planes;
 complex through the 3M scheme), syrk, herk, batched GEMM and the rest of
 BLAS level 3 built on GEMM (syr2k, her2k, symm, hemm) on an NVIDIA H100,
-with hand-written CUDA kernels for the residue-plane encoders (complex FP8:
-one lane encoder for Re, Im and Re+Im), the fused mod + CRT + descale
-epilogues, the FP8 reassembly and the complex epilogues. Precomputed
+with hand-written CUDA kernels for the residue-plane encoders (complex: one
+lane encoder for Re, Im and Re+Im on each backend), the fused mod + CRT +
+descale epilogues, the FP8 reassembly and the complex epilogues. Precomputed
 operands (precompute/gemm_quantized), memory-bounded striping of big real
 products, per-phase timing, the reference's compat entries
 (compat.gemm/gemmLt/workSize), a matmul interposer for torch programs

@@ -5,9 +5,9 @@ The counterpart of gemmul8_tpu/complex_gemm.py:
 
   * each operand emits three residue plane sets per modulus -- Re, Im and
     (Re+Im) mod p -- with one shift per row/column computed from Re and Im
-    together. INT8: two encode kernel launches, the third lane an int16 add
-    and a balanced wrap. FP8: one lane encoder launch that reads Re and Im
-    once and writes the three lanes' e4m3 split stacks;
+    together, from one lane encoder launch a side that reads Re and Im once
+    and writes the three lanes: INT8 residue planes, FP8 their e4m3 split
+    stacks;
   * the lane products Crr = Ar.Br, Cii = Ai.Bi, Crii = (Ar+Ai).(Br+Bi):
     3nu exact int8 products (core.residue_matmul: on the card one launch
     of the wgmma kernel for the 3nu planes), or on FP8 three 3nu-plane
@@ -166,28 +166,18 @@ def shifts(a, b, num_moduli, fastmode, backend):
 @span("lanes")
 def _quantize_complex(re, im, sft, scale_axis, num_moduli, backend, conj):
     """The three lane plane sets (Re, Im, (Re+Im) mod p) of one operand:
-    INT8 (3, nu, r, c) int8, each lane in the layout encode_planes returns
-    (B's planes k-contiguous, as the int8 product reads them); FP8 the
+    INT8 the (3, nu, r, c) int8 lanes of kernels.encode_planes (one launch,
+    B's planes k-contiguous, as the int8 product reads them); FP8 the
     (3, 3nu, r, c) e4m3 split stacks of kernels.encode_lanes_fp8, in the
     side's slot order (B's planes column-major, as torch._scaled_mm reads
     them)."""
     if backend == tables.Backend.FP8:
         return kernels.encode_lanes_fp8(re, im, sft, scale_axis, num_moduli,
                                         conj)
-    if conj:
-        im = -im
-    rows, cols = re.shape
-    lanes = kernels.plane_buffer((3, num_moduli), rows, cols, scale_axis,
+    lanes = kernels.plane_buffer((3, num_moduli), *re.shape, scale_axis,
                                  re.device)
-    kernels.encode_planes(re, sft, scale_axis, num_moduli, backend,
-                          out=lanes[0])
-    kernels.encode_planes(im, sft, scale_axis, num_moduli, backend,
-                          out=lanes[1])
-    # the (Re+Im) lane from the two wrapped lanes, in int16 (|sum| <= 256),
-    # one modulus at a time so that the temporaries stay one plane large
-    for i, p in enumerate(tables.moduli(backend)[:num_moduli]):
-        lanes[2, i] = _wrap(lanes[0, i].to(torch.int16) + lanes[1, i], p)
-    return lanes
+    return kernels.encode_planes(re, sft, scale_axis, num_moduli, backend,
+                                 out=lanes, im=im, conj=conj)
 
 
 def _fp8_lane_residues(pa, pb, num_moduli):

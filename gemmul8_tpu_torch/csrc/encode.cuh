@@ -1,10 +1,11 @@
-// The encoders' per-element steps, shared by the INT8 encoder (encode.cu),
-// the FP8 one (encode_fp8.cu) and the FP8 lane encoder of complex operands
-// (encode_lanes_fp8.cu), so that they run the same code: scale by
-// the row's or column's power of two, split into exact f32 components, place
-// the integer part in balanced 20-bit limbs with the fractions' joint carry,
-// and reduce the limbs modulo one modulus. Below them, the two launch frames
-// the encoders share (4 elements a thread; B staged through shared memory).
+// The encoders' per-element steps, shared by the INT8 encoder and the INT8
+// lane encoder of complex operands (encode.cu), the FP8 encoder
+// (encode_fp8.cu) and the FP8 lane encoder (encode_lanes_fp8.cu), so that
+// they run the same code: scale by the row's or column's power of two, split
+// into exact f32 components, place the integer part in balanced 20-bit limbs
+// with the fractions' joint carry, and reduce the limbs modulo one modulus.
+// Below them, the two launch frames the encoders share (4 elements a thread;
+// B staged through shared memory).
 //
 // Each step follows quantize.residues_wrapped op for op: the input is scaled
 // in its own dtype before the split, the scale uses the floor split of
@@ -140,17 +141,17 @@ inline int dispatch_nl(int nl, F&& f) {
     }
 }
 
-// The two frames of the encoders (K1, encode.cu; K6, encode_fp8.cu; K6c,
-// encode_lanes_fp8.cu): each thread quantizes 4 consecutive elements along
-// the planes' contiguous axis and hands their limbs to the encoder's Emit
-// policy, which reduces them and stores the planes. A policy provides
+// The two frames of the encoders (K1 and K1l, encode.cu; K6, encode_fp8.cu;
+// K6c, encode_lanes_fp8.cu): each thread quantizes 4 consecutive elements
+// along the planes' contiguous axis and hands their limbs to the encoder's
+// Emit policy, which reduces them and stores the planes. A policy provides
 //   Plan, Out                  the kernel's plan and plane element types,
 //   enc(plan)                  the limb plan (EncodePlan) inside Plan,
 //   kStageB                    whether B is staged through shared memory,
 //   kInputs                    how many operands of one shape and one shift
-//                              it encodes together: 1 (K1, K6), or 2 (K6c:
-//                              Re in x and Im in x2, Im negated before it
-//                              is scaled where the frame's neg2 is set),
+//                              it encodes together: 1 (K1, K6), or 2 (K1l,
+//                              K6c: Re in x and Im in x2, Im negated before
+//                              it is scaled where the frame's neg2 is set),
 //   emit<NL>(out, pos, plane, valid, word, lim, plan)
 //                              the planes of the 4 elements at offset pos
 //                              of plane 0 (planes `plane` bytes apart), of
@@ -169,11 +170,22 @@ inline int dispatch_nl(int nl, F&& f) {
 // warp writes 128 consecutive k of one column per plane. The tile's k index
 // is stored permuted ((k % 4) * 32 + k / 4, row pitch kTileK + 1), so both
 // the staging writes and the 4-consecutive-k reads meet no bank conflict.
-// Without kStageB each lane reads its 4 elements from x directly (a
-// strided read: 32 rows a warp).
+// A policy of two operands that stages B (K1l) stages a tile of each, of
+// kTileN / 2 columns, so that both fit the 48 KB of static shared memory at
+// f64 (33 KB); warp w then takes columns w and w+8 (for f32 the staging
+// writes meet a two-way bank conflict, the f64 ones none). Without kStageB
+// each lane reads its 4 elements from x directly (a strided read: 32 rows a
+// warp).
 constexpr int kTileK = 128;      // axis 1: rows of x (k) per block
 constexpr int kTileN = 32;       // axis 1: columns of x (n) per block
 constexpr int kPitch = kTileK + 1;
+
+// the columns of x a B block takes: kTileN, or kTileN / kInputs where the
+// policy stages its operands
+template <typename Emit>
+__host__ __device__ constexpr int cols_tile() {
+    return Emit::kStageB ? kTileN / Emit::kInputs : kTileN;
+}
 
 // the policy's emit on the limbs of its kInputs operands
 template <typename Emit, int NL, int NI>
@@ -242,26 +254,32 @@ encode_cols_kernel(const T* __restrict__ x, const T* __restrict__ x2,
                    const __grid_constant__ typename Emit::Plan plan, int rows,
                    int cols, int vec) {
     constexpr int NI = Emit::kInputs;
-    static_assert(NI == 1 || !Emit::kStageB, "B is staged for one operand");
-    __shared__ T tile[Emit::kStageB ? kTileN * kPitch : 1];
-    const int r0 = blockIdx.x * kTileK, c0 = blockIdx.y * kTileN;
+    constexpr int kTN = cols_tile<Emit>();
+    __shared__ T tile[Emit::kStageB ? NI * kTN * kPitch : 1];
+    const int r0 = blockIdx.x * kTileK, c0 = blockIdx.y * kTN;
     const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
     if constexpr (Emit::kStageB) {
+#pragma unroll
+        for (int j = 0; j < NI; ++j) {
+            const T* src = j == 0 ? x : x2;
+            T* dst = tile + j * kTN * kPitch;
 #pragma unroll 4
-        for (int it = 0; it < kTileK * kTileN / 256; ++it) {
-            const int kr = it * (256 / kTileN) + tid / kTileN;
-            const int nc = tid % kTileN;
-            const int gr = r0 + kr, gc = c0 + nc;
-            tile[nc * kPitch + (kr & 3) * 32 + (kr >> 2)] =
-                gr < rows && gc < cols ? x[(size_t)gr * cols + gc] : T(0);
+            for (int it = 0; it < kTileK * kTN / 256; ++it) {
+                const int kr = it * (256 / kTN) + tid / kTN;
+                const int nc = tid % kTN;
+                const int gr = r0 + kr, gc = c0 + nc;
+                dst[nc * kPitch + (kr & 3) * 32 + (kr >> 2)] =
+                    gr < rows && gc < cols ? src[(size_t)gr * cols + gc]
+                                           : T(0);
+            }
         }
         __syncthreads();
     }
     const int valid = min(rows - (r0 + 4 * lane), 4);
     if (valid <= 0) return;
     const EncodePlan& enc = Emit::enc(plan);
-    for (int j = 0; j < kTileN / 8; ++j) {
-        const int nc = warp + 8 * j;
+    for (int jc = 0; jc < kTN / 8; ++jc) {
+        const int nc = warp + 8 * jc;
         const int gc = c0 + nc;
         if (gc >= cols) break;
         const Pow2Split<T> scale(sft[gc]);
@@ -274,7 +292,7 @@ encode_cols_kernel(const T* __restrict__ x, const T* __restrict__ x2,
             for (int e = 0; e < 4; ++e) {
                 T v;
                 if constexpr (Emit::kStageB)
-                    v = tile[nc * kPitch + e * 32 + lane];
+                    v = tile[(j * kTN + nc) * kPitch + e * 32 + lane];
                 else
                     v = e < valid
                         ? src[(size_t)(r0 + 4 * lane + e) * cols + gc] : T(0);
@@ -313,8 +331,9 @@ int launch_encode(const void* x, const void* sft, void* out,
             encode_rows_kernel<Emit, T, NL><<<grid, dim3(32, 8), 0, st>>>(
                 xp, xp2, neg2, sp, op, plan, rows, cols, vec);
         } else {
+            constexpr int kTN = cols_tile<Emit>();
             const dim3 grid((rows + kTileK - 1) / kTileK,
-                            (cols + kTileN - 1) / kTileN);
+                            (cols + kTN - 1) / kTN);
             if (grid.y > 65535) return (int)cudaErrorInvalidValue;
             encode_cols_kernel<Emit, T, NL><<<grid, 256, 0, st>>>(
                 xp, xp2, neg2, sp, op, plan, rows, cols, vec);

@@ -7,7 +7,10 @@ The counterpart of gemmul8_tpu/pallas_kernels.py:
                           gemmul8_tpu/quantize.py; K10, added to take their
                           plain-torch passes and host synchronises off the
                           card's path)
-  encode_planes           csrc/encode.cu        replaces encode_planes_tiles
+  encode_planes           csrc/encode.cu        replaces encode_planes_tiles;
+                          with im=, the lanes of a complex operand (no
+                          Pallas counterpart: the JAX package builds the
+                          (Re+Im) lane in jnp)
   encode_planes_fp8       csrc/encode_fp8.cu    replaces encode_planes_fp8_tiles
   encode_lanes_fp8        csrc/encode_lanes_fp8.cu  (no Pallas counterpart: the
                           JAX package builds complex FP8 lanes in jnp)
@@ -61,8 +64,8 @@ import torch
 from . import ff, fp8, quantize, tables
 from .spans import span
 
-LAUNCHES = {"shift_fast": 0, "encode_planes": 0, "encode_planes_fp8": 0,
-            "encode_lanes_fp8": 0, "fused_epilogue": 0,
+LAUNCHES = {"shift_fast": 0, "encode_planes": 0, "encode_lanes": 0,
+            "encode_planes_fp8": 0, "encode_lanes_fp8": 0, "fused_epilogue": 0,
             "fused_epilogue_fp8": 0, "reassemble_fp8": 0,
             "fused_epilogue_complex": 0,
             "fused_recombine_3m": 0, "matmul_i8_wgmma_kloop": 0,
@@ -96,6 +99,9 @@ _ARGTYPES = {
                        _I, _P],
     # x, sft, out, plan, is_f64, scale_axis, rows, cols, vec, stream
     "encode_planes": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # re, im, sft, out, plan, is_f64, scale_axis, rows, cols, vec, conj,
+    # stream
+    "encode_lanes": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # x, sft, out, plan, is_f64, scale_axis, rows, cols, vec, stream
     "encode_planes_fp8": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # re, im, sft, out, plan, is_f64, scale_axis, rows, cols, vec, conj,
@@ -487,55 +493,96 @@ def plane_buffer(lead: tuple, rows: int, cols: int, scale_axis: int,
                        device=device).transpose(-1, -2)
 
 
-def encode_planes_plain(x, sft, scale_axis, num_moduli, backend):
-    """Plain version of the encode kernel: (nu, *x.shape) int8 planes."""
-    return quantize.residues_wrapped(x, sft, scale_axis, num_moduli,
-                                     backend).to(torch.int8)
+def encode_planes_plain(x, sft, scale_axis, num_moduli, backend, im=None,
+                        conj=False):
+    """Plain version of the encode kernel: (nu, *x.shape) int8 planes. With
+    im, of the lane encoder, in the order of gemmul8_tpu/complex_gemm.py's
+    _quantize_complex: the wrapped residues of x (Re) and of im (negated
+    first for conj), then their wrapped sum; the (3, nu, *x.shape) lanes Re,
+    Im, (Re+Im)."""
+    if im is None:
+        return quantize.residues_wrapped(x, sft, scale_axis, num_moduli,
+                                         backend).to(torch.int8)
+    if conj:
+        im = -im
+    rr, ri = (quantize.residues_wrapped(v, sft, scale_axis, num_moduli,
+                                        backend) for v in (x, im))
+    s = torch.stack([quantize._wrap(rr[i] + ri[i], p) for i, p in
+                     enumerate(tables.moduli(backend)[:num_moduli])])
+    return torch.stack([rr, ri, s]).to(torch.int8)
 
 
 @span("encode")
 def encode_planes(x: torch.Tensor, sft: torch.Tensor, scale_axis: int,
                   num_moduli: int, backend: str,
-                  out: torch.Tensor | None = None) -> torch.Tensor:
+                  out: torch.Tensor | None = None,
+                  im: torch.Tensor | None = None,
+                  conj: bool = False) -> torch.Tensor:
     """Residue planes wrap(floor(x * 2^sft) mod p_i) as int8, (nu, *x.shape).
 
-    On the card, scale_axis=1 (the B operand, (k, n)) returns a (nu, k, n)
-    view of (nu, n, k) storage: k-contiguous, as the int8 product reads B.
-    `out`, if given, is written and returned instead: an int8 (nu, *x.shape)
-    tensor in that same layout (complex_gemm stacks its lanes this way).
+    With im, the three 3M lanes of the complex operand x + i im from one
+    read of each, (3, nu, *x.shape): Re's planes, Im's (negated before it is
+    quantized for conj, the 'C' op) and those of (Re + Im) mod p.
+
+    On the card, scale_axis=1 (the B operand, (k, n)) returns (nu, k, n)
+    views of (nu, n, k) storage (with im, a (3, nu, k, n) view of (3, nu,
+    n, k)): k-contiguous, as the int8 product reads B. `out`, if given, is
+    written and returned instead: an int8 tensor of that shape in that same
+    layout (plane_buffer).
     """
     if x.device.type == "cpu":
-        planes = encode_planes_plain(x, sft, scale_axis, num_moduli, backend)
+        planes = encode_planes_plain(x, sft, scale_axis, num_moduli, backend,
+                                     im, conj)
         return planes if out is None else out.copy_(planes)
     if backend != _INT8:
         raise ValueError(f"encode_planes: backend must be INT8, got {backend!r}")
+    lead = (num_moduli,) if im is None else (3, num_moduli)
+    _check_im_out(x, im, out, scale_axis, lead)
     rows, cols = _check_encode("encode_planes", x, sft, scale_axis, num_moduli)
     if out is None:
-        out = plane_buffer((num_moduli,), rows, cols, scale_axis, x.device)
-    elif (out.dtype != torch.int8 or out.device != x.device
-          or out.shape != (num_moduli, rows, cols)
-          or out.stride() != plane_buffer((num_moduli,), rows, cols,
-                                          scale_axis, "meta").stride()):
-        raise ValueError("encode_planes: out must be an int8 "
-                         f"({num_moduli}, {rows}, {cols}) tensor in the "
-                         "layout encode_planes returns")
+        out = plane_buffer(lead, rows, cols, scale_axis, x.device)
     if x.numel():
         plan = _encode_plan(num_moduli, backend)
-        _launch("encode_planes", x.data_ptr(), sft.data_ptr(), out.data_ptr(),
-                ctypes.addressof(plan), int(x.dtype == torch.float64),
-                scale_axis, rows, cols,
-                int(_encode_vec(x, out, scale_axis)), _stream(x))
+        args = (sft.data_ptr(), out.data_ptr(), ctypes.addressof(plan),
+                int(x.dtype == torch.float64), scale_axis, rows, cols,
+                int(_encode_vec(x, out, scale_axis, im)))
+        if im is None:
+            _launch("encode_planes", x.data_ptr(), *args, _stream(x))
+        else:
+            _launch("encode_lanes", x.data_ptr(), im.data_ptr(), *args,
+                    int(bool(conj)), _stream(x))
     return out
 
 
-def _encode_vec(x: torch.Tensor, out: torch.Tensor, scale_axis: int) -> bool:
-    """Whether csrc/encode.cu or csrc/encode_fp8.cu may store a word per
-    plane and 4 elements (and, for A, read x with 16-byte loads): the
+def _check_im_out(x, im, out, scale_axis, lead):
+    """The checks encode_planes makes of im and out on a CUDA input, before
+    those of x and the device (so that tensors on the meta device show each
+    refusal)."""
+    if im is not None and (im.device != x.device or im.dtype != x.dtype
+                           or im.shape != x.shape or not im.is_contiguous()):
+        raise ValueError("encode_planes: im must be a contiguous tensor of "
+                         "x's shape, dtype and device")
+    if out is None or x.dim() != 2:
+        return
+    if (out.dtype != torch.int8 or out.device != x.device
+            or out.shape != (*lead, *x.shape)
+            or out.stride() != plane_buffer(lead, *x.shape, scale_axis,
+                                            "meta").stride()):
+        raise ValueError(f"encode_planes: out must be an int8 "
+                         f"{(*lead, *x.shape)} tensor in the layout "
+                         "encode_planes returns")
+
+
+def _encode_vec(x: torch.Tensor, out: torch.Tensor, scale_axis: int,
+                im: torch.Tensor | None = None) -> bool:
+    """Whether the encoders may store a word per plane and 4 elements (and,
+    for A, read x, and the lane encoders' im, with 16-byte loads): the
     planes' contiguous axis (x's cols for A, its rows for B) a multiple of
-    4, out (and, for A, x) 16-byte aligned."""
+    4, out (and, for A, x and im) 16-byte aligned."""
     width = x.shape[1 - scale_axis]
     return (width % 4 == 0 and out.data_ptr() % 16 == 0
-            and (scale_axis == 1 or x.data_ptr() % 16 == 0))
+            and (scale_axis == 1 or all(t.data_ptr() % 16 == 0 for t in
+                                        (x, im) if t is not None)))
 
 
 def _check_encode(name, x, sft, scale_axis, num_moduli):
@@ -692,12 +739,11 @@ def encode_lanes_fp8(re: torch.Tensor, im: torch.Tensor, sft: torch.Tensor,
                          "layout encode_lanes_fp8 returns")
     if re.numel():
         plan = _encode_plan_fp8(num_moduli, "lhs" if scale_axis == 0 else "rhs")
-        vec = _encode_vec(re, out, scale_axis) and (
-            scale_axis == 1 or im.data_ptr() % 16 == 0)
         _launch("encode_lanes_fp8", re.data_ptr(), im.data_ptr(),
                 sft.data_ptr(), out.data_ptr(), ctypes.addressof(plan),
                 int(re.dtype == torch.float64), scale_axis, rows, cols,
-                int(vec), int(bool(conj)), _stream(re))
+                int(_encode_vec(re, out, scale_axis, im)), int(bool(conj)),
+                _stream(re))
     return out
 
 

@@ -1,6 +1,7 @@
 """The design choices of the redesigned kernels on the card, each undone in
 turn: K2 (csrc/epilogue.cu), K3 (csrc/epilogue_fp8.cu) and K4
-(csrc/complex.cu), K6 (csrc/encode_fp8.cu) and K8 (csrc/epilogue_mxu.cu).
+(csrc/complex.cu), K6 (csrc/encode_fp8.cu), K8 (csrc/epilogue_mxu.cu) and
+K1l (the INT8 lane encoder, csrc/encode.cu).
 
 Each variant rebuilds, from a copy of csrc/ with one edit (VARIANTS), the
 sources of SOURCES that the edit reaches (a header reaches every source that
@@ -12,7 +13,8 @@ at a time, one loop over the moduli with per-modulus selects of their
 kind, the int32 reassembly (conversions and wrap_any); K6 with byte
 stores, with B staged, with a run-time select per plane, with scalar
 conversions; K8 with the probe's f32 wrap, with the descale triples built
-per element.
+per element; K1l with B read directly, as K6c reads it (32 columns a block,
+nothing staged).
 Every case (CASES: a kernel at m x m on random inputs) is timed with the
 shipped build and, in turns, with each variant that rebuilt its source, and
 each output is held bit for bit against the shipped kernel's. Also printed:
@@ -96,14 +98,20 @@ VARIANTS = {
     "K8 descale triples per element": [
         ("epilogue_mxu.cu", "constexpr bool kHoistDescale = true;",
          "constexpr bool kHoistDescale = false;")],
+    "K1l B read directly": [
+        ("encode.cu", "    static constexpr bool kStageB = true;\n"
+                      "    static constexpr int kInputs = 2;",
+         "    static constexpr bool kStageB = false;\n"
+         "    static constexpr int kInputs = 2;")],
 }
 
 
 class Case(NamedTuple):
-    """A kernel timed at m x m: its wrapper in kernels, nu, the input dtype,
-    `arg` (the output dtype of K2, K3 and K4, the side's scale axis of K6,
-    the out_bits of K8) and a regular expression of its mangled name in the
-    build log: [input type,] f64 out, vec, [stride,] limb count."""
+    """A kernel timed at m x m: its wrapper in kernels (K1l: its C entry
+    point's name), nu, the input dtype, `arg` (the output dtype of K2, K3
+    and K4, the side's scale axis of K6 and K1l, the out_bits of K8) and a
+    regular expression of its mangled name in the build log: [input type,]
+    f64 out, vec, [stride,] limb count."""
     kernel: str
     nu: int
     dtype: torch.dtype
@@ -141,13 +149,20 @@ CASES = {
                            "encode_cols_kernel.*Fp8PlanesEfLi3E"),
     "K8 nu=16, out_bits 53": Case("fused_epilogue_mxu", 16, torch.int32, 53,
                                   "epilogue_mxu_kernelILb1ELi7E"),
+    "K1l f64 nu=16, A": Case("encode_lanes", 16, torch.float64, 0,
+                             "encode_rows_kernel.*Int8LanesEdLi5E"),
+    "K1l f64 nu=16, B": Case("encode_lanes", 16, torch.float64, 1,
+                             "encode_cols_kernel.*Int8LanesEdLi5E"),
+    "K1l f32 nu=8, B": Case("encode_lanes", 8, torch.float32, 1,
+                            "encode_cols_kernel.*Int8LanesEfLi3E"),
 }
 # each kernel's source
 SOURCE_OF = {"fused_epilogue": "epilogue.cu",
              "fused_epilogue_fp8": "epilogue_fp8.cu",
              "fused_epilogue_complex": "complex.cu",
              "encode_planes_fp8": "encode_fp8.cu",
-             "fused_epilogue_mxu": "epilogue_mxu.cu"}
+             "fused_epilogue_mxu": "epilogue_mxu.cu",
+             "encode_lanes": "encode.cu"}
 SOURCES = tuple(SOURCE_OF.values())
 
 
@@ -220,6 +235,11 @@ def _inputs(case: Case, m: int, g: torch.Generator):
     if case.kernel == "encode_planes_fp8":
         x = torch.randn((m, m), dtype=case.dtype, device="cuda", generator=g)
         return x, quantize.shift_fast(x, case.nu, "FP8", 1 - case.arg)
+    if case.kernel == "encode_lanes":
+        re, im = (torch.randn((m, m), dtype=case.dtype, device="cuda",
+                              generator=g) for _ in range(2))
+        return re, im, quantize.shift_fast(re, case.nu, "INT8", 1 - case.arg,
+                                           im=im)
     sa, sb = (torch.randint(-40, 90, (m,), dtype=torch.int32, device="cuda",
                             generator=g) for _ in range(2))
     if case.kernel == "fused_epilogue_fp8":
@@ -236,6 +256,9 @@ def _inputs(case: Case, m: int, g: torch.Generator):
 
 def _shipped(case: Case, inputs):
     """The case's output from the shipped wrapper."""
+    if case.kernel == "encode_lanes":
+        re, im, sft = inputs
+        return kernels.encode_planes(re, sft, case.arg, case.nu, "INT8", im=im)
     wrapper = getattr(kernels, case.kernel)
     if case.kernel == "encode_planes_fp8":
         return wrapper(*inputs, case.arg, case.nu)
@@ -262,6 +285,17 @@ def _launcher(lib, case: Case, inputs):
                 x.data_ptr(), sft.data_ptr(), out.data_ptr(),
                 ctypes.addressof(plan), int(x.dtype == torch.float64), axis,
                 *x.shape, 1, stream)
+    elif kernel == "encode_lanes":
+        re, im, sft = inputs
+        axis = case.arg
+        plan = kernels._encode_plan(nu, "INT8")
+
+        def fn():
+            out = kernels.plane_buffer((3, nu), *re.shape, axis, re.device)
+            return out, lib.g8_encode_lanes(
+                re.data_ptr(), im.data_ptr(), sft.data_ptr(), out.data_ptr(),
+                ctypes.addressof(plan), int(re.dtype == torch.float64), axis,
+                *re.shape, 1, 0, stream)
     elif kernel == "fused_epilogue_mxu":
         _, sa, sb = inputs
         m, n = c.shape[1:]

@@ -102,6 +102,67 @@ def test_quantize_complex_b_lanes_are_k_contiguous():
     assert pa.is_contiguous()
 
 
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("nu", [2, 8, 16])
+@pytest.mark.parametrize("axis", [0, 1])
+@pytest.mark.parametrize("conj", [False, True])
+def test_encode_planes_lanes_bit_equal(dtype, nu, axis, conj):
+    """kernels.encode_planes with im= (the lane encoder's route, and on the
+    CPU its plain version) gives the JAX package's three lanes."""
+    re, im = _planes(7 + nu, 20, 36, dtype)
+    sft = tcg._shift_complex_fast(*_t(re, im), nu, "INT8", 1 - axis)
+    ref = jcg._quantize_complex(jnp.asarray(re), jnp.asarray(im),
+                                jnp.asarray(sft.numpy()), axis, nu, "INT8",
+                                conj)
+    x, y = _t(re, im)
+    got = kernels.encode_planes(x, sft, axis, nu, "INT8", im=y, conj=conj)
+    assert got.shape == (3, nu, 20, 36)
+    _bits_equal(got, ref)
+    _bits_equal(kernels.encode_planes_plain(x, sft, axis, nu, "INT8", y,
+                                            conj), ref)
+
+
+def _meta_lane_args(axis, fault):
+    """encode_planes(..., im=, out=) arguments on the meta device, sound but
+    for `fault`."""
+    nu, rows, cols = 4, 16, 24
+    x = torch.empty((rows, cols), dtype=torch.float64, device="meta")
+    im = torch.empty_like(x)
+    sft = torch.empty(x.shape[axis], dtype=torch.int32, device="meta")
+    out = kernels.plane_buffer((3, nu), rows, cols, axis, "meta")
+    if fault == "im shape":
+        im = torch.empty((rows, cols + 4), dtype=x.dtype, device="meta")
+    elif fault == "im dtype":
+        im = torch.empty_like(x, dtype=torch.float32)
+    elif fault == "im contiguity":
+        im = torch.empty((cols, rows), dtype=x.dtype, device="meta").T
+    elif fault == "out layout":
+        out = kernels.plane_buffer((3, nu), rows, cols, 1 - axis, "meta")
+    elif fault == "out shape":
+        out = kernels.plane_buffer((nu,), rows, cols, axis, "meta")
+    elif fault == "out dtype":
+        out = torch.empty(out.shape, dtype=torch.int32, device="meta")
+    return x, sft, axis, nu, "INT8", out, im
+
+
+@pytest.mark.parametrize("axis", [0, 1])
+@pytest.mark.parametrize("fault,match", [
+    ("im shape", "im must be"), ("im dtype", "im must be"),
+    ("im contiguity", "im must be"), ("out layout", "out must be"),
+    ("out shape", "out must be"), ("out dtype", "out must be"),
+    (None, "unsupported device meta")])
+def test_encode_planes_lanes_refusals(axis, fault, match):
+    """Off the CPU the lane route refuses an im of another shape, dtype or
+    contiguity and an out of another layout, shape or dtype, before any
+    launch (meta tensors: the sound arguments reach the device check)."""
+    x, sft, axis, nu, backend, out, im = _meta_lane_args(axis, fault)
+    kernels.reset_launches()
+    with pytest.raises(ValueError, match=match):
+        kernels.encode_planes(x, sft, axis, nu, backend, out=out, im=im,
+                              conj=True)
+    assert kernels.LAUNCHES["encode_lanes"] == 0
+
+
 def test_quantize_complex_fp8_raises_naming_queue_8():
     """Complex FP8 (queue 8), once refused here, gives the JAX lanes: the
     (3, 3nu, ...) e4m3 stacks in the side's slot order."""

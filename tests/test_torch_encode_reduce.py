@@ -184,3 +184,19 @@ def test_encode_vec_needs_aligned_whole_words(width):
         assert kernels._encode_vec(x, out, axis) == (width % 4 == 0)
         shifted = torch.zeros(out.numel() + 1, dtype=torch.int8)[1:]
         assert not kernels._encode_vec(x, shifted.view(out.shape), axis)
+
+
+@pytest.mark.parametrize("width", [3, 4, 8])
+def test_encode_vec_reads_im_aligned(width):
+    """The lane encoders (K1l, K6c) read A's Im with 16-byte loads as they
+    read Re: words only where im is aligned too; B reads both by element."""
+    import torch
+    for axis in (0, 1):
+        shape = (width, 8) if axis == 1 else (8, width)
+        x = torch.zeros(shape, dtype=torch.float64)
+        out = torch.zeros((3, 2, *shape), dtype=torch.int8)
+        im = torch.zeros(shape, dtype=torch.float64)
+        moved = torch.zeros(x.numel() + 1, dtype=x.dtype)[1:].view(shape)
+        assert kernels._encode_vec(x, out, axis, im) == (width % 4 == 0)
+        assert kernels._encode_vec(x, out, axis, moved) == (
+            width % 4 == 0 and axis == 1)

@@ -164,7 +164,8 @@ def test_epilogue_wrapper_cpu_takes_plain_version():
     assert torch.equal(kernels.fused_epilogue(*args),
                        kernels.fused_epilogue_plain(*args))
     assert kernels.LAUNCHES == {"shift_fast": 0,
-                                "encode_planes": 0, "encode_planes_fp8": 0,
+                                "encode_planes": 0, "encode_lanes": 0,
+                                "encode_planes_fp8": 0,
                                 "encode_lanes_fp8": 0, "fused_epilogue": 0,
                                 "fused_epilogue_fp8": 0, "reassemble_fp8": 0,
                                 "fused_epilogue_complex": 0,

@@ -428,6 +428,12 @@ def test_tile_cases_name_shipped_kernels():
             assert part == (f"encode_{frame}_kernel.*Fp8PlanesE{t}Li"
                             f"{quantize.n_limbs(nu, 'FP8')}E")
             continue
+        if kernel == "encode_lanes":
+            frame = "rows" if arg == 0 else "cols"
+            t = "d" if in_dtype == torch.float64 else "f"
+            assert part == (f"encode_{frame}_kernel.*Int8LanesE{t}Li"
+                            f"{quantize.n_limbs(nu, 'INT8')}E")
+            continue
         if kernel == "fused_epilogue_mxu":
             L = kernels._epilogue_plan_mxu(nu, "INT8", arg).crt.L
             assert part == f"epilogue_mxu_kernelILb1ELi{L}E"
