@@ -84,6 +84,7 @@ def _shift_complex_fast(re, im, num_moduli, backend, reduce_axis,
                                variant=variant, im=im)
 
 
+@span("extract")
 def _extract_ub_lanes(re, im, scale_axis, backend):
     """Upper-bound planes of the three 3M estimation lanes with one pre-shift
     per row/column from max(|Re|, |Im|): ub|Re|, ub|Im| and their signed
@@ -433,6 +434,7 @@ def _herk_rhs_lanes(pa, num_moduli, backend):
     return lanes.transpose(-1, -2)
 
 
+@span("entry")
 def _herk(ar, ai, *, num_moduli, fastmode, backend, trans, epilogue,
           out_dtype):
     _check_backend(backend)

@@ -521,6 +521,7 @@ def gemm_batched(a, b, *, num_moduli: int = 8, fastmode=True,
         backend=backend, epilogue=epilogue), a, b)
 
 
+@span("entry")
 def _syrk(a, *, num_moduli, fastmode, backend, trans, epilogue):
     if trans:
         a = a.T
@@ -736,31 +737,33 @@ def emulate_matmul_blocked(a: torch.Tensor, b: torch.Tensor, *,
     # accurate mode, phase 1: the estimation product over the whole tile
     # grid, exact row and column maxima (a row's spans every N stripe, a
     # column's every M stripe: scaling_accu_real.hpp:142-226 at blocked
-    # scale); each stripe's extraction once
-    ext_a = [quantize.extract_ub_plane(a[mi:mi + m_block], backend,
-                                       scale_axis=0) for mi in m_starts]
-    row_max = [None] * len(m_starts)
-    col_max = [None] * len(n_starts)
-    pre_b = [None] * len(n_starts)
-    for j, ni in enumerate(n_starts):
-        ub_b, pre_b[j] = quantize.extract_ub_plane(
-            b[:, ni:ni + n_block], backend, scale_axis=1)
-        for i in range(len(m_starts)):
-            est = quantize.estimate_gemm(ext_a[i][0], ub_b, backend)
-            rm, cm = torch.amax(est, dim=1), torch.amax(est, dim=0)
-            row_max[i] = rm if row_max[i] is None else torch.maximum(
-                row_max[i], rm)
-            col_max[j] = cm if col_max[j] is None else torch.maximum(
-                col_max[j], cm)
+    # scale); each stripe's extraction once, then every stripe's shifts
+    with span("shifts"):
+        ext_a = [quantize.extract_ub_plane(a[mi:mi + m_block], backend,
+                                           scale_axis=0) for mi in m_starts]
+        row_max = [None] * len(m_starts)
+        col_max = [None] * len(n_starts)
+        pre_b = [None] * len(n_starts)
+        for j, ni in enumerate(n_starts):
+            ub_b, pre_b[j] = quantize.extract_ub_plane(
+                b[:, ni:ni + n_block], backend, scale_axis=1)
+            for i in range(len(m_starts)):
+                est = quantize.estimate_gemm(ext_a[i][0], ub_b, backend)
+                rm, cm = torch.amax(est, dim=1), torch.amax(est, dim=0)
+                row_max[i] = rm if row_max[i] is None else torch.maximum(
+                    row_max[i], rm)
+                col_max[j] = cm if col_max[j] is None else torch.maximum(
+                    col_max[j], cm)
+        sft_as = [quantize.shift_accu_from_chi(rm, ext[1], num_moduli,
+                                               backend)
+                  for rm, ext in zip(row_max, ext_a)]
+        sft_bs = [quantize.shift_accu_from_chi(cm, pre, num_moduli, backend)
+                  for cm, pre in zip(col_max, pre_b)]
     # phase 2: encode and the product of each tile
-    for i, mi in enumerate(m_starts):
-        sft_a = quantize.shift_accu_from_chi(row_max[i], ext_a[i][1],
-                                             num_moduli, backend)
+    for mi, sft_a in zip(m_starts, sft_as):
         pa, sft_a = _stripe_operand(a[mi:mi + m_block], sft_a, 0, num_moduli,
                                     backend)
-        for j, ni in enumerate(n_starts):
-            sft_b = quantize.shift_accu_from_chi(col_max[j], pre_b[j],
-                                                 num_moduli, backend)
+        for ni, sft_b in zip(n_starts, sft_bs):
             pb, sft_b = _stripe_operand(b[:, ni:ni + n_block], sft_b, 1,
                                         num_moduli, backend)
             o = out[mi:mi + m_block, ni:ni + n_block]

@@ -162,6 +162,7 @@ def extract_ub_with_pre(ax: torch.Tensor, sft_pre: torch.Tensor,
     return torch.where(b.to(torch.float32) < ub, bumped, b)
 
 
+@span("extract")
 def extract_ub_plane(x: torch.Tensor, backend: str, scale_axis: int):
     """(upper-bound plane of |x|, int32 pre-shift MAX_UFP - ilogb(amax)) per
     row (scale_axis=0) or column (scale_axis=1): amax scales into
@@ -206,6 +207,7 @@ def _int_mm_f64(a: torch.Tensor, b: torch.Tensor, chunk: int) -> torch.Tensor:
     return tot
 
 
+@span("estimate")
 def estimate_gemm(ub_a: torch.Tensor, ub_b: torch.Tensor,
                   backend: str) -> torch.Tensor:
     """Upper-bound magnitude estimation product for accurate mode

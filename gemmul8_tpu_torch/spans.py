@@ -6,9 +6,15 @@ in the same trace as the kernels it launches. A device operation belongs
 to the innermost gemmul8.* span open on its thread when it was launched.
 The layers:
 
-  entry       the public entries and the emulation routines (gemm,
-              emulate_matmul and its striped and complex forms, padding)
-  shifts      the per-row and per-column shifts (fast, robust, accurate)
+  entry       the public entries and the emulation routines (gemm, syrk,
+              herk, emulate_matmul and its striped and complex forms,
+              padding)
+  shifts      the per-row and per-column shifts (fast, robust, accurate);
+              in accurate mode the maxima of the estimation product and
+              the shifts taken from them
+  extract     accurate mode's upper-bound planes of |A| and |B| (real, or
+              the three 3M lanes of a complex operand)
+  estimate    accurate mode's estimation product of those planes
   encode      the residue-plane encoders (K1, K6, K6c)
   lanes       the complex (Re+Im) lane of the INT8 3M scheme
   products    the exact low-precision products (INT8: the wgmma kernel K7;
@@ -27,8 +33,8 @@ import functools
 from torch.autograd import _profiler_enabled
 from torch.profiler import record_function
 
-LAYERS = ("entry", "shifts", "encode", "lanes", "products", "epilogue",
-          "alpha_beta")
+LAYERS = ("entry", "shifts", "extract", "estimate", "encode", "lanes",
+          "products", "epilogue", "alpha_beta")
 PREFIX = "gemmul8."
 
 

@@ -20,7 +20,10 @@ ZA = A + 1j * RNG.standard_normal(A.shape)
 ZB = B + 1j * RNG.standard_normal(B.shape)
 
 STAGES = {"entry", "shifts", "encode", "products", "epilogue", "alpha_beta"}
-# route: (gemm's arguments, the layers whose spans the call opens)
+# accurate mode's scaling adds the bound planes and their product
+ACCURATE = STAGES | {"extract", "estimate"}
+# route: (the entry's arguments, the layers whose spans the call opens);
+# "fn" names another entry than gemm
 ROUTES = {
     "real": (dict(a=A, b=B, num_moduli=16, epilogue="ff"), STAGES),
     "striped": (dict(a=A, b=B, num_moduli=16, epilogue="ff", m_block=16,
@@ -31,12 +34,24 @@ ROUTES = {
                 STAGES | {"lanes"}),
     "fp8": (dict(a=A, b=B, num_moduli=12, backend="FP8", epilogue="ff"),
             STAGES),
+    "accurate": (dict(a=A, b=B, num_moduli=16, fastmode=False,
+                      epilogue="ff"), ACCURATE),
+    "accurate_striped": (dict(a=A, b=B, num_moduli=16, fastmode=False,
+                              epilogue="ff", m_block=16, n_block=8),
+                         ACCURATE),
+    "accurate_complex": (dict(a=ZA, b=ZB, num_moduli=16, fastmode=False,
+                              trans_b="N", epilogue="ff"),
+                         ACCURATE | {"lanes"}),
+    "accurate_syrk": (dict(fn=gt.syrk, a=A, num_moduli=16, fastmode=False,
+                           epilogue="ff"), ACCURATE - {"alpha_beta"}),
 }
 
 
 def call(route):
     kw = dict(ROUTES[route][0])
-    return gt.gemm(kw.pop("a"), kw.pop("b"), device="cpu", **kw)
+    fn = kw.pop("fn", gt.gemm)
+    operands = [kw.pop(k) for k in ("a", "b") if k in kw]
+    return fn(*operands, device="cpu", **kw)
 
 
 def traced_spans(route, tmp_path):
@@ -67,7 +82,8 @@ def test_spans_named_and_nested(route, tmp_path):
     # each stage of the product sits in an emulation routine's entry span:
     # of the entry and alpha_beta spans around it, the innermost is entry
     for s in found:
-        if s[0] in ("shifts", "encode", "products", "epilogue", "lanes"):
+        if s[0] in ("shifts", "extract", "estimate", "encode", "products",
+                    "epilogue", "lanes"):
             around = [t for t in found if t[0] in ("entry", "alpha_beta")
                       and inside(s, t)]
             assert min(around, key=lambda t: t[2] - t[1])[0] == "entry", s
@@ -81,13 +97,32 @@ def test_spans_named_and_nested(route, tmp_path):
 
 
 @pytest.mark.parametrize("route", list(ROUTES))
+def test_accurate_scaling_spans_sit_in_shifts(route, tmp_path):
+    """Accurate mode's bound planes and estimation product each open their
+    own span inside a gemmul8.shifts span, and every such shifts span holds
+    both (the three layers partition its scaling); a fast call opens
+    neither."""
+    _, found = traced_spans(route, tmp_path)
+    scaling = [s for s in found if s[0] in ("extract", "estimate")]
+    if "extract" in ROUTES[route][1]:
+        shifts = [s for s in found if s[0] == "shifts"]
+        assert shifts and scaling
+        assert all(any(inside(s, t) for t in shifts) for s in scaling)
+        for t in shifts:
+            assert {s[0] for s in scaling if inside(s, t)} == {"extract",
+                                                               "estimate"}
+    else:
+        assert scaling == []
+
+
+@pytest.mark.parametrize("route", list(ROUTES))
 def test_no_profiler_never_enters_a_span(route, monkeypatch):
     def refuse(name):
         raise AssertionError(f"record_function({name!r}) entered")
     monkeypatch.setattr(spans, "record_function", refuse)
     assert not torch.autograd._profiler_enabled()
     out = call(route)
-    assert out.shape == (40, 24)
+    assert out.shape == (40, 40 if route == "accurate_syrk" else 24)
 
 
 @pytest.mark.parametrize("route", list(ROUTES))
@@ -103,14 +138,18 @@ def test_profiler_changes_no_bit(route, tmp_path):
 
 @pytest.mark.parametrize("fn, layer", [
     (core.shifts, "shifts"), (complex_gemm.shifts, "shifts"),
-    (core.emulate_matmul_blocked, "entry"),
+    (core.emulate_matmul_blocked, "entry"), (core._syrk, "entry"),
+    (complex_gemm._herk, "entry"),
     (core._chunked_residue_acc, "products"),
     (fp8.residue_matmul_fp8, "products"),
     (fp8._chunked_residue_acc, "products"),
     (kernels.encode_planes_fp8, "encode"), (kernels.encode_lanes_fp8, "encode"),
     (kernels.fused_epilogue_fp8, "epilogue"),
     (kernels.reassemble_fp8, "epilogue"),
-    (quantize.shift_fast, "shifts")])
+    (quantize.shift_fast, "shifts"),
+    (quantize.extract_ub_plane, "extract"),
+    (complex_gemm._extract_ub_lanes, "extract"),
+    (quantize.estimate_gemm, "estimate")])
 def test_other_routes_carry_their_span(fn, layer):
     assert fn.span == layer
     assert fn.__wrapped__.__name__ == fn.__name__
