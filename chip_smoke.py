@@ -86,20 +86,25 @@ TAG = {torch.float64: "f64", torch.float32: "f32",
 # complex main paths: name, dtype, nu, entry, and the launches of one call
 # (encode kernel: none, the wgmma product kernel's launches -- one for the
 # 3nu planes --, complex epilogue, recombine, real epilogue, torch._int_mm
-# calls and transposing passes: none on a main path, and the lane encoder:
-# one a side)
-CPATHS = (("zgemm16", torch.complex128, 16, "gemm", (0, 1, 1, 0, 0, 0, 0, 2)),
-          ("cgemm8", torch.complex64, 8, "gemm", (0, 1, 1, 0, 0, 0, 0, 2)),
-          ("zgemm20", torch.complex128, 20, "gemm", (0, 1, 0, 1, 2, 0, 0, 2)),
-          ("herk16", torch.complex128, 16, "herk", (0, 1, 1, 0, 0, 0, 0, 1)))
+# calls and transposing passes: none on a main path, the lane encoder:
+# one a side, and accurate mode's bound planes, K11: none in fast mode)
+CPATHS = (("zgemm16", torch.complex128, 16, "gemm",
+           (0, 1, 1, 0, 0, 0, 0, 2, 0)),
+          ("cgemm8", torch.complex64, 8, "gemm", (0, 1, 1, 0, 0, 0, 0, 2, 0)),
+          ("zgemm20", torch.complex128, 20, "gemm",
+           (0, 1, 0, 1, 2, 0, 0, 2, 0)),
+          ("herk16", torch.complex128, 16, "herk",
+           (0, 1, 1, 0, 0, 0, 0, 1, 0)))
 COUNT_KEYS = ("encode_planes", "matmul_i8_wgmma_kloop",
               "fused_epilogue_complex", "fused_recombine_3m",
-              "fused_epilogue", "_int_mm", "transpose_i8", "encode_lanes")
+              "fused_epilogue", "_int_mm", "transpose_i8", "encode_lanes",
+              "extract_ub")
 # an FP8 path's launches: FP8 encodes, FP8 products, FP8 epilogue, and none
 # of the INT8 path's (encode, int8 products, real epilogue, lane encoder)
+# nor K11's
 FP8_COUNT_KEYS = ("encode_planes_fp8", "_scaled_mm", "fused_epilogue_fp8",
                   "encode_planes", "matmul_i8_wgmma_kloop", "fused_epilogue",
-                  "_int_mm", "encode_lanes")
+                  "_int_mm", "encode_lanes", "extract_ub")
 # the probe tools' int8 products: kernels entry, probes module and function,
 # the kernel's schedule, and the Pallas function replaced. All run the wgmma
 # kernel, which stages 128 bytes of K a step whatever the tool's depth, so
@@ -803,6 +808,169 @@ def shift_times(card):
           f"K10 differs from its plain version by more than a flip at the "
           f"floor's edge: {edge[:5]}")
     return rows, counts
+
+
+def extract_operand(rng, shape, dt, reduce_axis):
+    """K10's operand families (shift_operand) with, along the reduce axis,
+    the rest of tests/test_torch_extract_kernel.py's edge_operand: an amax
+    just under 2^10 (rounds up to it in f32 for f64), amax past 2^128 (f64:
+    Inf in f32, the log2 branch), subnormal elements among normal ones, a
+    +Inf, a -Inf and a NaN element."""
+    x = shift_operand(rng, shape, dt, reduce_axis)
+    x = np.array(x if reduce_axis == 1 else x.T)
+    n, w = x.shape
+    j = np.arange(w)
+
+    def peak(v, top):      # v scaled so that its largest |element| is top
+        m = np.abs(v).max()
+        return v / m * top if m > 0 else v
+
+    rows = {7: peak(x[7 % n], 2.0 ** 10 * (1 - 2.0 ** -30)),
+            8: np.where(rng.random(w) < 0.5, x[8 % n], x[8 % n] * (
+                1e-310 if dt == np.float64 else 1e-40)),
+            9: np.where(j == w // 2, np.inf, x[9 % n]),
+            10: np.where(j == 0, -np.inf, x[10 % n]),
+            11: np.where(j == w - 1, np.nan, x[11 % n])}
+    if dt == np.float64:
+        rows[12] = peak(x[12 % n], 2.0 ** 128 * (1 - 2.0 ** -26))
+    with np.errstate(over="ignore", invalid="ignore"):
+        for i, v in rows.items():
+            if i < n:
+                x[i] = v.astype(dt)
+    return np.ascontiguousarray(x if reduce_axis == 1 else x.T)
+
+
+def extract_cases(rng):
+    """K11 against its plain version on the card, bit for bit, planes and
+    pre-shifts: every shape of SHIFT_SHAPES on both routes (A's rows, B's
+    columns), f64 and f32, INT8's int8 planes and FP8's bf16 ones, every
+    fourth case misaligned (one element into a buffer: no 16-byte loads);
+    then the layouts quantize.extract_ub_plane is handed (a transposed
+    view, a column stripe as the blocked path's, every other row, every
+    other column). Each plane must be contiguous along the reduce axis.
+    Fails unless the cases took the row route (one launch) and the column
+    route (two), f64 and f32, both backends, with rows above 2^126, zero
+    rows and non-finite elements."""
+    from gemmul8_tpu_torch import kernels, quantize
+    seen, i = set(), 0
+    for dt in (np.float64, np.float32):
+        tag = "f64" if dt == np.float64 else "f32"
+        for shape in SHIFT_SHAPES:
+            for scale_axis in (0, 1):
+                for backend in ("INT8", "FP8"):
+                    i += 1
+                    mis = i % 4 == 3
+                    x = on_card(extract_operand(rng, shape, dt,
+                                                1 - scale_axis), mis)
+                    n0 = kernels.LAUNCHES["extract_ub"]
+                    got = kernels.extract_ub(x, backend, scale_axis)
+                    n = kernels.LAUNCHES["extract_ub"] - n0
+                    what = (f"K11 {tag} {shape} scale_axis={scale_axis} "
+                            f"{backend} misaligned={mis}")
+                    compare(f"extract_ub[{tag}]", got,
+                            kernels.extract_ub_plain(x, backend, scale_axis),
+                            what)
+                    check(got[0].stride(1 - scale_axis) == 1
+                          or shape[1 - scale_axis] == 1,
+                          f"{what}: plane strides {got[0].stride()}")
+                    amax = x.abs().amax(dim=1 - scale_axis)
+                    seen.add((n, tag, backend))
+                    seen |= {"big"} if bool((amax > 2.0 ** 126).any()) else set()
+                    seen |= {"zero"} if bool((amax == 0).any()) else set()
+                    seen |= ({"nonfinite"} if not bool(torch.isfinite(x).all())
+                             else set())
+        base = on_card(extract_operand(rng, (300, 264), dt, 1))
+        for view in (base.T, base[:, 3:200], base[::2], base[:, ::2]):
+            for scale_axis in (0, 1):
+                for backend in ("INT8", "FP8"):
+                    compare(f"extract_ub[{tag}]",
+                            quantize.extract_ub_plane(view, backend,
+                                                      scale_axis),
+                            kernels.extract_ub_plain(view, backend,
+                                                     scale_axis),
+                            f"K11 {tag} view {tuple(view.shape)} strides "
+                            f"{view.stride()} scale_axis={scale_axis} "
+                            f"{backend}")
+    want = {(n, tag, backend) for n in (1, 2) for tag in ("f64", "f32")
+            for backend in ("INT8", "FP8")} | {"big", "zero", "nonfinite"}
+    check(want <= seen, f"K11 cases missed {want - seen}")
+    log(f"K11 vs plain on the card, bit-equal: {CASES['extract_ub[f64]']} f64 "
+        f"and {CASES['extract_ub[f32]']} f32 cases, both routes, both "
+        f"backends")
+
+
+def cell_phi2_operands(seed):
+    """The accurate cell's operands at 8192^2 made on the card:
+    (U - 0.5) exp(2 N), as h100bench's sq8192phi2 mix draws them."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return [(torch.rand((FULL, FULL), generator=gen, dtype=torch.float64,
+                        device="cuda") - 0.5)
+            * torch.exp(2.0 * torch.randn((FULL, FULL), generator=gen,
+                                          dtype=torch.float64, device="cuda"))
+            for _ in range(2)]
+
+
+def full_size_extract_cases():
+    """K11 at the accurate cell's shape: A's rows and B's columns of 8192^2
+    phi = 2 operands (from SEED + 24) against the plain version, INT8 and
+    FP8, bit for bit; then the accurate DGEMM 8192^3 nu=16 on them with
+    K11 and with the plain extraction in its place: the outputs must be
+    bit-identical."""
+    import gemmul8_tpu_torch as gt
+    from gemmul8_tpu_torch import kernels
+    a, b = cell_phi2_operands(SEED + 24)
+    for x, axis, side in ((a, 0, "A"), (b, 1, "B")):
+        for backend in ("INT8", "FP8"):
+            compare("extract_ub[f64]", kernels.extract_ub(x, backend, axis),
+                    kernels.extract_ub_plain(x, backend, axis),
+                    f"K11 full-size phi=2 {side} {backend}")
+    torch.cuda.empty_cache()
+    with_k11 = gt.gemm(a, b, num_moduli=16, fastmode=False)
+    orig = kernels.extract_ub
+    kernels.extract_ub = kernels.extract_ub_plain
+    try:
+        plain = gt.gemm(a, b, num_moduli=16, fastmode=False)
+    finally:
+        kernels.extract_ub = orig
+    assert_bits_equal(with_k11, plain, "accurate DGEMM 8192^3 phi=2 with "
+                      "K11 vs with the plain extraction")
+    log("accurate DGEMM 8192^3 nu=16 phi=2: output bit-identical with K11 "
+        "and with the plain extraction")
+    del a, b, with_k11, plain
+    torch.cuda.empty_cache()
+
+
+def extract_times(card):
+    """Phase 6: K11 on the accurate cell's 8192^2 f64 operands (phi = 2),
+    A's rows and B's columns apart, INT8: its time (CUDA events, median of
+    10) and launches beside the plain version's (median of 3) and the
+    bound of counts_accurate.extract (the operand read once, its int8
+    plane and int32 pre-shifts written once, at 3.35 TB/s: 0.180 ms a
+    side, 0.361 ms the pair; the column route reads B twice)."""
+    from gemmul8_tpu_torch import kernels
+    a, b = cell_phi2_operands(SEED + 24)
+    rows = []
+    for x, axis, side in ((a, 0, "A"), (b, 1, "B")):
+        n0 = kernels.LAUNCHES["extract_ub"]
+        kernels.extract_ub(x, "INT8", axis)
+        launches = kernels.LAUNCHES["extract_ub"] - n0
+        ms = cuda_ms(lambda: kernels.extract_ub(x, "INT8", axis), reps=10)
+        plain_ms = cuda_ms(lambda: kernels.extract_ub_plain(x, "INT8", axis),
+                           reps=3)
+        bound_ms = (x.numel() * 9 + 4 * FULL) / PEAK_BYTES * 1e3
+        check(bound_ms <= ms, f"K11 {side} faster than its bound")
+        rows.append(dict(side=side, launches=launches, ms=ms,
+                         bound_ms=bound_ms, share=bound_ms / ms,
+                         plain_ms=plain_ms))
+        log(f"times {card} | K11 {side} 8192x8192 f64 phi=2 INT8: "
+            f"{ms:.4f} ms ({launches} launches), bound {bound_ms:.4f} ms "
+            f"({100 * bound_ms / ms:.1f} %), plain {plain_ms:.4f} ms")
+    log(f"times {card} | K11 A + B {sum(r['ms'] for r in rows):.4f} ms, "
+        f"bound {sum(r['bound_ms'] for r in rows):.4f} ms, plain "
+        f"{sum(r['plain_ms'] for r in rows):.4f} ms")
+    del a, b
+    torch.cuda.empty_cache()
+    return rows
 
 
 def fp8_encode_cases(rng):
@@ -1597,8 +1765,9 @@ def real_main_path(a, b, nu, backend):
     dt = a.dtype
     c, counts = run_counted(lambda: gt.gemm(a, b, num_moduli=nu,
                                             backend=backend))
-    keys, want = ((COUNT_KEYS, (2, 1, 0, 0, 1, 0, 0, 0)) if backend == "INT8"
-                  else (FP8_COUNT_KEYS, (2, 3 * nu, 1, 0, 0, 0, 0, 0)))
+    keys, want = ((COUNT_KEYS, (2, 1, 0, 0, 1, 0, 0, 0, 0))
+                  if backend == "INT8"
+                  else (FP8_COUNT_KEYS, (2, 3 * nu, 1, 0, 0, 0, 0, 0, 0)))
     check(tuple(counts[k] for k in keys) == want
           and counts["shift_fast"] == SHIFT_LAUNCHES["gemm"],
           f"{backend} main path {dt} nu={nu} launches {counts}, want "
@@ -1827,34 +1996,36 @@ def complex_main_paths(A, B):
 
 # the launches one call makes: K1, the wgmma product kernel, K2, K6,
 # _scaled_mm, K3, K4, K5, the _int_mm calls of the estimates, all _int_mm
-# calls (the estimates' alone), the transposing passes (none) and K1l
+# calls (the estimates' alone), the transposing passes (none), K1l and K11
+# (A's rows one launch, B's columns two; the complex lanes' bounds are
+# plain torch)
 ACCURATE_KEYS = ("encode_planes", "matmul_i8_wgmma_kloop", "fused_epilogue",
                  "encode_planes_fp8", "_scaled_mm", "fused_epilogue_fp8",
                  "fused_epilogue_complex", "fused_recombine_3m",
                  "estimate_int_mm", "_int_mm", "transpose_i8",
-                 "encode_lanes")
+                 "encode_lanes", "extract_ub")
 BATCH = 8          # gemm_batched: 8 x (FULL/4)^3 = 8 x 2048^3
 # name, dtype, nu, backend, entry, fastmode, launches of one call
 APATHS = (
     ("dgemm16 accurate", torch.float64, 16, "INT8", "gemm", False,
-     (2, 1, 1, 0, 0, 0, 0, 0, 1, 1, 0, 0)),
+     (2, 1, 1, 0, 0, 0, 0, 0, 1, 1, 0, 0, 3)),
     ("sgemm8 accurate", torch.float32, 8, "INT8", "gemm", False,
-     (2, 1, 1, 0, 0, 0, 0, 0, 1, 1, 0, 0)),
+     (2, 1, 1, 0, 0, 0, 0, 0, 1, 1, 0, 0, 3)),
     ("fp8 dgemm14 accurate", torch.float64, 14, "FP8", "gemm", False,
-     (0, 0, 0, 2, 42, 1, 0, 0, 4, 4, 0, 0)),
+     (0, 0, 0, 2, 42, 1, 0, 0, 4, 4, 0, 0, 3)),
     ("zgemm16 accurate", torch.complex128, 16, "INT8", "gemm", False,
-     (0, 1, 0, 0, 0, 0, 1, 0, 3, 3, 0, 2)),
+     (0, 1, 0, 0, 0, 0, 1, 0, 3, 3, 0, 2, 0)),
     ("herk16 accurate", torch.complex128, 16, "INT8", "herk", False,
-     (0, 1, 0, 0, 0, 0, 1, 0, 3, 3, 0, 1)),
+     (0, 1, 0, 0, 0, 0, 1, 0, 3, 3, 0, 1, 0)),
     ("syrk16 robust", torch.float64, 16, "INT8", "syrk", "robust",
-     (1, 1, 1, 0, 0, 0, 0, 0, 0, 0, 0, 0)),
+     (1, 1, 1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)),
     ("syrk16 accurate", torch.float64, 16, "INT8", "syrk", False,
-     (1, 1, 1, 0, 0, 0, 0, 0, 1, 1, 0, 0)),
+     (1, 1, 1, 0, 0, 0, 0, 0, 1, 1, 0, 0, 1)),
     ("fp8 syrk14 accurate", torch.float64, 14, "FP8", "syrk", False,
-     (0, 0, 0, 1, 42, 1, 0, 0, 4, 4, 0, 0)),
+     (0, 0, 0, 1, 42, 1, 0, 0, 4, 4, 0, 0, 1)),
     ("batched 8x2048^3 nu=16 accurate", torch.float64, 16, "INT8", "batched",
      False, (2 * BATCH, BATCH, BATCH, 0, 0, 0, 0, 0, BATCH, BATCH, 0,
-            0)),
+            0, 3 * BATCH)),
 )
 
 
@@ -2220,11 +2391,12 @@ ENTRY_RUNS: dict = {}
 # the launches that tell the entry-point paths apart: shifts (the fast
 # shifts' calls, counted by run_counted), K1, K6, the products (the wgmma
 # kernel, _scaled_mm), K2, K3, K4, the torch._int_mm calls (accurate mode's
-# estimates alone), transposing passes (none) and K1l
+# estimates alone), transposing passes (none), K1l and K11 (accurate mode's
+# bound planes: one launch a stripe of A, two a stripe of B)
 ENTRY_KEYS = ("shift_fast_calls", "encode_planes", "encode_planes_fp8",
               "matmul_i8_wgmma_kloop", "_scaled_mm", "fused_epilogue",
               "fused_epilogue_fp8", "fused_epilogue_complex", "_int_mm",
-              "transpose_i8", "encode_lanes")
+              "transpose_i8", "encode_lanes", "extract_ub")
 LD = FULL + 64                        # the compat buffers' leading dimension
 
 
@@ -2380,7 +2552,7 @@ def blocked_paths(a64, b64, card):
         lambda: gt.gemm(a64, b64, num_moduli=nu, fastmode=False,
                         m_block=FULL // 2, n_block=FULL // 2),
         {"encode_planes": 2 + 4, "matmul_i8_wgmma_kloop": 4, "_int_mm": 4,
-         "fused_epilogue": 4})
+         "fused_epilogue": 4, "extract_ub": 2 + 2 * 2})
     assert_bits_equal(got, want, "accurate tiles vs unstriped")
     del got, want
     torch.cuda.empty_cache()
@@ -4714,7 +4886,7 @@ def solver_times(x, card):
 SUMMA_KEYS = ("encode_planes", "matmul_i8_wgmma_kloop", "fused_epilogue",
               "encode_planes_fp8", "_scaled_mm", "fused_epilogue_fp8",
               "reassemble_fp8", "fused_epilogue_complex", "estimate_int_mm",
-              "_int_mm", "transpose_i8", "encode_lanes")
+              "_int_mm", "transpose_i8", "encode_lanes", "extract_ub")
 SUMMA_PANEL = 2048                     # k_panel of the 8192^3 streams: 4 steps
 SUMMA_RUNS: dict = {}                  # case -> (dtype tag, launch counts)
 SUMMA_MESHES: dict = {}                # device type -> its 1x1 mesh
@@ -4722,29 +4894,29 @@ SUMMA_MESHES: dict = {}                # device type -> its 1x1 mesh
 # the launches one call makes (SUMMA_KEYS order)
 SUMMA_PATHS = (
     ("dgemm16 gather", torch.float64, dict(num_moduli=16),
-     (2, 1, 1, 0, 0, 0, 0, 0, 0, 0, 0, 0)),
+     (2, 1, 1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)),
     ("dgemm16 stream ring", torch.float64,
      dict(num_moduli=16, k_panel=SUMMA_PANEL),
-     (2, 4, 1, 0, 0, 0, 0, 0, 0, 0, 0, 0)),
+     (2, 4, 1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)),
     ("dgemm16 stream psum", torch.float64,
      dict(num_moduli=16, k_panel=SUMMA_PANEL, bcast="psum"),
-     (2, 4, 1, 0, 0, 0, 0, 0, 0, 0, 0, 0)),
+     (2, 4, 1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)),
     ("dgemm16 robust", torch.float64, dict(num_moduli=16, fastmode="robust"),
-     (2, 1, 1, 0, 0, 0, 0, 0, 0, 0, 0, 0)),
+     (2, 1, 1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)),
     ("dgemm16 accurate", torch.float64, dict(num_moduli=16, fastmode=False),
-     (2, 1, 1, 0, 0, 0, 0, 0, 1, 1, 0, 0)),
+     (2, 1, 1, 0, 0, 0, 0, 0, 1, 1, 0, 0, 0)),
     ("sgemm8 gather", torch.float32, dict(num_moduli=8),
-     (2, 1, 1, 0, 0, 0, 0, 0, 0, 0, 0, 0)),
+     (2, 1, 1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)),
     ("fp8 dgemm14 gather", torch.float64, dict(num_moduli=14, backend="FP8"),
-     (0, 0, 0, 2, 42, 1, 0, 0, 0, 0, 0, 0)),
+     (0, 0, 0, 2, 42, 1, 0, 0, 0, 0, 0, 0, 0)),
     ("fp8 dgemm14 stream", torch.float64,
      dict(num_moduli=14, backend="FP8", k_panel=SUMMA_PANEL),
-     (0, 0, 1, 2, 168, 0, 4, 0, 0, 0, 0, 0)),
+     (0, 0, 1, 2, 168, 0, 4, 0, 0, 0, 0, 0, 0)),
     ("zgemm16 planar gather", torch.complex128, dict(num_moduli=16),
-     (0, 1, 0, 0, 0, 0, 0, 1, 0, 0, 0, 2)),
+     (0, 1, 0, 0, 0, 0, 0, 1, 0, 0, 0, 2, 0)),
     ("zgemm16 planar stream", torch.complex128,
      dict(num_moduli=16, k_panel=SUMMA_PANEL),
-     (0, 4, 0, 0, 0, 0, 0, 1, 0, 0, 0, 2)),
+     (0, 4, 0, 0, 0, 0, 0, 1, 0, 0, 0, 2, 0)),
 )
 SUMMA_HOLD_ROWS = 1024
 
@@ -5684,6 +5856,8 @@ def main():
     lane_encode_cases(np.random.default_rng(SEED + 22))
     # K10, the fast shifts, on a stream of their own
     shift_cases(np.random.default_rng(SEED + 19))
+    # K11, accurate mode's bound planes, on another
+    extract_cases(np.random.default_rng(SEED + 24))
     log(f"kernels vs plain, small shapes, all bit-equal: {CASES}")
     log_phase("phase 3 (kernels vs plain, FP8 product exactness)")
     if args.quick:
@@ -5732,6 +5906,7 @@ def main():
     # accurate mode, syrk and gemm_batched on the same operands: each kernel
     # at their inputs, then the paths
     full_size_accurate_cases(a64, b64, A, B)
+    full_size_extract_cases()
     log(f"kernels vs plain, all bit-equal, accurate full size included: "
         f"{CASES}")
     accurate_runs = accurate_paths(a64, b64, A, B)
@@ -5916,6 +6091,7 @@ def main():
     probe_runs = probe_paths()
     ptiming = probe_times(a64, b64, card)
     stiming, shift_counts = shift_times(card)
+    etiming = extract_times(card)
     log_phase("phase 6 (times)")
 
     # one entry per kernel and main path: launches are that path's own gemm
@@ -5934,6 +6110,19 @@ def main():
         bound_ms=sum(r["bound_ms"] for r in sq), bound_by="bytes",
         library_ms=None, path="gemm f64 8192^3 nu=16",
         shape="A (rows) and B (columns) 8192x8192 f64", cells=stiming))
+    kern.append(dict(
+        name="extract_ub[f64]", route="cuda",
+        source="gemmul8_tpu_torch/csrc/extract.cu",
+        replaces="none: gemmul8_tpu/quantize.py extract_ub_plane is jnp",
+        launches=accurate_runs["dgemm16 accurate"][0]["extract_ub"],
+        max_abs_err=MAX_ABS_ERR["extract_ub[f64]"],
+        cases=CASES["extract_ub[f64]"] + CASES["extract_ub[f32]"],
+        ms=sum(r["ms"] for r in etiming),
+        plain_ms=sum(r["plain_ms"] for r in etiming),
+        bound_ms=sum(r["bound_ms"] for r in etiming), bound_by="bytes",
+        library_ms=None, path="gemm f64 8192^3 nu=16 fastmode=False",
+        shape="A (rows) and B (columns) 8192x8192 f64 phi=2, INT8",
+        sides=etiming))
     for dt, nu in PATHS:
         t, tag = timing[dt], TAG[dt]
         kern += [

@@ -63,7 +63,7 @@
 //  - Complex: Re and Im through two pointers; the logical row or column is
 //    Re's followed by Im's, as torch.cat([re, im], dim=reduce_axis) lays it
 //    out, so no concatenated copy is made.
-#include "common.cuh"
+#include "shift.cuh"
 
 namespace {
 
@@ -78,52 +78,9 @@ constexpr float kLog2Nudge = 0x1p-18f;
 constexpr float kLog2HalfRU = 0x1.000006p-1f;  // quantize.LOG2_HALF_RU
 constexpr float kSftMargin = 0x1p-14f;         // quantize.SFT_MARGIN
 
-template <typename T> struct Word;
-template <> struct Word<double> {
-    using U = unsigned long long;      // the bits of |x|
-    using V = double2;                 // a 16-byte vector
-    static constexpr int W = 2;
-    __device__ static U abs_bits(double x) {
-        return (U)__double_as_longlong(x) & 0x7fffffffffffffffull;
-    }
-    __device__ static void split(const V& v, double (&e)[W]) {
-        e[0] = v.x; e[1] = v.y;
-    }
-};
-template <> struct Word<float> {
-    using U = unsigned int;
-    using V = float4;
-    static constexpr int W = 4;
-    __device__ static U abs_bits(float x) {
-        return __float_as_uint(x) & 0x7fffffffu;
-    }
-    __device__ static void split(const V& v, float (&e)[W]) {
-        e[0] = v.x; e[1] = v.y; e[2] = v.z; e[3] = v.w;
-    }
-};
-
-// int32 arithmetic that wraps, as torch's int32 tensors do
-__device__ __forceinline__ int wadd(int a, int b) {
-    return (int)((unsigned)a + (unsigned)b);
-}
-
 // torch.maximum's NaN propagation
 __device__ __forceinline__ float nan_max(float a, float b) {
     return (a != a) ? a : (b != b) ? b : fmaxf(a, b);
-}
-
-// quantize.ilogb of an f32: the biased exponent field less 127
-__device__ __forceinline__ int ilogb32(float a) {
-    return (int)((__float_as_uint(a) >> 23) & 0xFFu) - 127;
-}
-
-// quantize.ilogb of an f64: the f32 field where the f32 of a is normal and
-// finite, else floor(log2(max(a, tiny)) + 2^-32)
-__device__ __forceinline__ int ilogb64(double a) {
-    const float a32 = __double2float_rn(a);
-    if (a32 >= 0x1p-126f && isfinite(a32) && a32 > 0.0f) return ilogb32(a32);
-    const double m = (a != a) ? a : fmax(a, 2.2250738585072014e-308);
-    return __double2int_rz(floor(log2(m) + 0x1p-32));
 }
 
 // what a row's (column's) maximum fixes: the pre-scale and the norm scale,
@@ -182,48 +139,11 @@ struct RowScale {
     }
 };
 
-template <typename U>
-__device__ __forceinline__ U warp_max(U v) {
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-        const U o = __shfl_xor_sync(0xffffffffu, v, off);
-        v = o > v ? o : v;
-    }
-    return v;
-}
-
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
         v = v + __shfl_xor_sync(0xffffffffu, v, off);
     return v;
-}
-
-// the logical element j (or vector of W) of a row or column of `lanes`
-// lanes of `len` each: lane 0's from p0, lane 1's from p1 (im)
-template <typename T, bool VEC>
-__device__ __forceinline__ void load_vec(const T* __restrict__ p0,
-                                         const T* __restrict__ p1, int len,
-                                         int total, int j0,
-                                         T (&e)[Word<T>::W]) {
-    constexpr int W = Word<T>::W;
-    if (VEC) {      // len % W == 0: a vector lies in one lane, whole
-        if (j0 < total) {
-            const T* p = j0 < len ? p0 + j0 : p1 + (j0 - len);
-            Word<T>::split(
-                __ldg(reinterpret_cast<const typename Word<T>::V*>(p)), e);
-        } else {
-#pragma unroll
-            for (int s = 0; s < W; ++s) e[s] = T(0);
-        }
-    } else {
-#pragma unroll
-        for (int s = 0; s < W; ++s) {
-            const int j = j0 + s;
-            e[s] = j < total ? __ldg(j < len ? p0 + j : p1 + (j - len))
-                             : T(0);
-        }
-    }
 }
 
 // ---------------------------------------------------------------------------
@@ -303,7 +223,8 @@ shift_rows_kernel(const T* __restrict__ x0, const T* __restrict__ x1,
 
 // the scratch of the column route, in this order: pmax (slices x cols u64,
 // each slice's column maxima as bits), ps2 (slices x cols f32, each slice's
-// partial sums), count (one u32 a strip of columns)
+// partial sums), count (one u32 a strip of columns). K11's column route
+// (extract.cu) runs the first launch alone and reads pmax at the start.
 struct ColScratch {
     unsigned long long* pmax;
     float* ps2;

@@ -7,6 +7,11 @@ The counterpart of gemmul8_tpu/pallas_kernels.py:
                           gemmul8_tpu/quantize.py; K10, added to take their
                           plain-torch passes and host synchronises off the
                           card's path)
+  extract_ub              csrc/extract.cu       (no Pallas counterpart: the
+                          JAX package extracts accurate mode's bound
+                          planes in jnp, gemmul8_tpu/quantize.py; K11, on
+                          K10's frames, its column route after K10's
+                          column maxima)
   encode_planes           csrc/encode.cu        replaces encode_planes_tiles;
                           with im=, the lanes of a complex operand (no
                           Pallas counterpart: the JAX package builds the
@@ -64,7 +69,7 @@ import torch
 from . import ff, fp8, quantize, tables
 from .spans import span
 
-LAUNCHES = {"shift_fast": 0, "encode_planes": 0, "encode_lanes": 0,
+LAUNCHES = {"shift_fast": 0, "extract_ub": 0, "encode_planes": 0, "encode_lanes": 0,
             "encode_planes_fp8": 0, "encode_lanes_fp8": 0, "fused_epilogue": 0,
             "fused_epilogue_fp8": 0, "reassemble_fp8": 0,
             "fused_epilogue_complex": 0,
@@ -97,6 +102,13 @@ _ARGTYPES = {
     # vec, log2p, invariant, stream
     "shift_cols_sum": [_P, _P, _P, _P, _I, _I, _I, _L, _I, _I, _I, _I, _F,
                        _I, _P],
+    # x, plane, pre, is_f64, fp8, rows, cols, ld, threads, vec, max_ufp,
+    # stream
+    "extract_rows": [_P, _P, _P, _I, _I, _I, _I, _L, _I, _I, _I, _P],
+    # x, scratch, plane, pre, is_f64, fp8, rows, cols, ld, slice_len, slices,
+    # vec, max_ufp, stream
+    "extract_cols": [_P, _P, _P, _P, _I, _I, _I, _I, _L, _I, _I, _I, _I,
+                     _P],
     # x, sft, out, plan, is_f64, scale_axis, rows, cols, vec, stream
     "encode_planes": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # re, im, sft, out, plan, is_f64, scale_axis, rows, cols, vec, conj,
@@ -440,6 +452,86 @@ def shift_fast(x: torch.Tensor, num_moduli: int, backend: str,
     _launch("shift_cols_sum", *head, scratch.data_ptr(), out.data_ptr(),
             *shape, slice_len, slices, int(vec), *tail, count="shift_fast")
     return out
+
+
+# ---------------------------------------------------------------------------
+# accurate mode's upper-bound extraction (K11): K10's frames, a bound plane
+# ---------------------------------------------------------------------------
+
+def extract_ub_plain(x, backend, scale_axis):
+    """Plain version of K11: quantize.extract_ub_plane's torch operators, in
+    the JAX twin's order of operations."""
+    q = quantize
+    reduce_axis = 1 - scale_axis
+    ax = torch.abs(x)
+    amax = torch.amax(ax, dim=reduce_axis)
+    E = q.ilogb(torch.where(amax > 0, amax, torch.ones_like(amax)))
+    sft_pre = q.MAX_UFP[backend] - E
+    return q.extract_ub_with_pre(ax, sft_pre, reduce_axis, backend), sft_pre
+
+
+def _check_extract(x, backend, reduce_axis):
+    """The checks K11's wrapper makes, the device last (so that tensors on
+    the meta device show each refusal)."""
+    if x.dim() != 2 or x.dtype not in (torch.float32, torch.float64):
+        raise ValueError("extract_ub: x must be a 2-D f32 or f64 tensor")
+    if backend not in quantize.MAX_UFP:
+        raise ValueError(f"extract_ub: backend must be INT8 or FP8, got "
+                         f"{backend!r}")
+    if x.shape[reduce_axis] == 0:
+        raise ValueError("extract_ub: the reduce axis is empty")
+    if x.device.type != "cuda":
+        raise ValueError(f"extract_ub: unsupported device {x.device}")
+
+
+def extract_ub(x: torch.Tensor, backend: str, scale_axis: int):
+    """Accurate mode's (bound plane, int32 pre-shift) of each row
+    (scale_axis=0) or column (scale_axis=1) of x, f32 or f64: the plane int8
+    for INT8, bf16 for FP8 (quantize.extract_ub_plane).
+
+    On the card the operand is first laid out as K10 reads it
+    (shift_operands). Rows take one launch of K11, columns two (K10's
+    column maxima, then K11's plane); the device is never synchronised.
+    The plane is contiguous along the reduce axis: row-major (m, k) for A,
+    a (k, n) view of (n, k) storage for B, the layouts the estimation
+    product reads."""
+    if x.device.type == "cpu":
+        return extract_ub_plain(x, backend, scale_axis)
+    if scale_axis not in (0, 1):
+        raise ValueError("extract_ub: scale_axis must be 0 or 1")
+    x, _, reduce_axis = shift_operands(x, None, 1 - scale_axis)
+    _check_extract(x, backend, reduce_axis)
+    rows, cols = x.shape
+    fp8_plane = backend == _FP8
+    plane = plane_buffer((), rows, cols, 1 - reduce_axis, x.device,
+                         torch.bfloat16 if fp8_plane else torch.int8)
+    pre = torch.empty(rows if reduce_axis == 1 else cols, dtype=torch.int32,
+                      device=x.device)
+    if pre.numel():
+        width = shift_width(x.dtype)
+        ld = x.stride(0) if rows > 1 else cols
+        vec = cols % width == 0 and ld % width == 0 and x.data_ptr() % 16 == 0
+        shape = (int(x.dtype == torch.float64), int(fp8_plane), rows, cols,
+                 ld)
+        tail = (int(vec), quantize.MAX_UFP[backend], _stream(x))
+        if reduce_axis == 1:
+            _launch("extract_rows", x.data_ptr(), plane.data_ptr(),
+                    pre.data_ptr(), *shape, shift_row_threads(cols, width),
+                    *tail, count="extract_ub")
+        else:
+            slice_len, slices = shift_col_slices(rows, cols, width)
+            scratch = torch.empty(shift_scratch_bytes(cols, slices, width),
+                                  dtype=torch.uint8, device=x.device)
+            _launch("shift_cols_max", x.data_ptr(), x.data_ptr(),
+                    scratch.data_ptr(), shape[0], rows, cols, ld, 1,
+                    slice_len, slices, int(vec), _stream(x),
+                    count="extract_ub")
+            _launch("extract_cols", x.data_ptr(), scratch.data_ptr(),
+                    plane.data_ptr(), pre.data_ptr(), *shape, slice_len,
+                    slices, *tail, count="extract_ub")
+    if reduce_axis != 1 - scale_axis:       # laid out as its transpose
+        plane = plane.T
+    return plane, pre
 
 
 # ---------------------------------------------------------------------------

@@ -166,13 +166,14 @@ def extract_ub_with_pre(ax: torch.Tensor, sft_pre: torch.Tensor,
 def extract_ub_plane(x: torch.Tensor, backend: str, scale_axis: int):
     """(upper-bound plane of |x|, int32 pre-shift MAX_UFP - ilogb(amax)) per
     row (scale_axis=0) or column (scale_axis=1): amax scales into
-    [2^MAX_UFP, 2^(MAX_UFP+1)) (reference: scaling_accu_real.hpp:46-74)."""
-    reduce_axis = 1 - scale_axis
-    ax = torch.abs(x)
-    amax = torch.amax(ax, dim=reduce_axis)
-    E = ilogb(torch.where(amax > 0, amax, torch.ones_like(amax)))
-    sft_pre = MAX_UFP[backend] - E
-    return extract_ub_with_pre(ax, sft_pre, reduce_axis, backend), sft_pre
+    [2^MAX_UFP, 2^(MAX_UFP+1)) (reference: scaling_accu_real.hpp:46-74).
+
+    On the CPU this is kernels.extract_ub_plain, the JAX twin's order of
+    operations; on the card, kernel K11 (kernels.extract_ub), bit-equal to
+    it, whose planes are contiguous along the reduce axis (B's a (k, n)
+    view of (n, k) storage, as estimate_gemm reads it)."""
+    from . import kernels
+    return kernels.extract_ub(x, backend, scale_axis)
 
 
 def _k_contiguous(b: torch.Tensor) -> torch.Tensor:

@@ -163,7 +163,7 @@ def test_epilogue_wrapper_cpu_takes_plain_version():
             8, "INT8", torch.float64)
     assert torch.equal(kernels.fused_epilogue(*args),
                        kernels.fused_epilogue_plain(*args))
-    assert kernels.LAUNCHES == {"shift_fast": 0,
+    assert kernels.LAUNCHES == {"shift_fast": 0, "extract_ub": 0,
                                 "encode_planes": 0, "encode_lanes": 0,
                                 "encode_planes_fp8": 0,
                                 "encode_lanes_fp8": 0, "fused_epilogue": 0,

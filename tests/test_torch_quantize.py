@@ -149,7 +149,7 @@ def test_encode_wrapper_cpu_takes_plain_version():
     got = kernels.encode_planes(x, sft, 0, 8, "INT8")
     ref = kernels.encode_planes_plain(x, sft, 0, 8, "INT8")
     assert torch.equal(got, ref)
-    assert kernels.LAUNCHES == {"shift_fast": 0,
+    assert kernels.LAUNCHES == {"shift_fast": 0, "extract_ub": 0,
                                 "encode_planes": 0, "encode_lanes": 0,
                                 "encode_planes_fp8": 0,
                                 "encode_lanes_fp8": 0, "fused_epilogue": 0,
