@@ -18,6 +18,9 @@ B = RNG.standard_normal((70, 24))
 C = RNG.standard_normal((40, 24))
 ZA = A + 1j * RNG.standard_normal(A.shape)
 ZB = B + 1j * RNG.standard_normal(B.shape)
+# SGEMM's operands: the float64 ones rounded, so that both dtypes take the
+# same shapes and scales
+A32, B32, C32 = (x.astype(np.float32) for x in (A, B, C))
 
 STAGES = {"entry", "shifts", "encode", "products", "epilogue", "alpha_beta"}
 # accurate mode's scaling adds the bound planes and their product
@@ -34,6 +37,11 @@ ROUTES = {
                 STAGES | {"lanes"}),
     "fp8": (dict(a=A, b=B, num_moduli=12, backend="FP8", epilogue="ff"),
             STAGES),
+    # SGEMM at the benchmark's 8 moduli on the card's int32-limb epilogue:
+    # the f32 routes of the shifts, encode and epilogue
+    "sgemm": (dict(a=A32, b=B32, num_moduli=8, epilogue="ff"), STAGES),
+    "sgemm_alpha_beta": (dict(a=A32, b=B32, num_moduli=8, alpha=-1.0,
+                              beta=1.0, c=C32, epilogue="ff"), STAGES),
     "accurate": (dict(a=A, b=B, num_moduli=16, fastmode=False,
                       epilogue="ff"), ACCURATE),
     "accurate_striped": (dict(a=A, b=B, num_moduli=16, fastmode=False,
@@ -94,6 +102,24 @@ def test_spans_named_and_nested(route, tmp_path):
         lanes = [s for s in found if s[0] == "lanes"]
         assert all(any(inside(e, x) for x in lanes)
                    for e in found if e[0] == "encode")
+
+
+@pytest.mark.parametrize("f32, f64", [("sgemm", "real"),
+                                      ("sgemm_alpha_beta", "alpha_beta")])
+def test_float32_opens_the_float64_spans(f32, f64, tmp_path):
+    """An SGEMM call opens the spans of the DGEMM call on the same shapes,
+    in the same order and nesting: entry, shifts, encode (A, then B),
+    products, epilogue, with alpha_beta after the entry's emulation."""
+    def outline(route):
+        out, found = traced_spans(route, tmp_path)
+        found.sort(key=lambda s: (s[1], -s[2]))
+        return out.dtype, [(s[0], sum(inside(s, t) for t in found
+                                      if t is not s)) for s in found]
+    dtype32, spans32 = outline(f32)
+    dtype64, spans64 = outline(f64)
+    assert (dtype32, dtype64) == (torch.float32, torch.float64)
+    assert spans32 == spans64
+    assert {s[0] for s in spans32} == STAGES
 
 
 @pytest.mark.parametrize("route", list(ROUTES))
