@@ -973,6 +973,232 @@ def extract_times(card):
     return rows
 
 
+# K2's alpha/beta store: (alpha, beta) of each kind (kernels.ab_kind 1-5)
+# and the update cell's (-1, 1)
+AB_SCALARS = ((2.0, 0.0), (1.0, 1.0), (-1.25, 1.0), (1.0, 0.75),
+              (-1.25, 0.75), (-1.0, 1.0))
+
+
+def _alpha_beta(c, alpha, beta):
+    from gemmul8_tpu_torch import core, kernels
+    trivial_alpha, beta_kind = core.scalar_kinds(alpha, beta)
+    return kernels.AlphaBeta(None if beta_kind == "zero" else c, alpha, beta,
+                             trivial_alpha, beta_kind)
+
+
+def _k2_then_ab_epilogue(y, c, alpha, beta):
+    """The route K2's alpha/beta store replaced: K2's output, then
+    core.ab_epilogue's pass."""
+    from gemmul8_tpu_torch import core
+    trivial_alpha, beta_kind = core.scalar_kinds(alpha, beta)
+    return core.ab_epilogue(y, c, alpha, beta, has_c=True, epilogue="ff",
+                            trivial_alpha=trivial_alpha, beta_kind=beta_kind)
+
+
+def addcmul_rounding():
+    """torch.addcmul(x, s, t), s a 0-d card tensor (core.ab_epilogue's form),
+    rounds once on the card as on the CPU: the card's bits equal the CPU's
+    on the same inputs, and differ from x + s * t somewhere. K2's alpha/beta
+    store writes it as fma(s, t, x)."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 25)
+    for dt in (torch.float32, torch.float64):
+        x, t = (torch.randn(1 << 16, generator=g, device="cuda", dtype=dt)
+                for _ in range(2))
+        s = torch.tensor(-1.25, dtype=torch.float64, device="cuda").to(dt)
+        got = torch.addcmul(x, s, t)
+        assert_bits_equal(got, torch.addcmul(x.cpu(), s.cpu(), t.cpu()),
+                          f"addcmul {TAG[dt]} card vs cpu")
+        check(not bits_equal(got, x + s * t, "addcmul"),
+              f"addcmul {TAG[dt]}: no element shows the fused rounding")
+    log("torch.addcmul on the card rounds once (fused), as on the CPU")
+
+
+def alpha_beta_cases(rng):
+    """K2 with alpha and beta in its store (kernels.fused_epilogue with ab=)
+    against K2 followed by core.ab_epilogue on the card, the route it
+    replaced, bit for bit, and the whole padded output against the plain
+    version (alpha_beta_plain with C read as 0 outside its block): every
+    kind, f32 and f64 out, on any-int32 stacks padded as gemm pads them
+    with C a ragged block (200 x 300 in 256 x 384: whole vector loads),
+    a row-strided view (pitch 301: one by one) and one broadcast row, and
+    on K-chunked residue sums."""
+    from gemmul8_tpu_torch import kernels, tables
+    addcmul_rounding()
+    layouts = (("block", 256, 384, False), ("pitch 301", 256, 384, False),
+               ("broadcast row", 256, 384, False), ("chunked", 136, 200, True))
+    for layout, m, n, chunked in layouts:
+        for dt, nu in PATHS:
+            if chunked:
+                mods = tables.moduli("INT8")[:nu]
+                chi = np.stack([rng.integers(0, 3 * p, (m, n)) for p in mods])
+            else:
+                chi = rng.integers(-2 ** 31, 2 ** 31, (nu, m, n))
+            chi = torch.from_numpy(chi.astype(np.int32)).cuda()
+            sa, sb = (torch.from_numpy(rng.integers(-40, 90, size)
+                                       .astype(np.int32)).cuda()
+                      for size in (m, n))
+            y = kernels.fused_epilogue(chi, sa, sb, nu, "INT8", dt)
+            draw = torch.from_numpy(rng.standard_normal((m, n))).cuda().to(dt)
+            if layout == "block":
+                c = (y * draw)[:200, :300].contiguous()
+            elif layout == "pitch 301":
+                c = torch.nn.functional.pad(y * draw, (0, 1))[:200, :300]
+            elif layout == "broadcast row":
+                c = (y * draw)[:1].expand(m, n)
+            else:
+                c = (y * draw).contiguous()
+            mc, nc = c.shape
+            c_full = torch.zeros_like(y)
+            c_full[:mc, :nc] = c
+            for alpha, beta in AB_SCALARS:
+                ab = _alpha_beta(c, alpha, beta)
+                got = kernels.fused_epilogue(chi, sa, sb, nu, "INT8", dt,
+                                             ab=ab)
+                what = (f"K2 alpha/beta {layout} {m}x{n} nu={nu} {TAG[dt]} "
+                        f"alpha={alpha} beta={beta}")
+                compare(f"fused_epilogue_ab[{TAG[dt]}]", got[:mc, :nc],
+                        _k2_then_ab_epilogue(y[:mc, :nc], c, alpha, beta),
+                        what)
+                compare(f"fused_epilogue_ab[{TAG[dt]}]", got,
+                        kernels.alpha_beta_plain(
+                            kernels.fused_epilogue_plain(chi, sa, sb, nu,
+                                                         "INT8", dt),
+                            _alpha_beta(c_full, alpha, beta)),
+                        what + " (whole output vs plain)", count=False)
+    log(f"K2 alpha/beta vs K2 + ab_epilogue on the card, bit-equal: "
+        f"{CASES['fused_epilogue_ab[f64]']} f64 and "
+        f"{CASES['fused_epilogue_ab[f32]']} f32 cases")
+
+
+def upd_operands(seed):
+    """The update cell's operands on the card: A 8192 x 512, B 512 x 8192,
+    C 8192 x 8192, standard normal (f64)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return tuple(torch.randn(shape, generator=g, device="cuda",
+                             dtype=torch.float64)
+                 for shape in ((FULL, 512), (512, FULL), (FULL, FULL)))
+
+
+def upd_stack(a, b, nu):
+    """The shifts and K7's int32 stack of the update cell's product."""
+    from gemmul8_tpu_torch import core, kernels, quantize
+    sa = quantize.shift_fast(a, nu, "INT8", 1)
+    sb = quantize.shift_fast(b, nu, "INT8", 0)
+    c_hi = core.residue_matmul(kernels.encode_planes(a, sa, 0, nu, "INT8"),
+                               kernels.encode_planes(b, sb, 1, nu, "INT8"))
+    return c_hi, sa, sb
+
+
+class closed_route:
+    """core.folds_alpha_beta answering False: gemm applies alpha and beta in
+    core.ab_epilogue's pass after K2, as before the store took them."""
+
+    def __enter__(self):
+        from gemmul8_tpu_torch import core
+        self.orig = core.folds_alpha_beta
+        core.folds_alpha_beta = lambda *a, **k: False
+
+    def __exit__(self, *exc):
+        from gemmul8_tpu_torch import core
+        core.folds_alpha_beta = self.orig
+
+
+def full_size_alpha_beta_cases():
+    """K2's alpha/beta store at the update cell's shape (8192 x 512 x 8192,
+    standard normal, from SEED + 26) on the DGEMM nu=16 and SGEMM nu=8
+    paths' int32 stacks, every kind against K2 followed by
+    core.ab_epilogue; then the cell's call, gemm(alpha=-1, beta=1, c),
+    through the store (one fused_epilogue_ab launch) against the same call
+    with the route closed, bit for bit, and an alpha = 1, beta = 0 call that
+    launches K2 without it. Returns the DGEMM update's launches."""
+    import gemmul8_tpu_torch as gt
+    from gemmul8_tpu_torch import kernels
+    a64, b64, c64 = upd_operands(SEED + 26)
+    launches = {}
+    for dt, nu in PATHS:
+        a, b, c = (x.to(dt) for x in (a64, b64, c64))
+        c_hi, sa, sb = upd_stack(a, b, nu)
+        y = kernels.fused_epilogue(c_hi, sa, sb, nu, "INT8", dt)
+        for alpha, beta in AB_SCALARS:
+            compare(f"fused_epilogue_ab[{TAG[dt]}]",
+                    kernels.fused_epilogue(c_hi, sa, sb, nu, "INT8", dt,
+                                           ab=_alpha_beta(c, alpha, beta)),
+                    _k2_then_ab_epilogue(y, c, alpha, beta),
+                    f"K2 alpha/beta full-size 8192x8192 k=512 nu={nu} "
+                    f"{TAG[dt]} alpha={alpha} beta={beta}")
+        del c_hi, y
+        call = lambda: gt.gemm(a, b, num_moduli=nu, alpha=-1.0,  # noqa: E731
+                               beta=1.0, c=c)
+        got, counts = run_counted(call)
+        check(counts["fused_epilogue"] == 1
+              and counts["fused_epilogue_ab"] == 1,
+              f"update {TAG[dt]} nu={nu}: launches {counts}")
+        with closed_route():
+            ref, closed = run_counted(call)
+        check(closed["fused_epilogue_ab"] == 0, "closed route launched it")
+        assert_bits_equal(got, ref, f"update {TAG[dt]} nu={nu}: store vs "
+                          f"K2 + ab_epilogue")
+        _, plain = run_counted(lambda: gt.gemm(a, b, num_moduli=nu, c=c))
+        check(plain["fused_epilogue"] == 1 and plain["fused_epilogue_ab"] == 0,
+              f"alpha = 1, beta = 0 {TAG[dt]}: launches {plain}")
+        log(f"update {TAG[dt]} 8192x512x8192 nu={nu}: the store's output "
+            f"bit-equal to K2 + ab_epilogue's; launches {counts}")
+        launches.setdefault("f64", counts)
+        del got, ref, a, b, c
+        torch.cuda.empty_cache()
+    return launches["f64"]
+
+
+def alpha_beta_times(card):
+    """Phase 6: K2 on the update cell's f64 stack (8192^2, nu=16, k=512):
+    without C (alpha = 1, beta = 0), with the cell's alpha = -1, beta = 1
+    and C in its store, and K2 followed by core.ab_epilogue (the route the
+    store replaced), in turns (CUDA events, medians of 10 a pass, two
+    passes); then the cell's whole gemm call through the store and with the
+    route closed, likewise. Bounds: the stack read and the output written
+    (counts.epilogue), plus C's read with alpha and beta."""
+    import gemmul8_tpu_torch as gt
+    from gemmul8_tpu_torch import kernels
+    a, b, c = upd_operands(SEED + 26)
+    nu = 16
+    c_hi, sa, sb = upd_stack(a, b, nu)
+    ab = _alpha_beta(c, -1.0, 1.0)
+    k2 = {"K2": lambda: kernels.fused_epilogue(c_hi, sa, sb, nu, "INT8",
+                                               torch.float64),
+          "K2 alpha/beta": lambda: kernels.fused_epilogue(
+              c_hi, sa, sb, nu, "INT8", torch.float64, ab=ab),
+          "K2 + ab_epilogue": lambda: _k2_then_ab_epilogue(
+              kernels.fused_epilogue(c_hi, sa, sb, nu, "INT8",
+                                     torch.float64), c, -1.0, 1.0)}
+    t = {name: v[0] for name, v in in_turns(k2, reps=10).items()}
+    mn = FULL * FULL
+    bound = {"K2": (nu * 4 + 8) * mn / PEAK_BYTES * 1e3}
+    bound["K2 alpha/beta"] = bound["K2"] + 8 * mn / PEAK_BYTES * 1e3
+    for name in ("K2", "K2 alpha/beta"):
+        check(bound[name] <= t[name], f"{name} faster than its bound")
+    log(f"times {card} | update f64 8192^2 nu=16: K2 {t['K2']:.4f} ms "
+        f"(bound {bound['K2']:.4f}, {100 * bound['K2'] / t['K2']:.1f} %), "
+        f"K2 alpha/beta {t['K2 alpha/beta']:.4f} ms (bound "
+        f"{bound['K2 alpha/beta']:.4f}, "
+        f"{100 * bound['K2 alpha/beta'] / t['K2 alpha/beta']:.1f} %), "
+        f"K2 + ab_epilogue {t['K2 + ab_epilogue']:.4f} ms")
+    del c_hi
+    torch.cuda.empty_cache()
+
+    def closed():
+        with closed_route():
+            return gt.gemm(a, b, num_moduli=nu, alpha=-1.0, beta=1.0, c=c)
+
+    calls = {"store": lambda: gt.gemm(a, b, num_moduli=nu, alpha=-1.0,
+                                      beta=1.0, c=c),
+             "closed": closed}
+    g = {name: v[0] for name, v in in_turns(calls, reps=10).items()}
+    log(f"times {card} | update gemm f64 8192x512x8192 nu=16: through the "
+        f"store {g['store']:.4f} ms, route closed {g['closed']:.4f} ms")
+    return dict(t, bound=bound, gemm_store_ms=g["store"],
+                gemm_closed_ms=g["closed"])
+
+
 def fp8_encode_cases(rng):
     """The FP8 encoder (K6) against its plain version: f32 and f64, both
     sides, nu from the square moduli only (2) to mixed (6, 7, 13, 20), on
@@ -5858,6 +6084,8 @@ def main():
     shift_cases(np.random.default_rng(SEED + 19))
     # K11, accurate mode's bound planes, on another
     extract_cases(np.random.default_rng(SEED + 24))
+    # K2's alpha/beta store, on another
+    alpha_beta_cases(np.random.default_rng(SEED + 25))
     log(f"kernels vs plain, small shapes, all bit-equal: {CASES}")
     log_phase("phase 3 (kernels vs plain, FP8 product exactness)")
     if args.quick:
@@ -5874,6 +6102,8 @@ def main():
     main_launches = {dt: real_main_path(a64.to(dt), b64.to(dt), nu, "INT8")
                      for dt, nu in PATHS}
     log_phase("phase 4 (INT8 real paths)")
+    ab_launches = full_size_alpha_beta_cases()
+    log_phase("phase 4 (K2's alpha/beta store at the update's shape)")
     full_size_probe_cases(a64, b64)
     log(f"probe kernels bit-equal at the DGEMM path's inputs: {CASES}")
     log_phase("phase 4 (probe kernels at the DGEMM path's inputs)")
@@ -6092,6 +6322,7 @@ def main():
     ptiming = probe_times(a64, b64, card)
     stiming, shift_counts = shift_times(card)
     etiming = extract_times(card)
+    abtiming = alpha_beta_times(card)
     log_phase("phase 6 (times)")
 
     # one entry per kernel and main path: launches are that path's own gemm
@@ -6123,6 +6354,23 @@ def main():
         library_ms=None, path="gemm f64 8192^3 nu=16 fastmode=False",
         shape="A (rows) and B (columns) 8192x8192 f64 phi=2, INT8",
         sides=etiming))
+    kern.append(dict(
+        name="fused_epilogue_ab[f64]", route="cuda",
+        source="gemmul8_tpu_torch/csrc/epilogue.cu",
+        replaces="none: gemmul8_tpu/core.py _gemm_real applies alpha and "
+                 "beta in jnp",
+        launches=ab_launches["fused_epilogue_ab"],
+        max_abs_err=MAX_ABS_ERR["fused_epilogue_ab[f64]"],
+        cases=CASES["fused_epilogue_ab[f64]"]
+        + CASES["fused_epilogue_ab[f32]"],
+        ms=abtiming["K2 alpha/beta"], plain_ms=None,
+        bound_ms=abtiming["bound"]["K2 alpha/beta"], bound_by="bytes",
+        library_ms=None, k2_ms=abtiming["K2"],
+        k2_then_ab_epilogue_ms=abtiming["K2 + ab_epilogue"],
+        gemm_store_ms=abtiming["gemm_store_ms"],
+        gemm_closed_ms=abtiming["gemm_closed_ms"],
+        path="gemm f64 8192x512x8192 nu=16 alpha=-1 beta=1 c",
+        shape="16 x 8192 x 8192 int32 stack, C 8192x8192 f64"))
     for dt, nu in PATHS:
         t, tag = timing[dt], TAG[dt]
         kern += [

@@ -264,12 +264,13 @@ def reconstruct_scale(c_mid, sft_a, sft_b, num_moduli, backend, out_dtype,
 
 
 def _emulated_product(a_planes, sft_a, b_planes, sft_b, num_moduli, backend,
-                      out_dtype, epilogue):
+                      out_dtype, epilogue, fold=None):
     """Residue GEMM + epilogue from encoded planes. With "ff" the int32
     products (or their K-chunked residue sums) go straight into the fused
-    epilogue kernel, which emits the output dtype; on the FP8 backend the f32
-    lane products go into the FP8 epilogue kernel, and K-chunked residue
-    sums into the real one."""
+    epilogue kernel, which emits the output dtype (with `fold`, a
+    kernels.AlphaBeta that folds_alpha_beta admitted, alpha * ab + beta * C);
+    on the FP8 backend the f32 lane products go into the FP8 epilogue kernel,
+    and K-chunked residue sums into the real one."""
     ff_epilogue = resolve_epilogue(epilogue, a_planes.device) == "ff"
     if backend == tables.Backend.FP8:
         if not ff_epilogue:
@@ -290,7 +291,7 @@ def _emulated_product(a_planes, sft_a, b_planes, sft_b, num_moduli, backend,
             c_hi = _chunked_residue_acc(a_planes, b_planes, num_moduli,
                                         backend)
         return kernels.fused_epilogue(c_hi, sft_a, sft_b, num_moduli,
-                                      backend, out_dtype)
+                                      backend, out_dtype, ab=fold)
     c_mid = residue_gemm(a_planes, b_planes, num_moduli, backend)
     return reconstruct_scale(c_mid, sft_a, sft_b, num_moduli, backend,
                              out_dtype, epilogue)
@@ -307,25 +308,30 @@ def _pad128(x: torch.Tensor, axes) -> torch.Tensor:
     return torch.nn.functional.pad(x, pad) if any(pad) else x
 
 
+def _on_card(device) -> bool:
+    return torch.device(device).type != "cpu"
+
+
 @span("entry")
 def emulate_matmul(a: torch.Tensor, b: torch.Tensor, *, num_moduli: int,
                    fastmode=True, backend: str = tables.Backend.INT8,
-                   epilogue: str = "auto") -> torch.Tensor:
-    """Emulated a @ b (no alpha/beta) on a's device. On the card, operands
-    are zero-padded to multiples of 128 (the products' shape rules) and
-    the output is sliced back -- bit-identical to the unpadded math."""
+                   epilogue: str = "auto", fold=None) -> torch.Tensor:
+    """Emulated a @ b on a's device (alpha * a @ b + beta * C with `fold`,
+    gemm's route through K2: folds_alpha_beta). On the card, operands are
+    zero-padded to multiples of 128 (the products' shape rules) and the
+    output is sliced back -- bit-identical to the unpadded math."""
     out_dtype = a.dtype
     m, n = a.shape[0], b.shape[1]
     if a.shape[1] == 0:
         # BLAS k=0 semantics: the product is zero
         return torch.zeros((m, n), dtype=out_dtype, device=a.device)
-    if a.device.type != "cpu":
+    if _on_card(a.device):
         a = _pad128(a, (0, 1))
         b = _pad128(b, (0, 1))
     a_planes, sft_a, b_planes, sft_b = _quantize_operands(
         a.contiguous(), b.contiguous(), num_moduli, fastmode, backend)
     out = _emulated_product(a_planes, sft_a, b_planes, sft_b, num_moduli,
-                            backend, out_dtype, epilogue)
+                            backend, out_dtype, epilogue, fold)
     if out.shape != (m, n):
         out = out[:m, :n]
     return out
@@ -336,31 +342,32 @@ def ab_epilogue(ab, c, alpha, beta, *, has_c, epilogue, trivial_alpha,
                 beta_kind):
     """alpha * ab + beta * c as the JAX package's jitted _gemm_real computes
     it (core.py:330-350), for every real entry with an emulated product ab
-    (gemm, striped or not; compat's reuse of precomputed operands), so that
-    no route changes the bits."""
-    out_dtype = ab.dtype
-    # alpha == 1 / beta in {0, 1} special cases keep the common paths free of
-    # extra multiplies; beta == 0 never reads C
-    scalar = lambda v: torch.tensor(v, dtype=torch.float64,  # noqa: E731
-                                    device=ab.device).to(out_dtype)
-    if not has_c or beta_kind == "zero":
-        return ab if trivial_alpha else scalar(alpha) * ab
-    if beta_kind == "one":
-        return ab + c if trivial_alpha else torch.addcmul(c, scalar(alpha), ab)
-    # Where XLA:CPU contracts alpha*ab + beta*c depends on what produced ab
+    that does not fold alpha and beta into K2 (folds_alpha_beta): the CPU,
+    FP8, striped calls, compat's reuse of precomputed operands; so that no
+    route changes the bits. The arithmetic is kernels.alpha_beta_plain,
+    K2's, but for one case of the "f64" epilogue."""
+    # Where XLA:CPU contracts ab + beta*c depends on what produced ab
     # (pinned by tests/test_torch_gemm_ops.py): with the f64 epilogue's f64
-    # output, ab ends in an exact power-of-two multiply, so ab + beta*c stays
-    # two roundings; a general alpha fuses alpha*ab into the sum for f64
-    # outputs and beta*c for f32 outputs.
-    beta_t = scalar(beta)
-    if trivial_alpha:
-        if (out_dtype == torch.float64
-                and resolve_epilogue(epilogue, ab.device) == "f64"):
-            return ab + beta_t * c
-        return torch.addcmul(ab, beta_t, c)
-    if out_dtype == torch.float64:
-        return torch.addcmul(beta_t * c, scalar(alpha), ab)
-    return torch.addcmul(scalar(alpha) * ab, beta_t, c)
+    # output, ab ends in an exact power-of-two multiply, so it stays two
+    # roundings
+    if (has_c and beta_kind == "general" and trivial_alpha
+            and ab.dtype == torch.float64
+            and resolve_epilogue(epilogue, ab.device) == "f64"):
+        return ab + torch.tensor(beta, dtype=torch.float64,
+                                 device=ab.device) * c
+    return kernels.alpha_beta_plain(ab, kernels.AlphaBeta(
+        c if has_c else None, alpha, beta, trivial_alpha, beta_kind))
+
+
+def folds_alpha_beta(device, backend, epilogue, *, trivial_alpha, beta_kind,
+                     has_c) -> bool:
+    """Whether an unstriped real call applies alpha and beta in K2's store
+    (kernels.AlphaBeta) in place of ab_epilogue's pass over the output and
+    its blocking copy of alpha: on the card, on the INT8 backend with the
+    "ff" epilogue, unless alpha is 1 and no C is read."""
+    return (_on_card(device) and backend == tables.Backend.INT8
+            and resolve_epilogue(epilogue, device) == "ff"
+            and not (trivial_alpha and (beta_kind == "zero" or not has_c)))
 
 
 def scalar_kinds(alpha, beta) -> tuple[bool, str]:
@@ -456,13 +463,26 @@ def gemm(a, b, *, num_moduli: int = 8, fastmode=True,
                                          a.dtype, backend, device=device)
     mode = dict(num_moduli=num_moduli, fastmode=fastmode, backend=backend,
                 epilogue=epilogue)
+    alpha, beta = _real_scalar(alpha), _real_scalar(beta)
     if (m_block is not None or n_block is not None) and k_eff > 0:
         ab = emulate_matmul_blocked(at, bt, n_block=n_block or n_eff,
                                     m_block=m_block, **mode)
+    elif k_eff > 0 and folds_alpha_beta(device, backend, epilogue,
+                                        trivial_alpha=trivial_alpha,
+                                        beta_kind=beta_kind, has_c=has_c):
+        reads_c = has_c and beta_kind != "zero"
+        if reads_c:
+            # K2 reads C in place: row-strided views and broadcast rows too;
+            # any other layout becomes an exact contiguous copy
+            c = c.expand(m_eff, n_eff)
+            if n_eff > 1 and c.stride(1) != 1:
+                c = c.contiguous()
+        return emulate_matmul(at, bt, fold=kernels.AlphaBeta(
+            c if reads_c else None, alpha, beta, trivial_alpha, beta_kind),
+            **mode)
     else:
         ab = emulate_matmul(at, bt, **mode)
-    return ab_epilogue(ab, c, _real_scalar(alpha), _real_scalar(beta),
-                       has_c=has_c, epilogue=epilogue,
+    return ab_epilogue(ab, c, alpha, beta, has_c=has_c, epilogue=epilogue,
                        trivial_alpha=trivial_alpha, beta_kind=beta_kind)
 
 

@@ -41,6 +41,21 @@
 //     descale (emit_f64_direct) where it gives emit_f64's bits.
 //   - Limbs stay in registers; the static plan travels as a __grid_constant__
 //     kernel parameter. Nothing but the output is written.
+//
+// alpha * y + beta * C in the store (epilogue_ab_kernel, g8_fused_epilogue_ab):
+// where a real INT8 call on the card passes alpha, beta and C, the same rows
+// load C's four columns (f32 out before the planes, f64 out after y) and
+// fold alpha and beta into y before the store, in place of a pass over the
+// output (core.ab_epilogue) that reads y and C and writes a new matrix, and
+// of the blocking copy that built its alpha. The kind is a template parameter (AbKind); alpha and beta
+// are kernel arguments in the output's precision. The arithmetic is
+// core.ab_epilogue's on the "ff" epilogue, op for op, whose torch.addcmul(x,
+// s, t) rounds once on the card as on the CPU: fma(s, t, x). The plain
+// version is fused_epilogue_plain followed by ab_epilogue
+// (kernels.alpha_beta_plain). C is the top-left (mc, nc) block of the
+// (m, n) output, rows ldc apart (0: one row for all); the rest of the
+// output, padding the caller slices away, folds with C = 0. It costs C's
+// read, 8 (f64) or 4 bytes an element, against the pass's 24 or 12.
 #include <type_traits>
 
 #include "crt.cuh"
@@ -51,11 +66,72 @@ constexpr int kPlanes = 4;          // planes loaded before the first is used
 
 constexpr int kCols = 4;            // columns a thread
 
-template <typename T, bool F64, bool VEC, int L>
-__global__ void __launch_bounds__(32 * G8_TILE_ROWS)
-epilogue_kernel(const T* __restrict__ chi, const int* __restrict__ sfta,
-                const int* __restrict__ sftb, void* __restrict__ out, int m,
-                int n, const __grid_constant__ EpiloguePlan plan) {
+// what the store applies to the emulated product y (kernels.ab_kind), in
+// core.ab_epilogue's classes: beta 0 (or no C), 1 or general, alpha 1 or not
+enum AbKind : int {
+    kAbNone = 0,        // y
+    kAbAlpha = 1,       // alpha * y
+    kAbOne = 2,         // y + c
+    kAbOneAlpha = 3,    // fma(alpha, y, c)
+    kAbBeta = 4,        // fma(beta, c, y)
+    kAbBetaAlpha = 5,   // f64: fma(alpha, y, beta * c); f32: fma(beta, c, alpha * y)
+};
+
+template <typename O>
+struct AbArgs {
+    const O* c;         // C's (mc, nc) block, rows ldc elements apart
+    long long ldc;
+    int mc, nc;
+    int cvec;           // C 16-byte aligned and ldc * sizeof(O) a multiple of 16
+    O alpha, beta;
+};
+
+template <typename O>
+__device__ __forceinline__ O fma_o(O a, O b, O c) {
+    if constexpr (sizeof(O) == 8) return fma(a, b, c);
+    else return fmaf(a, b, c);
+}
+
+template <int AB, typename O>
+__device__ __forceinline__ O ab_fold(O y, O c, O alpha, O beta) {
+    if constexpr (AB == kAbAlpha) return alpha * y;
+    else if constexpr (AB == kAbOne) return y + c;
+    else if constexpr (AB == kAbOneAlpha) return fma_o(alpha, y, c);
+    else if constexpr (AB == kAbBeta) return fma_o(beta, c, y);
+    else if constexpr (AB == kAbBetaAlpha && sizeof(O) == 8)
+        return fma_o(alpha, y, beta * c);
+    else if constexpr (AB == kAbBetaAlpha) return fma_o(beta, c, alpha * y);
+    else return y;
+}
+
+// C's V values of row i from column j0, streamed past the caches: whole
+// 16-byte loads where the thread's columns lie in C's block and its rows are
+// aligned (cvec), else one by one; 0 outside the block
+template <int V, typename O>
+__device__ __forceinline__ void load_c(const AbArgs<O>& ab, int i, int j0,
+                                       O* cv) {
+    const int nv = i < ab.mc ? max(0, min(V, ab.nc - j0)) : 0;
+    const O* src = ab.c + (long long)i * ab.ldc + j0;
+    constexpr int bytes = V * (int)sizeof(O);
+    static_assert(bytes % 16 == 0, "whole 16-byte loads");
+    if (ab.cvec && nv == V) {
+        int w[bytes / 4];
+#pragma unroll
+        for (int s = 0; s < bytes / 16; ++s)
+            load_words<int4>(src + s * (16 / (int)sizeof(O)), w + 4 * s);
+        memcpy(cv, w, bytes);
+    } else {
+#pragma unroll
+        for (int v = 0; v < V; ++v) cv[v] = v < nv ? __ldcs(src + v) : O(0);
+    }
+}
+
+template <typename T, bool F64, bool VEC, int L, int AB>
+__device__ __forceinline__ void epilogue_rows(
+    const T* __restrict__ chi, const int* __restrict__ sfta,
+    const int* __restrict__ sftb, void* __restrict__ out, int m, int n,
+    const EpiloguePlan& plan,
+    const AbArgs<typename std::conditional<F64, double, float>::type>& ab) {
     constexpr int V = kCols;
     constexpr LimbCount<L> nl{};
     using O = typename std::conditional<F64, double, float>::type;
@@ -69,6 +145,11 @@ epilogue_kernel(const T* __restrict__ chi, const int* __restrict__ sfta,
 
     for (int i = t.i0; i < m; i += t.row_step) {
         const size_t off = (size_t)i * n + t.j0;
+        // C's columns: f32 out loads them before the planes, under whose
+        // loads their latency hides; f64 out after y, since its seven limbs
+        // a column leave no registers for them during the planes
+        O cv[V] = {};
+        if constexpr (AB >= kAbOne && !F64) load_c<V>(ab, i, t.j0, cv);
         int lim[V][G8_MAX_L];
 #pragma unroll
         for (int v = 0; v < V; ++v) limbs_zero(lim[v]);
@@ -104,8 +185,39 @@ epilogue_kernel(const T* __restrict__ chi, const int* __restrict__ sfta,
                 y[v] = emit_f32(lim[v], plan, descale_factors(sa),
                                 descale_factors(sb[v]), nl);
         }
+        if constexpr (AB >= kAbOne && F64) load_c<V>(ab, i, t.j0, cv);
+#pragma unroll
+        for (int v = 0; v < V; ++v)
+            y[v] = ab_fold<AB>(y[v], cv[v], ab.alpha, ab.beta);
         store_cols<V, VEC>(static_cast<O*>(out) + off, t.nv, y);
     }
+}
+
+template <typename T, bool F64, bool VEC, int L>
+__global__ void __launch_bounds__(32 * G8_TILE_ROWS)
+epilogue_kernel(const T* __restrict__ chi, const int* __restrict__ sfta,
+                const int* __restrict__ sftb, void* __restrict__ out, int m,
+                int n, const __grid_constant__ EpiloguePlan plan) {
+    epilogue_rows<T, F64, VEC, L, kAbNone>(chi, sfta, sftb, out, m, n, plan,
+                                           {});
+}
+
+// int32 input and whole vectors only: the entries pad the output to 128.
+// Six blocks an SM, at most 80 registers as K2's f64 kernel takes: on the
+// update's stack (8192^2, nu=16) on an H100, f64 out with C loaded after y
+// ran 5 % faster than at 95 registers and five blocks with C loaded
+// before y.
+constexpr int kAbMinBlocks = 6;
+
+template <bool F64, int L, int AB>
+__global__ void __launch_bounds__(32 * G8_TILE_ROWS, kAbMinBlocks)
+epilogue_ab_kernel(
+    const int* __restrict__ chi, const int* __restrict__ sfta,
+    const int* __restrict__ sftb, void* __restrict__ out, int m, int n,
+    const __grid_constant__ EpiloguePlan plan,
+    const AbArgs<typename std::conditional<F64, double, float>::type> ab) {
+    epilogue_rows<int, F64, true, L, AB>(chi, sfta, sftb, out, m, n, plan,
+                                         ab);
 }
 
 // the kernel for the plan's L: 2-7 for f64 out, 2-5 for f32 out (24 bits)
@@ -126,6 +238,33 @@ int launch(const void* chi, const int* a, const int* b, void* out,
                 c, a, b, out, m, n, plan);
         else
             return (int)cudaErrorInvalidValue;
+        return 0;
+    });
+}
+
+template <int AB>
+int launch_ab(const int* chi, const int* a, const int* b, void* out,
+              const void* c, long long ldc, int mc, int nc, int cvec,
+              double alpha, double beta, int out_f64, int m, int n,
+              const EpiloguePlan& plan, cudaStream_t st) {
+    dim3 grid, block;
+    tile_grid(m, n, kCols, grid, block);
+    return dispatch_l(plan.L, [&](auto nl) {
+        constexpr int L = decltype(nl)::value;
+        if (out_f64) {
+            const AbArgs<double> ab{static_cast<const double*>(c), ldc, mc, nc,
+                                    cvec, alpha, beta};
+            epilogue_ab_kernel<true, L, AB><<<grid, block, 0, st>>>(
+                chi, a, b, out, m, n, plan, ab);
+        } else if constexpr (L <= 5) {
+            // the wrapper passes alpha and beta rounded to f32: exact casts
+            const AbArgs<float> ab{static_cast<const float*>(c), ldc, mc, nc,
+                                   cvec, (float)alpha, (float)beta};
+            epilogue_ab_kernel<false, L, AB><<<grid, block, 0, st>>>(
+                chi, a, b, out, m, n, plan, ab);
+        } else {
+            return (int)cudaErrorInvalidValue;
+        }
         return 0;
     });
 }
@@ -158,5 +297,59 @@ extern "C" int g8_fused_epilogue(const void* chi, const void* sfta,
         err = launch<int, true>(chi, a, b, out, out_f64, m, n, plan, st);
     else
         err = launch<int, false>(chi, a, b, out, out_f64, m, n, plan, st);
+    return err ? err : (int)cudaGetLastError();
+}
+
+// K2 with alpha * y + beta * C in its store. chi: (nu, m, n) int32,
+// contiguous, n a multiple of kCols, chi and out 16-byte aligned; kind: an
+// AbKind other than kAbNone; c: C's (mc, nc) block (mc <= m, nc <= n), rows
+// ldc >= 0 elements apart, unit column stride, in the output's dtype; null
+// for kAbAlpha. cvec: c 16-byte aligned and ldc * sizeof(out) a multiple of
+// 16. alpha, beta: the scalars in the output's precision.
+// Returns the CUDA error of the launch (0 on success).
+extern "C" int g8_fused_epilogue_ab(const void* chi, const void* sfta,
+                                    const void* sftb, void* out, const void* c,
+                                    long long ldc, int mc, int nc, int cvec,
+                                    int kind, double alpha, double beta,
+                                    int out_f64, int m, int n,
+                                    const void* plan_ptr, void* stream) {
+    const EpiloguePlan& plan = *static_cast<const EpiloguePlan*>(plan_ptr);
+    const int size = out_f64 ? 8 : 4;
+    const bool reads_c = kind >= kAbOne;
+    if (plan.nu < 1 || plan.nu > G8_MAX_NU || plan.L < 1 || plan.L > G8_MAX_L
+        || m < 1 || n < 1 || n > 0x7fffffff - 32 * kCols || n % kCols
+        || ((uintptr_t)chi | (uintptr_t)out) % 16 || kind < kAbAlpha
+        || kind > kAbBetaAlpha
+        || (reads_c && (!c || mc < 1 || mc > m || nc < 1 || nc > n || ldc < 0
+                        || (cvec && ((uintptr_t)c % 16
+                                     || (ldc * size) % 16)))))
+        return (int)cudaErrorInvalidValue;
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const int* x = static_cast<const int*>(chi);
+    const int* a = static_cast<const int*>(sfta);
+    const int* b = static_cast<const int*>(sftb);
+    int err;
+    switch (kind) {
+        case kAbAlpha:
+            err = launch_ab<kAbAlpha>(x, a, b, out, c, ldc, mc, nc, cvec,
+                                      alpha, beta, out_f64, m, n, plan, st);
+            break;
+        case kAbOne:
+            err = launch_ab<kAbOne>(x, a, b, out, c, ldc, mc, nc, cvec, alpha,
+                                    beta, out_f64, m, n, plan, st);
+            break;
+        case kAbOneAlpha:
+            err = launch_ab<kAbOneAlpha>(x, a, b, out, c, ldc, mc, nc, cvec,
+                                         alpha, beta, out_f64, m, n, plan, st);
+            break;
+        case kAbBeta:
+            err = launch_ab<kAbBeta>(x, a, b, out, c, ldc, mc, nc, cvec,
+                                     alpha, beta, out_f64, m, n, plan, st);
+            break;
+        default:
+            err = launch_ab<kAbBetaAlpha>(x, a, b, out, c, ldc, mc, nc, cvec,
+                                          alpha, beta, out_f64, m, n, plan,
+                                          st);
+    }
     return err ? err : (int)cudaGetLastError();
 }

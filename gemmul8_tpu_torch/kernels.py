@@ -19,7 +19,10 @@ The counterpart of gemmul8_tpu/pallas_kernels.py:
   encode_planes_fp8       csrc/encode_fp8.cu    replaces encode_planes_fp8_tiles
   encode_lanes_fp8        csrc/encode_lanes_fp8.cu  (no Pallas counterpart: the
                           JAX package builds complex FP8 lanes in jnp)
-  fused_epilogue          csrc/epilogue.cu      replaces fused_epilogue
+  fused_epilogue          csrc/epilogue.cu      replaces fused_epilogue;
+                          with ab=, alpha and beta in its store (no
+                          Pallas counterpart: the JAX package applies
+                          them in jnp)
   fused_epilogue_fp8      csrc/epilogue_fp8.cu  replaces fused_epilogue_fp8
   fused_epilogue_complex  csrc/complex.cu       replaces fused_epilogue_complex
   fused_recombine_3m      csrc/complex.cu       replaces fused_recombine_3m
@@ -62,6 +65,7 @@ import re
 import shutil
 import subprocess
 import tempfile
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -69,9 +73,11 @@ import torch
 from . import ff, fp8, quantize, tables
 from .spans import span
 
+# fused_epilogue_ab counts the launches of K2's alpha/beta route, which
+# fused_epilogue counts too
 LAUNCHES = {"shift_fast": 0, "extract_ub": 0, "encode_planes": 0, "encode_lanes": 0,
             "encode_planes_fp8": 0, "encode_lanes_fp8": 0, "fused_epilogue": 0,
-            "fused_epilogue_fp8": 0, "reassemble_fp8": 0,
+            "fused_epilogue_ab": 0, "fused_epilogue_fp8": 0, "reassemble_fp8": 0,
             "fused_epilogue_complex": 0,
             "fused_recombine_3m": 0, "matmul_i8_wgmma_kloop": 0,
             "matmul_i8_wgmma_astat": 0, "transpose_i8": 0,
@@ -89,7 +95,7 @@ PTXAS_FLAGS = ["-Xptxas", "-v"]
 BUILD_LOG: dict[str, str] = {}
 _LIB: ctypes.CDLL | None = None
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_L, _F = ctypes.c_longlong, ctypes.c_float
+_L, _F, _D = ctypes.c_longlong, ctypes.c_float, ctypes.c_double
 # the C entry points' signatures (csrc/*.cu)
 _ARGTYPES = {
     # x0, x1, out, is_f64, rows, cols, ld, lanes, threads, vec, log2p,
@@ -121,6 +127,10 @@ _ARGTYPES = {
     "encode_lanes_fp8": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # c_hi, sft_a, sft_b, out, in_i8, out_f64, m, n, vec, plan, stream
     "fused_epilogue": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
+    # c_hi, sft_a, sft_b, out, c, ldc, mc, nc, cvec, kind, alpha, beta,
+    # out_f64, m, n, plan, stream
+    "fused_epilogue_ab": [_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _D, _D,
+                          _I, _I, _I, _P, _P],
     # c3, sft_a, sft_b, out, out_f64, m, n, vec, plan, stream
     "fused_epilogue_fp8": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
     # c3, out, m, n, vec, accumulate, plan, stream
@@ -936,17 +946,103 @@ def fused_epilogue_plain(c_hi, sft_a, sft_b, num_moduli, backend, out_dtype):
                                    sft_a, sft_b, num_moduli, backend, out_dtype)
 
 
+class AlphaBeta(NamedTuple):
+    """alpha * y + beta * c, applied to an emulated product y in the classes
+    of core.ab_epilogue (core.scalar_kinds): with beta_kind "zero", or c
+    None, no C is read. In fused_epilogue, c is the top-left block of the
+    (m, n) output, whose rest the caller slices away."""
+    c: Optional[torch.Tensor]
+    alpha: float
+    beta: float
+    trivial_alpha: bool
+    beta_kind: str
+
+
+def ab_kind(ab: AlphaBeta) -> int:
+    """K2's alpha/beta kind (csrc/epilogue.cu: AbKind): 0 applies nothing;
+    1 alpha * y; 2-3 y + c, alpha 1 or not; 4-5 general beta."""
+    if ab.c is None or ab.beta_kind == "zero":
+        return 0 if ab.trivial_alpha else 1
+    return (2 if ab.beta_kind == "one" else 4) + (not ab.trivial_alpha)
+
+
+def alpha_beta_plain(y: torch.Tensor, ab: AlphaBeta) -> torch.Tensor:
+    """alpha * y + beta * c as the JAX package's jitted _gemm_real computes
+    it (core.py:330-350) after the "ff" epilogue: the plain version of the
+    alpha/beta store of K2, and core.ab_epilogue's arithmetic. alpha == 1
+    and beta in {0, 1} keep the common paths free of extra multiplies."""
+    out_dtype = y.dtype
+    scalar = lambda v: torch.tensor(v, dtype=torch.float64,  # noqa: E731
+                                    device=y.device).to(out_dtype)
+    c = ab.c
+    if c is None or ab.beta_kind == "zero":
+        return y if ab.trivial_alpha else scalar(ab.alpha) * y
+    if ab.beta_kind == "one":
+        return (y + c if ab.trivial_alpha
+                else torch.addcmul(c, scalar(ab.alpha), y))
+    # Where XLA:CPU contracts alpha*y + beta*c (pinned by
+    # tests/test_torch_gemm_ops.py): a general alpha fuses alpha*y into the
+    # sum for f64 outputs and beta*c for f32 outputs
+    beta_t = scalar(ab.beta)
+    if ab.trivial_alpha:
+        return torch.addcmul(y, beta_t, c)
+    if out_dtype == torch.float64:
+        return torch.addcmul(beta_t * c, scalar(ab.alpha), y)
+    return torch.addcmul(scalar(ab.alpha) * y, beta_t, c)
+
+
+def _check_ab(ab: AlphaBeta, c_hi: torch.Tensor, out: torch.Tensor):
+    """The card's checks of fused_epilogue's alpha/beta route: int32 C_hi
+    in whole vectors, and C an (mc, nc) block of the output's shape, dtype
+    and device with unit column stride. Returns (c, ldc, cvec): C's rows
+    ldc elements apart (0 for one row), cvec whether C loads as whole
+    16-byte vectors."""
+    m, n = out.shape
+    if c_hi.dtype != torch.int32 or not _epilogue_vec(
+            n, EPILOGUE_COLS["fused_epilogue"], c_hi, out):
+        raise ValueError("fused_epilogue: alpha/beta need an int32 c_hi with "
+                         "n a multiple of 4 and 16-byte aligned")
+    c = ab.c if ab_kind(ab) >= 2 else None
+    if c is None:
+        return None, 0, 0
+    if (c.device != out.device or c.dtype != out.dtype or c.dim() != 2
+            or not (1 <= c.shape[0] <= m and 1 <= c.shape[1] <= n)
+            or (c.shape[1] > 1 and c.stride(1) != 1)):
+        raise ValueError(f"fused_epilogue: c must be an (mc, nc) block of the "
+                         f"({m}, n) {out.dtype} output on {out.device}, with "
+                         f"unit column stride")
+    ldc = c.stride(0) if c.shape[0] > 1 else 0
+    cvec = c.data_ptr() % 16 == 0 and ldc * c.element_size() % 16 == 0
+    return c, ldc, cvec
+
+
+def _ab_scalar(v: float, out_dtype) -> float:
+    """A scalar as the output's precision holds it (f32: rounded to
+    nearest, as core.ab_epilogue's .to(out_dtype) rounds)."""
+    return float(np.float32(v)) if out_dtype == torch.float32 else float(v)
+
+
 @span("epilogue")
 def fused_epilogue(c_hi: torch.Tensor, sft_a: torch.Tensor,
                    sft_b: torch.Tensor, num_moduli: int, backend: str,
-                   out_dtype: torch.dtype) -> torch.Tensor:
+                   out_dtype: torch.dtype,
+                   ab: Optional[AlphaBeta] = None) -> torch.Tensor:
     """(nu, m, n) int32 C_hi (or K-chunked residue sums, any int32), or int8
     wrapped residues (fused_recombine_3m's output) -> (m, n) emulated product
     in out_dtype (f32 or f64). The FP8 backend takes int32 only (its K-chunked
-    residue sums): its residues do not fit int8."""
+    residue sums): its residues do not fit int8. With ab, alpha * y + beta *
+    C in the store (int32 C_hi in whole vectors on the card; counted in
+    LAUNCHES["fused_epilogue_ab"] too); outside C's block C reads as 0."""
     if c_hi.device.type == "cpu":
-        return fused_epilogue_plain(c_hi, sft_a, sft_b, num_moduli, backend,
-                                    out_dtype)
+        out = fused_epilogue_plain(c_hi, sft_a, sft_b, num_moduli, backend,
+                                   out_dtype)
+        if ab is None:
+            return out
+        if ab.c is not None and ab.c.shape != out.shape:
+            pad = (0, out.shape[1] - ab.c.shape[1],
+                   0, out.shape[0] - ab.c.shape[0])
+            ab = ab._replace(c=torch.nn.functional.pad(ab.c, pad))
+        return alpha_beta_plain(out, ab)
     _check_nu("fused_epilogue", num_moduli)
     _check_backend("fused_epilogue", backend, (_INT8, _FP8))
     m, n = _check_epilogue("fused_epilogue", c_hi, num_moduli,
@@ -958,6 +1054,19 @@ def fused_epilogue(c_hi: torch.Tensor, sft_a: torch.Tensor,
     if out.numel():
         out_bits = 53 if out_dtype == torch.float64 else 24
         plan = _epilogue_plan(num_moduli, backend, out_bits)
+        kind = 0 if ab is None else ab_kind(ab)
+        if kind:
+            c, ldc, cvec = _check_ab(ab, c_hi, out)
+            _launch("fused_epilogue_ab", c_hi.data_ptr(), sft_a.data_ptr(),
+                    sft_b.data_ptr(), out.data_ptr(),
+                    0 if c is None else c.data_ptr(), ldc,
+                    *((0, 0) if c is None else c.shape), int(cvec), kind,
+                    _ab_scalar(ab.alpha, out_dtype),
+                    _ab_scalar(ab.beta, out_dtype), int(out_bits == 53), m,
+                    n, ctypes.addressof(plan), _stream(c_hi),
+                    count="fused_epilogue")
+            LAUNCHES["fused_epilogue_ab"] += 1
+            return out
         vec = _epilogue_vec(n, EPILOGUE_COLS["fused_epilogue"], c_hi, out)
         _launch("fused_epilogue", c_hi.data_ptr(), sft_a.data_ptr(),
                 sft_b.data_ptr(), out.data_ptr(), int(c_hi.dtype == torch.int8),

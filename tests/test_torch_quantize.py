@@ -153,6 +153,7 @@ def test_encode_wrapper_cpu_takes_plain_version():
                                 "encode_planes": 0, "encode_lanes": 0,
                                 "encode_planes_fp8": 0,
                                 "encode_lanes_fp8": 0, "fused_epilogue": 0,
+                                "fused_epilogue_ab": 0,
                                 "fused_epilogue_fp8": 0, "reassemble_fp8": 0,
                                 "fused_epilogue_complex": 0,
                                 "fused_recombine_3m": 0,
